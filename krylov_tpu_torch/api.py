@@ -1,0 +1,222 @@
+"""SciPy-compatible front door: :func:`solve`, :func:`solve_device` and the
+``cg``/``mrr`` wrappers, with the signatures of :mod:`krylov_tpu.api`.
+
+A solve runs on the device of the operator's tensors; ``b`` and ``x0`` are
+moved there.  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
+systems take the fused whole-solve kernels (:mod:`.kernels.fused`), other
+operators (and ``fused=False``) the eager loops of :mod:`.solvers`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from krylov_tpu_torch.context import Context
+from krylov_tpu_torch.diagnostics import build_info, finish_banner, start_banner
+from krylov_tpu_torch.kernels import _build
+from krylov_tpu_torch.solvers import SolveResult, cg_kernel, mrr_kernel
+from krylov_tpu_torch.solvers._common import check_square
+from krylov_tpu_torch.sparse.formats import StencilMatrix, as_operator
+
+_METHOD_NAMES = {
+    "cg": "CG",
+    "mrr": "MrR",
+    "kskipcg": "k-skip CG",
+    "kskipmrr": "k-skip MrR",
+    "adaptivekskipmrr": "Adaptive k-skip MrR",
+    "cacg": "CA-CG (Chebyshev basis)",
+    "camrr": "CA-MrR (Chebyshev basis)",
+    "pcg": "Preconditioned CG",
+    "chronopoulos_gear": "chronopoulos gear",
+    "gropp": "gropp",
+    "pipelined_cg": "pipeline",
+}
+_KERNELS = {"cg": cg_kernel, "mrr": mrr_kernel}
+
+_KSKIP = "the k-skip family (ROADMAP queue 1, item 6)"
+_CA_PRECOND = "the Chebyshev CA, preconditioned and pipelined solvers (ROADMAP queue 1, item 9)"
+_UNPORTED_METHODS = {
+    "kskipcg": _KSKIP,
+    "kskipmrr": _KSKIP,
+    "adaptivekskipmrr": _KSKIP,
+    **{m: _CA_PRECOND for m in ("cacg", "camrr", "pcg", "chronopoulos_gear", "gropp", "pipelined_cg")},
+}
+
+
+def _check_method(method: str) -> None:
+    if method in _UNPORTED_METHODS:
+        raise NotImplementedError(f"method {method!r} waits for the port of {_UNPORTED_METHODS[method]}")
+    if method not in _KERNELS:
+        raise ValueError(f"unknown method {method!r}; available: {sorted(_METHOD_NAMES)}")
+
+
+def _check_unported(restarts=0, refine=0, chunk_iters=None, mesh=None, M=None,
+                    basis_norm=False, spectral_bounds=None) -> None:
+    """Raise for options this package does not take yet, naming the
+    ROADMAP queue-1 item that brings them."""
+    fidelity = "fidelity: restarts=/refine= (ROADMAP queue 1, item 5)"
+    for name, given, item in (
+        ("restarts", restarts != 0, fidelity),
+        ("refine", refine != 0, fidelity),
+        ("chunk_iters", chunk_iters is not None, "chunked exact continuation (ROADMAP queue 1, item 10)"),
+        ("mesh", mesh is not None, "the distributed port (ROADMAP queue 1, item 11)"),
+        ("M", M is not None, "preconditioners (ROADMAP queue 1, item 9)"),
+        ("basis_norm", bool(basis_norm), _KSKIP),
+        ("spectral_bounds", spectral_bounds is not None, "the Chebyshev CA solvers (ROADMAP queue 1, item 9)"),
+    ):
+        if given:
+            raise NotImplementedError(f"{name}= waits for the port of {item}")
+
+
+def _fused_eligible(A, method: str, M, scalar_dtype, fused) -> bool:
+    """Take the fused whole-solve kernels for 2-D/3-D stencil systems.
+
+    The TPU gates of the JAX package (backend, 32-bit dtype, VMEM size,
+    8-row halo) do not apply: the kernels take float32 and float64, keep
+    their vectors in device memory and read any row displacement."""
+    if fused is False:
+        return False
+    ok = (
+        method in _KERNELS
+        and M is None
+        and scalar_dtype in (None, A.dtype)
+        and isinstance(A, StencilMatrix)
+        and len(A.grid) in (2, 3)  # 3-D runs collapsed (collapse_to_2d)
+    )
+    if fused is True and not ok:
+        raise ValueError(
+            "fused=True requires a 2-D/3-D StencilMatrix system with method in "
+            f"{tuple(_KERNELS)} and no preconditioner"
+        )
+    return ok
+
+
+def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int) -> SolveResult:
+    from krylov_tpu_torch.kernels.fused import TRACE_CAP, fused_cg_solve_2d, fused_mrr_solve_2d
+    from krylov_tpu_torch.kernels.stencil import stencil_matvec
+
+    # x0 shift: solve A dx = b - A x0, return x0 + dx.  The residual history
+    # is the same (r0 = b - A x0 either way); b_norm stays that of the
+    # ORIGINAL b.  A cold start (x0 None) solves for x directly.
+    b_norm = torch.linalg.vector_norm(b)
+    b_eff = b if x0 is None else b - stencil_matvec(A, x0)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    fn = fused_cg_solve_2d if method == "cg" else fused_mrr_solve_2d
+    dx, trace, iters, conv = fn(
+        coef2, b_eff, tol, b_norm, stencil=stencil2, grid=grid2, maxiter=maxiter, sub=sub
+    )
+    trace_len = min(maxiter, TRACE_CAP) + 1
+    return SolveResult(
+        x=dx if x0 is None else x0 + dx,
+        residual_trace=trace,
+        nosl_trace=torch.arange(trace_len, dtype=torch.int32, device=b.device),
+        iterations=iters,
+        # position of the final residual in the (possibly capped) trace
+        index=torch.clamp(iters, max=trace_len - 1),
+        converged=conv,
+        trace_truncated=iters > trace_len - 1,
+    )
+
+
+def _prepare(A, b, x0, maxiter):
+    """``b`` and ``x0`` (None stays None) as contiguous tensors on ``A``'s
+    device and dtype, and the default ``maxiter``."""
+    b = torch.as_tensor(b, device=A.device).to(A.dtype).contiguous()
+    if b.ndim != 1:
+        raise ValueError(f"b must be a vector, got shape {tuple(b.shape)}")
+    n = check_square(A, b)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0, device=A.device).to(A.dtype).contiguous()
+        if x0.shape != b.shape:
+            raise ValueError(f"x0 has shape {tuple(x0.shape)}, b has shape {tuple(b.shape)}")
+    return b, x0, n if maxiter is None else maxiter
+
+
+def _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused) -> SolveResult:
+    if use_fused:
+        return _run_fused(A, b, x0, tol, method, maxiter)
+    ctx = Context(scalar_dtype=scalar_dtype)
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    return _KERNELS[method](A, b, x0, tol=tol, maxiter=maxiter, ctx=ctx)
+
+
+def solve_device(
+    A, b, method: str = "cg", x0=None, tol: float = 1e-5,
+    maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
+    scalar_dtype=None, fused=None, restarts: int = 0, basis_norm: bool = False,
+    spectral_bounds=None,
+) -> SolveResult:
+    """Like :func:`solve` but returns the raw :class:`SolveResult` of device
+    tensors (fixed-shape traces, no host sync, no info dict)."""
+    _check_method(method)
+    _check_unported(restarts=restarts, mesh=mesh, M=M, basis_norm=basis_norm,
+                    spectral_bounds=spectral_bounds)
+    A = as_operator(A)
+    b, x0, maxiter = _prepare(A, b, x0, maxiter)
+    use_fused = _fused_eligible(A, method, M, scalar_dtype, fused)
+    return _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused)
+
+
+def solve(
+    A, b, method: str = "cg", x0=None, tol: float = 1e-5,
+    maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
+    scalar_dtype=None, fused=None, refine: int = 0, restarts: int = 0,
+    chunk_iters: Optional[int] = None, basis_norm: bool = False,
+    spectral_bounds=None, verbose: bool = False,
+):
+    """Solve the SPD system ``A x = b``; returns ``(x, info)``.
+
+    ``x`` is a tensor on the operator's device.  ``info`` holds ``time``
+    (the solve alone, between device synchronisations; a first call's kernel
+    build is reported apart as ``compile_time``), ``nosl``, ``residual``,
+    ``converged``, ``iterations`` and, when the fused path's trace ran past
+    its capacity, ``residual_truncated``.  ``method`` is ``cg`` or ``mrr``;
+    the other options of the JAX package raise ``NotImplementedError``
+    naming the ROADMAP item that ports them.
+    """
+    _check_method(method)
+    _check_unported(restarts=restarts, refine=refine, chunk_iters=chunk_iters, mesh=mesh,
+                    M=M, basis_norm=basis_norm, spectral_bounds=spectral_bounds)
+    A = as_operator(A)
+    b, x0, maxiter = _prepare(A, b, x0, maxiter)
+    use_fused = _fused_eligible(A, method, M, scalar_dtype, fused)
+    if verbose:
+        start_banner(_METHOD_NAMES[method])
+
+    on_cuda = A.device.type == "cuda"
+    compile_time = None
+    if on_cuda:
+        if use_fused and _build.build_seconds is None:
+            _build.library()
+            compile_time = _build.build_seconds
+        torch.cuda.synchronize(A.device)
+    t0 = time.perf_counter()
+    result = _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused)
+    if on_cuda:
+        torch.cuda.synchronize(A.device)
+    elapsed = time.perf_counter() - t0
+
+    info = build_info(result, elapsed)
+    if compile_time:
+        info["compile_time"] = compile_time
+    if verbose:
+        finish_banner(elapsed, info["converged"], info["iterations"], info["residual"][-1])
+    return result.x, info
+
+
+def _scipy_style(method: str):
+    def f(A, b, x=None, tol=1e-05, maxiter=None, k=0, M=None, callback=None, atol=None, **kw):
+        # callback/atol: accepted and unused, as in the JAX package
+        return solve(A, b, method=method, x0=x, tol=tol, maxiter=maxiter, k=k, M=M, **kw)
+
+    f.__name__ = method
+    f.__doc__ = f"Reference-compatible wrapper for method={method!r}; see :func:`solve`."
+    return f
+
+
+cg = _scipy_style("cg")
+mrr = _scipy_style("mrr")

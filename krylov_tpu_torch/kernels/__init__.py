@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels for the stencil main path, each beside its
+plain PyTorch version (used for CPU tensors and as the reference on the
+card).  Sources are in ``csrc/``; :mod:`._build` compiles them at first use.
+"""
+
+from krylov_tpu_torch.kernels.fused import (
+    TRACE_CAP,
+    fused_cg_solve_2d,
+    fused_cg_solve_2d_reference,
+    fused_mrr_solve_2d,
+    fused_mrr_solve_2d_reference,
+)
+from krylov_tpu_torch.kernels.stencil import (
+    stencil_matvec,
+    stencil_matvec_2d,
+    stencil_matvec_2d_reference,
+)
+
+__all__ = [
+    "TRACE_CAP",
+    "fused_cg_solve_2d",
+    "fused_cg_solve_2d_reference",
+    "fused_mrr_solve_2d",
+    "fused_mrr_solve_2d_reference",
+    "stencil_matvec",
+    "stencil_matvec_2d",
+    "stencil_matvec_2d_reference",
+]

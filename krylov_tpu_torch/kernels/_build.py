@@ -1,0 +1,103 @@
+"""Build and load the CUDA kernels: ``nvcc`` into one shared library with a
+plain C interface, loaded through ``ctypes``.
+
+The library is built at first use into ``kernels/_build/``, named by a hash
+of the sources and the flags, so a changed source builds anew and an
+unchanged one loads the library already there.  Nothing here runs at
+import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+SOURCES = ("stencil.cu", "fused.cu")
+HEADERS = ("stencil.cuh",)
+MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", f"-DKRYLOV_MAX_TERMS={MAX_TERMS}",
+)
+
+_lib = None
+build_seconds = None  # wall time of the build (or load) that made _lib
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under PyTorch's ``CUDA_HOME``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *FLAGS, "-o", tmp, *(str(_CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    geom = [i, i, i, i, i, p]  # ns, g0, g1, g2, is_const, disp
+    lib.krylov_stencil2d.argtypes = [i, p, p, p, *geom, p]
+    lib.krylov_stencil2d.restype = i
+    lib.krylov_fused_workspace.argtypes = [
+        i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+    ]
+    lib.krylov_fused_workspace.restype = i
+    lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
+    lib.krylov_fused_solve.restype = i
+    lib.krylov_error_string.argtypes = [i]
+    lib.krylov_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds
+    if _lib is None:
+        t0 = time.perf_counter()
+        path = BUILD_DIR / f"libkrylov_kernels_{_digest()}.so"
+        if not path.exists():
+            _compile(path)
+        _lib = _bind(ctypes.CDLL(str(path)))
+        build_seconds = time.perf_counter() - t0
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        name = library().krylov_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: cudaError {err} ({name})")

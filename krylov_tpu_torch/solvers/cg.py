@@ -1,0 +1,66 @@
+"""Conjugate gradient as an eager loop (any operator with ``matvec``).
+
+Numerics follow :func:`krylov_tpu.solvers.cg.cg_kernel`: per iteration one
+SpMV, ``sigma = <p, Ap>``, ``alpha = gamma/sigma``, ``x += alpha p``,
+``r -= alpha v``, ``beta = gamma'/gamma``, ``p = r + beta p``, with
+convergence on ``||r||/||b|| < tol`` checked before the update.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
+from krylov_tpu_torch.solvers._common import (
+    SYNC_EVERY,
+    SolveResult,
+    record_final,
+    safe_div,
+    scalar_dtype_of,
+    scale,
+)
+
+
+def cg_kernel(
+    A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
+    ctx: Context = DEFAULT_CONTEXT,
+) -> SolveResult:
+    dev = b.device
+    b_norm = ctx.norm(b)
+    x = x0
+    r = b - ctx.matvec(A, x0)
+    p = r
+    gamma = ctx.dot(r, r)
+
+    trace = torch.zeros(maxiter + 1, dtype=scalar_dtype_of(ctx, b), device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    for step in range(maxiter):
+        res = torch.sqrt(gamma) / b_norm
+        trace.index_copy_(0, i.view(1), res.view(1))
+        conv = res < tol
+
+        v = ctx.matvec(A, p)
+        alpha = safe_div(gamma, ctx.dot(p, v))
+        x_n = x + scale(alpha, p)
+        r_n = r - scale(alpha, v)
+        gamma_n = ctx.dot(r_n, r_n)
+        p_n = r_n + scale(safe_div(gamma_n, gamma), p)
+
+        x, r, p, gamma = (
+            torch.where(conv, old, new)
+            for old, new in ((x, x_n), (r, r_n), (p, p_n), (gamma, gamma_n))
+        )
+        i = i + (~conv).to(i.dtype)
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+            break
+
+    record_final(trace, i, conv, torch.sqrt(gamma) / b_norm)
+    return SolveResult(
+        x=x,
+        residual_trace=trace,
+        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev),
+        iterations=i,
+        index=i,
+        converged=conv,
+    )

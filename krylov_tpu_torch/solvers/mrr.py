@@ -1,0 +1,80 @@
+"""MrR (minimum-residual 2-term recurrence) as an eager loop.
+
+Numerics follow :func:`krylov_tpu.solvers.mrr.mrr_kernel`: an initial
+half-iteration sets ``zeta = <r,Ar>/<Ar,Ar>``, ``y = zeta Ar``,
+``z = -zeta r``; each iteration then computes ``gamma = <y,Ar>/<y,y>``,
+``s = Ar - gamma y``, ``zeta = <r,s>/<s,s>``, ``eta = -zeta gamma`` and
+updates ``y, z, r, x`` by the 2-term recurrences.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
+from krylov_tpu_torch.solvers._common import (
+    SYNC_EVERY,
+    SolveResult,
+    record_final,
+    safe_div,
+    scalar_dtype_of,
+    scale,
+)
+
+
+def mrr_kernel(
+    A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
+    ctx: Context = DEFAULT_CONTEXT,
+) -> SolveResult:
+    dev, dt = b.device, b.dtype
+    sdt = scalar_dtype_of(ctx, b)
+    b_norm = ctx.norm(b)
+    trace = torch.zeros(maxiter + 1, dtype=sdt, device=dev)
+
+    # initial residual + half-iteration
+    r = b - ctx.matvec(A, x0)
+    trace[0] = ctx.norm(r) / b_norm
+    Ar = ctx.matvec(A, r)
+    rAr, ArAr = ctx.dot_bundle([(r, Ar), (Ar, Ar)])
+    zeta = safe_div(rAr, ArAr)
+    y = scale(zeta, Ar)
+    z = scale(-zeta, r)
+    r = r - y
+    x = x0 - z
+
+    i = torch.ones((), dtype=torch.int64, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    for step in range(maxiter - 1):
+        Ar = ctx.matvec(A, r)
+        rr, mu, nu = ctx.dot_bundle([(r, r), (y, y), (y, Ar)])
+        res = torch.sqrt(rr) / b_norm
+        trace.index_copy_(0, i.view(1), res.view(1))
+        conv = res < tol
+
+        gamma = safe_div(nu, mu)
+        s = Ar - scale(gamma, y)
+        rs, ss = ctx.dot_bundle([(r, s), (s, s)])
+        zeta = safe_div(rs, ss)
+        eta = -zeta * gamma
+        y_n = (eta * y.to(sdt) + zeta * Ar.to(sdt)).to(dt)
+        z_n = (eta * z.to(sdt) - zeta * r.to(sdt)).to(dt)
+        r_n = r - y_n
+        x_n = x - z_n
+
+        x, r, y, z = (
+            torch.where(conv, old, new)
+            for old, new in ((x, x_n), (r, r_n), (y, y_n), (z, z_n))
+        )
+        i = i + (~conv).to(i.dtype)
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+            break
+
+    record_final(trace, i, conv, ctx.norm(r) / b_norm)
+    return SolveResult(
+        x=x,
+        residual_trace=trace,
+        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev),
+        iterations=i,
+        index=i,
+        converged=conv,
+    )
