@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, then drives the main path:
-``krylov_tpu_torch.solve`` with MrR and CG on the 2-D 5-point Laplacian at
-N = 250,000 (constant-weight stencil form) in float64 and float32, and a
-float64 MrR warm-started from the float32 answer.  It checks the float64
-solves against a scipy/numpy float64 reference (same iteration count, true
-residual below tol), holds the fused kernels against their plain versions
-at that size in both dtypes while it times them with CUDA events, and
-prints a JSON line of the kernels and last a JSON line with the device.
+against its plain PyTorch version on the card, then drives two paths of
+``krylov_tpu_torch.solve`` on the 2-D 5-point Laplacian at N = 250,000
+(constant-weight stencil form) in float64 and float32: MrR and CG (and a
+float64 MrR warm-started from the float32 answer), then k-skip CG (k=4),
+k-skip MrR (k=4) and adaptive k-skip MrR (k=8).  It checks the float64
+solves against float64 references (scipy/numpy MrR and CG; the JAX
+package's counts for the k-skip family) with the true residual below tol,
+holds the fused kernels against their plain versions at that size while it
+times them with CUDA events, and prints a JSON line of the kernels and last
+a JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
 no CUDA device it exits 1 before printing a result.
@@ -36,6 +38,55 @@ TOLS = {
     "float64": dict(trace_rtol=1e-9, x_rtol=1e-8, x_atol=1e-12),
     "float32": dict(trace_rtol=1e-4, x_rtol=1e-4, x_atol=1e-3),
 }
+
+
+# fused k-skip kernel (K5/K6) against its plain version, the eager loop on
+# the same stencil: equal counts, nosl, ktrace and final k, the residual
+# trace within trace_rtol entry by entry and max |x - x_plain| / max
+# |x_plain| within x_rel.  Each limit sits 10x above the largest reading on
+# an H100 (700 W) over the seeds of its phase (beside it; PERF.md, PR 2).
+# The k-step recurrences amplify the rounding of the inner products, by
+# about 1e6 at k = 4 and 1e12 at k = 8 (the float64 readings over eps), so
+# the float64 limits grow with k.  In float32 that leaves no reproducible
+# trajectory at k >= 4: there a kernel is held over its first outer
+# iteration against the plain version in float64 on the same inputs (its
+# float32 rounding, all digits of it at k = 8), and whole float32 solves
+# are held at k = 1 and 2 and in the rollback case.
+KSKIP_SMALL_TOLS = {  # whole solves; ("float32", 4): the first outer iteration
+    ("float64", 1): dict(trace_rtol=2.3e-13, x_rel=2.1e-14),  # 2.207e-14, 2.005e-15
+    ("float64", 2): dict(trace_rtol=4.6e-14, x_rel=1.3e-13),  # 4.588e-15, 1.283e-14
+    ("float64", 4): dict(trace_rtol=3e-8, x_rel=5.4e-11),  # 2.938e-09, 5.354e-12
+    ("float64", "rollback"): dict(trace_rtol=6.2e-6, x_rel=4.1e-15),  # 6.149e-07, 4.034e-16
+    ("float32", 1): dict(trace_rtol=6.9e-4, x_rel=1.5e-5),  # 6.841e-05, 1.480e-06
+    ("float32", 2): dict(trace_rtol=4.3e-2, x_rel=1.4e-4),  # 4.287e-03, 1.339e-05
+    ("float32", 4): dict(trace_rtol=0.23, x_rel=0.23),  # 2.24e-02, 2.25e-02
+    ("float32", "rollback"): dict(trace_rtol=0.12, x_rel=1.3e-6),  # 1.109e-02, 1.234e-07
+}
+KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS
+    ("kskipcg", 4, "float64"): dict(trace_rtol=1.1e-8, x_rel=3.1e-10),  # 1.091e-09, 3.018e-11
+    ("kskipmrr", 4, "float64"): dict(trace_rtol=2.9e-14, x_rel=2.9e-9),  # 2.834e-15, 2.887e-10
+    ("kskipmrr", 8, "float64"): dict(trace_rtol=1.8e-2, x_rel=2.1e-3),  # 1.762e-03, 2.033e-04
+    ("adaptivekskipmrr", 8, "float64"): dict(trace_rtol=1.8e-2, x_rel=2.1e-3),  # the same
+    ("kskipcg", 1, "float32"): dict(trace_rtol=4.8e-3, x_rel=1.4e-4),  # 4.724e-04, 1.337e-05
+    ("kskipmrr", 2, "float32"): dict(trace_rtol=7.2e-2, x_rel=4.3e-3),  # 7.171e-03, 4.227e-04
+    # the first outer iteration, against the float64 plain version
+    ("kskipcg", 4, "float32"): dict(trace_rtol=0.25, x_rel=6.5e-2),  # 2.48e-02, 6.48e-03
+    ("kskipmrr", 4, "float32"): dict(trace_rtol=6.5e-3, x_rel=0.12),  # 6.49e-04, 1.13e-02
+    ("adaptivekskipmrr", 8, "float32"): dict(trace_rtol=7.9, x_rel=4.9),  # 0.783, 0.481: no digit left
+}
+# The k-skip main path, with the counts of krylov_tpu.solve (the JAX
+# package) on the CPU with x64 on the same system, b, tol and maxiter:
+# (iterations, outer iterations = len(residual) - 1) in float64; in float32
+# it gave 1460, 3001 (not converged) and 1083 (final k 3), not held here.
+KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
+KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
+SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
+
+
+def first_outer(method, k, outer):
+    """maxiter that stops a k-skip solve after ``outer`` outer iterations
+    (k-skip MrR spends one iteration on its init half-step)."""
+    return outer * (k + 1) + (method != "kskipcg")
 
 
 def phase(msg: str) -> None:
@@ -147,6 +198,76 @@ def compare_solves(label, got, want, trace_rtol, x_rtol, x_atol):
     return x_err
 
 
+def advection(device):
+    """The non-normal 16x16 advection-like stencil of tests/test_kernels.py,
+    grid-coefficient form: adaptive k-skip MrR rolls back on it."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch.sparse import StencilMatrix
+
+    g, eps = (16, 16), 0.5
+    iy, ix = np.arange(g[0])[:, None], np.arange(g[1])[None, :]
+    coef = np.stack([
+        -(1 + eps) * np.broadcast_to(iy > 0, g).astype(float),
+        -(1 + eps) * np.broadcast_to(ix > 0, g).astype(float),
+        np.full(g, 4.5),
+        -(1 - eps) * np.broadcast_to(ix < g[1] - 1, g).astype(float),
+        -(1 - eps) * np.broadcast_to(iy < g[0] - 1, g).astype(float),
+    ])
+    return StencilMatrix(torch.from_numpy(coef).to(device), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), g)
+
+
+def kskip_call(method, k, A, b, tol, maxiter, plain=False, plain64=False):
+    """The fused k-skip kernel (or its plain version; ``plain64``: the plain
+    version in float64 on the same values) for ``method`` on ``A x = b``
+    from x0 = 0, in K5's output layout ``(x, trace, nosl, ktrace, iters,
+    conv, index, final_k)`` (K6 gives None for ktrace and final_k)."""
+    import torch
+
+    from krylov_tpu_torch.kernels import fused_kskip as fk
+
+    if plain64:
+        A, b, plain = type(A)(A.coef.double(), A.stencil, A.grid), b.double(), True
+    coef2, st2, g2, sub = A.collapse_to_2d()
+    b_norm = torch.linalg.vector_norm(b)
+    kw = dict(stencil=st2, grid=g2, maxiter=maxiter, k_max=max(k, 1), sub=sub)
+    if method == "kskipcg":
+        fn = fk.fused_kskipcg_solve_2d_reference if plain else fk.fused_kskipcg_solve_2d
+        x, t, n, i, c, idx = fn(coef2, b, tol, b_norm, k, **kw)
+        return x, t, n, None, i, c, idx, None
+    fn = fk.fused_kskipmrr_solve_2d_reference if plain else fk.fused_kskipmrr_solve_2d
+    return fn(coef2, b, tol, b_norm, k, adaptive=method == "adaptivekskipmrr", **kw)
+
+
+def compare_kskip(label, got, want, trace_rtol, x_rel):
+    """Hold a fused k-skip kernel's output against its plain version's (in
+    float64, whatever the dtypes): equal iterations, outer iterations,
+    convergence, nosl and (K5) ktrace and final k; traces within
+    ``trace_rtol`` entry by entry, max |x - x_plain| / max |x_plain| within
+    ``x_rel``.  Prints the errors first; returns max |x - x_plain|."""
+    import torch
+
+    (x, t, n, kt, i, c, idx, f), (xr, tr, nr, ktr, ir, cr, idr, fr) = got, want
+    x, t, xr, tr = x.double(), t.double(), xr.double(), tr.double()
+    m = min(int(idx), int(idr)) + 1
+    t_err = float(((t[:m] - tr[:m]).abs() / tr[:m].abs()).max())
+    x_err = float((x - xr).abs().max())
+    x_rel_err = x_err / float(xr.abs().max())
+    fk = "" if f is None else f", final k {int(f)} (plain {int(fr)})"
+    phase(f"  {label}: iters {int(i)} (plain {int(ir)}), outer {int(idx)} (plain {int(idr)}), "
+          f"conv {bool(c)} (plain {bool(cr)}){fk}, trace max rel err {t_err:.3e} (tol {trace_rtol:g}), "
+          f"x max abs err {x_err:.3e} = {x_rel_err:.3e} of max |x| (tol {x_rel:g})")
+    if (int(i), int(idx), bool(c)) != (int(ir), int(idr), bool(cr)):
+        raise AssertionError(f"{label}: counts differ from the plain version")
+    if not torch.equal(n[:m], nr[:m]) or (kt is not None and (not torch.equal(kt[:m], ktr[:m]) or int(f) != int(fr))):
+        raise AssertionError(f"{label}: nosl, ktrace or final k differ from the plain version")
+    torch.testing.assert_close(t[:m], tr[:m], rtol=trace_rtol, atol=0)
+    if not x_rel_err <= x_rel:
+        raise AssertionError(f"{label}: x differs from the plain version by {x_rel_err:.3e} of max |x|")
+    return x_err
+
+
 def device_us(fn, kernel: str, reps: int):
     """Mean device time in microseconds of the CUDA kernel whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls; None when the
@@ -175,7 +296,7 @@ def main() -> int:
     import numpy as np
 
     import krylov_tpu_torch
-    from krylov_tpu_torch.kernels import _build, fused, stencil
+    from krylov_tpu_torch.kernels import _build, fused, fused_kskip, stencil
     from krylov_tpu_torch.sparse import fixtures
 
     dev = torch.device("cuda")
@@ -232,6 +353,41 @@ def main() -> int:
                            kern(coef2, b, 1e-8, b_norm, **kw), plain(coef2, b, 1e-8, b_norm, **kw),
                            **TOLS["float64"])
 
+    # 4b. K5/K6 against their plain versions on small grids, two seeds:
+    # whole solves in float64, and in float32 at k <= 2; the float32 k = 4
+    # solves over their first outer iteration against the float64 plain
+    # version; then the adaptive rollback case in both
+    kernel_id = {"kskipcg": "K6", "kskipmrr": "K5", "adaptivekskipmrr": "K5 adaptive"}
+    for dt, tol in ((f64, 1e-8), (f32, 1e-5)):
+        name = str(dt).removeprefix("torch.")
+        for make, label in (
+            (lambda: fixtures.laplace2d(64, dtype=dt, device=dev), "laplace2d(64)"),
+            (lambda: fixtures.laplace2d(64, dtype=dt, constant=True, device=dev), "laplace2d(64, constant)"),
+            (lambda: fixtures.laplace3d(16, dtype=dt, constant=True, device=dev), "laplace3d(16, constant)"),
+        ):
+            A = make()
+            for seed in (12, 13):
+                b = torch.from_numpy(np.random.default_rng(seed).standard_normal(A.shape[0])).to(dev, dt)
+                for m, k in (("kskipcg", 1), ("kskipcg", 4), ("kskipmrr", 2), ("kskipmrr", 4),
+                             ("adaptivekskipmrr", 4)):
+                    first = dt == f32 and k >= 4
+                    maxiter = first_outer(m, k, 1) if first else A.shape[0]
+                    compare_kskip(f"{kernel_id[m]} {m} k={k} {label} {name} seed {seed}"
+                                  + (f", maxiter {maxiter} against float64" if first else ""),
+                                  kskip_call(m, k, A, b, tol, maxiter),
+                                  kskip_call(m, k, A, b, tol, maxiter, plain=True, plain64=first),
+                                  **KSKIP_SMALL_TOLS[name, k])
+        adv = advection(dev)
+        A = type(adv)(adv.coef.to(dt), adv.stencil, adv.grid)
+        for seed in (3, 4):
+            b = torch.from_numpy(np.random.default_rng(seed).standard_normal(A.shape[0])).to(dev, dt)
+            got = kskip_call("adaptivekskipmrr", 6, A, b, tol, 2000)
+            want = kskip_call("adaptivekskipmrr", 6, A, b, tol, 2000, plain=True)
+            compare_kskip(f"K5 adaptive rollback, advection 16x16 k=6 {name} seed {seed}", got, want,
+                          **KSKIP_SMALL_TOLS[name, "rollback"])
+            if not (int(got[7]) < 6 and int(want[7]) < 6):
+                raise AssertionError(f"the advection case did not roll back ({name}, seed {seed})")
+
     # 5. the main path through solve(), counters from this run only
     b_np = np.random.default_rng(0).standard_normal(NX * NX)
     runs = [("mrr", f64), ("cg", f64), ("mrr", f32), ("cg", f32)]
@@ -276,6 +432,50 @@ def main() -> int:
             if not (info["converged"] and true_res < TOL):
                 raise AssertionError(f"{m} f64 did not converge to the true residual (true {true_res:.3e})")
 
+    # 5b. the k-skip path through solve(), counters from this run only
+    counted_k = (fused_kskip.fused_kskipcg_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
+    for fn in counted_k:
+        fn.launches = 0
+    kres = {}
+    for dt in (f64, f32):
+        for m, k in KSKIP_RUNS.items():
+            kres[m, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)
+    klaunches = {fn.__name__: fn.launches for fn in counted_k}
+    phase(f"k-skip path launches: {klaunches}")
+    for name, count in klaunches.items():
+        if count < 1:
+            raise AssertionError(f"the k-skip path never launched {name}")
+    # the eager loops on the card: an independent second route, float64; in
+    # float32 printed only, also with float64 inner products
+    for m, k in KSKIP_RUNS.items():
+        for label, dt, sdt in ((" eager", f64, None), (" eager", f32, None), (" eager f64 sums", f32, f64)):
+            kres[m + label, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, k=k, tol=TOL, maxiter=MAXITER,
+                                                         fused=False, scalar_dtype=sdt)
+    ksummary = {}
+    for (m, dt), (x, info) in kres.items():
+        x64 = x.double().cpu().numpy()
+        true_res = float(np.linalg.norm(b_np - A_csr @ x64) / b_nrm)
+        if x64.shape != (NX * NX,):
+            raise AssertionError(f"solve {m} {dt}: x of the wrong shape")
+        outer = len(info["residual"]) - 1
+        kh = info.get("khistory")
+        extra = "" if kh is None else f", final k {info['final_k']}, rolled back: {bool((kh < kh[0]).any())}"
+        phase(f"solve {m} {dt}: iters {info['iterations']}, outer {outer}, converged {info['converged']}, "
+              f"recurred res {info['residual'][-1]:.6e}, true res {true_res:.6e}{extra}, "
+              f"solve() wall {info['time'] * 1e3:.3f} ms")
+        ksummary[m, dt] = info["iterations"]
+        if dt != f64:
+            continue
+        base = m.removesuffix(" eager")
+        if (info["iterations"], outer) != KSKIP_F64[base]:
+            phase(f"  residuals near the crossing: {info['residual'][-4:]}")
+            raise AssertionError(f"{m} f64: {info['iterations']} iterations, {outer} outer; "
+                                 f"the JAX package gives {KSKIP_F64[base]}")
+        if not (info["converged"] and np.all(np.isfinite(x64)) and true_res < TOL):
+            raise AssertionError(f"{m} f64 did not converge to the true residual (true {true_res:.3e})")
+        if base == "adaptivekskipmrr" and info["final_k"] != KSKIP_RUNS[base]:
+            raise AssertionError(f"{m} f64 ended at k {info['final_k']}, the JAX package at 8")
+
     # 6. K2/K3 against their plain versions at the main-path shape, timed:
     # median of 3 fresh b
     ms, k23_err = {}, {}
@@ -311,6 +511,50 @@ def main() -> int:
         phase(f"K1 SpMV {dt} N={NX * NX}: kernel {t_k * 1e3:.3f} us ({ops[dt].nnz / (t_k * 1e-3) / 1e9:.3f} Gnnz/s), "
               f"plain {t_p * 1e3:.3f} us ({ops[dt].nnz / (t_p * 1e-3) / 1e9:.3f} Gnnz/s)")
 
+    # 6b. K5/K6 against their plain versions at the main-path shape on
+    # SEEDS, the kernel timed as the median over them, the plain version too;
+    # static k-skip MrR k=8 stands beside adaptive k=8 as a witness that the
+    # gap comes from k.  Then the whole float32 solves that are not held
+    # (see KSKIP_FULL), printed side by side.
+    kms, kerr = {}, {}
+    for (m, k, name), tols in KSKIP_FULL.items():
+        dt = getattr(torch, name)
+        first = dt == f32 and k >= 4
+        maxiter = first_outer(m, k, 1) if first else MAXITER
+        t_k, t_p, errs = [], [], []
+        for seed in SEEDS:
+            b = torch.from_numpy(np.random.default_rng(seed).standard_normal(NX * NX)).to(dev, dt)
+            tk, got = cuda_ms(lambda: kskip_call(m, k, ops[dt], b, TOL, maxiter))
+            tp, want = cuda_ms(lambda: kskip_call(m, k, ops[dt], b, TOL, maxiter, plain=True, plain64=first))
+            t_k.append(tk)
+            t_p.append(tp)
+            errs.append(compare_kskip(f"{kernel_id[m]} {m} k={k} laplace2d({NX}, constant) {name} seed {seed}"
+                                      + (f", maxiter {maxiter} against float64" if first else ""),
+                                      got, want, **tols))
+        kms[m, k, name] = (statistics.median(t_k), statistics.median(t_p))
+        kerr[m, k, name] = max(errs)
+        blocks = fused_kskip.workspace(m.removeprefix("adaptive"), dt, NX * NX, max(k, 1))[0]
+        phase(f"time-to-solution {m} k={k} {name} N={NX * NX}"
+              + (f" maxiter {maxiter}" if first else "") + f": kernel {kms[m, k, name][0]:.3f} ms, "
+              f"plain {kms[m, k, name][1]:.3f} ms (median over seeds {SEEDS}, CUDA events); "
+              f"grid {blocks} blocks of 256 threads")
+    for m, k in (("kskipcg", 4), ("kskipmrr", 4), ("adaptivekskipmrr", 8)):
+        for seed in SEEDS:
+            b = torch.from_numpy(np.random.default_rng(seed).standard_normal(NX * NX)).to(dev, f32)
+            (_, t, _, _, i, c, idx, f), (_, tr, _, _, ir, cr, idr, fr) = (
+                kskip_call(m, k, ops[f32], b, TOL, MAXITER), kskip_call(m, k, ops[f32], b, TOL, MAXITER, plain=True))
+            last = fused_kskip.trace_length(MAXITER) - 1
+            phase(f"  float32 whole solve, not held: {m} k={k} seed {seed}: kernel {int(i)} iterations, "
+                  f"conv {bool(c)}, recurred res {float(t[min(int(idx), last)]):.6e}"
+                  + ("" if f is None else f", final k {int(f)}") + f"; plain {int(ir)}, conv {bool(cr)}, "
+                  f"recurred res {float(tr[min(int(idr), last)]):.6e}" + ("" if fr is None else f", final k {int(fr)}"))
+    b64 = torch.from_numpy(np.random.default_rng(SEEDS[-1]).standard_normal(NX * NX)).to(dev)
+    for m, k in KSKIP_RUNS.items():
+        us = device_us(lambda: kskip_call(m, k, ops[f64], b64, TOL, MAXITER),
+                       "kskipcg_fused_kernel" if m == "kskipcg" else "kskipmrr_fused_kernel", 1)
+        phase(f"device time {m} k={k} float64 (torch.profiler, seed {SEEDS[-1]}): "
+              f"{'not measured' if us is None else f'{us:.3f} us'}")
+
     # kernel time alone, from the profiler: a K1 call through the wrapper
     # costs host time too, and K2/K3 add the wrapper's few small launches
     for dt in (f64, f32):
@@ -342,6 +586,14 @@ def main() -> int:
         {"name": "fused_cg_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused.cu",
          "replaces": "krylov_tpu/kernels/fused.py:259", "launches": launches["fused_cg_solve_2d"],
          "max_abs_err": k23_err["cg", f64], "ms": ms["cg", f64][0], "plain_ms": ms["cg", f64][1]},
+        {"name": "fused_kskipmrr_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
+         "replaces": "krylov_tpu/kernels/fused_kskip.py:528", "launches": klaunches["fused_kskipmrr_solve_2d"],
+         "max_abs_err": max(kerr["kskipmrr", 4, "float64"], kerr["adaptivekskipmrr", 8, "float64"]),
+         "ms": kms["kskipmrr", 4, "float64"][0], "plain_ms": kms["kskipmrr", 4, "float64"][1]},
+        {"name": "fused_kskipcg_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
+         "replaces": "krylov_tpu/kernels/fused_kskip.py:629", "launches": klaunches["fused_kskipcg_solve_2d"],
+         "max_abs_err": kerr["kskipcg", 4, "float64"], "ms": kms["kskipcg", 4, "float64"][0],
+         "plain_ms": kms["kskipcg", 4, "float64"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """SciPy-compatible front door: :func:`solve`, :func:`solve_device` and the
-``cg``/``mrr`` wrappers, with the signatures of :mod:`krylov_tpu.api`.
+``cg``/``mrr``/``kskipcg``/``kskipmrr``/``adaptivekskipmrr`` wrappers, with
+the signatures of :mod:`krylov_tpu.api`.
 
 A solve runs on the device of the operator's tensors; ``b`` and ``x0`` are
 moved there.  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
-systems take the fused whole-solve kernels (:mod:`.kernels.fused`), other
-operators (and ``fused=False``) the eager loops of :mod:`.solvers`.
+systems take the fused whole-solve kernels (:mod:`.kernels.fused`,
+:mod:`.kernels.fused_kskip`), other operators (and ``fused=False``,
+``basis_norm=True`` or a wider ``scalar_dtype``) the eager loops of
+:mod:`.solvers`.
 """
 
 from __future__ import annotations
@@ -17,7 +20,14 @@ import torch
 from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.diagnostics import build_info, finish_banner, start_banner
 from krylov_tpu_torch.kernels import _build
-from krylov_tpu_torch.solvers import SolveResult, cg_kernel, mrr_kernel
+from krylov_tpu_torch.solvers import (
+    SolveResult,
+    adaptivekskipmrr_kernel,
+    cg_kernel,
+    kskipcg_kernel,
+    kskipmrr_kernel,
+    mrr_kernel,
+)
 from krylov_tpu_torch.solvers._common import check_square
 from krylov_tpu_torch.sparse.formats import StencilMatrix, as_operator
 
@@ -34,15 +44,18 @@ _METHOD_NAMES = {
     "gropp": "gropp",
     "pipelined_cg": "pipeline",
 }
-_KERNELS = {"cg": cg_kernel, "mrr": mrr_kernel}
+_KERNELS = {
+    "cg": cg_kernel,
+    "mrr": mrr_kernel,
+    "kskipcg": kskipcg_kernel,
+    "kskipmrr": kskipmrr_kernel,
+    "adaptivekskipmrr": adaptivekskipmrr_kernel,
+}
+_KSKIP_METHODS = ("kskipcg", "kskipmrr", "adaptivekskipmrr")
 
-_KSKIP = "the k-skip family (ROADMAP queue 1, item 6)"
 _CA_PRECOND = "the Chebyshev CA, preconditioned and pipelined solvers (ROADMAP queue 1, item 9)"
 _UNPORTED_METHODS = {
-    "kskipcg": _KSKIP,
-    "kskipmrr": _KSKIP,
-    "adaptivekskipmrr": _KSKIP,
-    **{m: _CA_PRECOND for m in ("cacg", "camrr", "pcg", "chronopoulos_gear", "gropp", "pipelined_cg")},
+    m: _CA_PRECOND for m in ("cacg", "camrr", "pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
 }
 
 
@@ -54,7 +67,7 @@ def _check_method(method: str) -> None:
 
 
 def _check_unported(restarts=0, refine=0, chunk_iters=None, mesh=None, M=None,
-                    basis_norm=False, spectral_bounds=None) -> None:
+                    spectral_bounds=None) -> None:
     """Raise for options this package does not take yet, naming the
     ROADMAP queue-1 item that brings them."""
     fidelity = "fidelity: restarts=/refine= (ROADMAP queue 1, item 5)"
@@ -64,7 +77,6 @@ def _check_unported(restarts=0, refine=0, chunk_iters=None, mesh=None, M=None,
         ("chunk_iters", chunk_iters is not None, "chunked exact continuation (ROADMAP queue 1, item 10)"),
         ("mesh", mesh is not None, "the distributed port (ROADMAP queue 1, item 11)"),
         ("M", M is not None, "preconditioners (ROADMAP queue 1, item 9)"),
-        ("basis_norm", bool(basis_norm), _KSKIP),
         ("spectral_bounds", spectral_bounds is not None, "the Chebyshev CA solvers (ROADMAP queue 1, item 9)"),
     ):
         if given:
@@ -94,8 +106,8 @@ def _fused_eligible(A, method: str, M, scalar_dtype, fused) -> bool:
     return ok
 
 
-def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int) -> SolveResult:
-    from krylov_tpu_torch.kernels.fused import TRACE_CAP, fused_cg_solve_2d, fused_mrr_solve_2d
+def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int, k: int) -> SolveResult:
+    from krylov_tpu_torch.kernels import fused, fused_kskip
     from krylov_tpu_torch.kernels.stencil import stencil_matvec
 
     # x0 shift: solve A dx = b - A x0, return x0 + dx.  The residual history
@@ -104,20 +116,50 @@ def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int) -> Solve
     b_norm = torch.linalg.vector_norm(b)
     b_eff = b if x0 is None else b - stencil_matvec(A, x0)
     coef2, stencil2, grid2, sub = A.collapse_to_2d()
-    fn = fused_cg_solve_2d if method == "cg" else fused_mrr_solve_2d
-    dx, trace, iters, conv = fn(
-        coef2, b_eff, tol, b_norm, stencil=stencil2, grid=grid2, maxiter=maxiter, sub=sub
-    )
-    trace_len = min(maxiter, TRACE_CAP) + 1
+    kw = dict(stencil=stencil2, grid=grid2, maxiter=maxiter, sub=sub)
+
+    def shifted(dx):
+        return dx if x0 is None else x0 + dx
+
+    if method in ("cg", "mrr"):
+        fn = fused.fused_cg_solve_2d if method == "cg" else fused.fused_mrr_solve_2d
+        dx, trace, iters, conv = fn(coef2, b_eff, tol, b_norm, **kw)
+        trace_len = min(maxiter, fused.TRACE_CAP) + 1
+        return SolveResult(
+            x=shifted(dx),
+            residual_trace=trace,
+            nosl_trace=torch.arange(trace_len, dtype=torch.int32, device=b.device),
+            iterations=iters,
+            # position of the final residual in the (possibly capped) trace
+            index=torch.clamp(iters, max=trace_len - 1),
+            converged=conv,
+            trace_truncated=iters > trace_len - 1,
+        )
+
+    trace_len = fused_kskip.trace_length(maxiter)
+    kw["k_max"] = max(k, 1)
+    ktrace = final_k = None
+    if method == "kskipcg":
+        dx, trace, nosl, iters, conv, index = fused_kskip.fused_kskipcg_solve_2d(
+            coef2, b_eff, tol, b_norm, k, **kw
+        )
+    else:
+        adaptive = method == "adaptivekskipmrr"
+        dx, trace, nosl, ktrace, iters, conv, index, final_k = fused_kskip.fused_kskipmrr_solve_2d(
+            coef2, b_eff, tol, b_norm, k, adaptive=adaptive, **kw
+        )
+        if not adaptive:
+            ktrace = final_k = None
     return SolveResult(
-        x=dx if x0 is None else x0 + dx,
+        x=shifted(dx),
         residual_trace=trace,
-        nosl_trace=torch.arange(trace_len, dtype=torch.int32, device=b.device),
+        nosl_trace=nosl,
         iterations=iters,
-        # position of the final residual in the (possibly capped) trace
-        index=torch.clamp(iters, max=trace_len - 1),
+        index=torch.clamp(index, max=trace_len - 1),
         converged=conv,
-        trace_truncated=iters > trace_len - 1,
+        k_trace=ktrace,
+        final_k=final_k,
+        trace_truncated=index > trace_len - 1,
     )
 
 
@@ -135,13 +177,33 @@ def _prepare(A, b, x0, maxiter):
     return b, x0, n if maxiter is None else maxiter
 
 
-def _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused) -> SolveResult:
+def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm) -> SolveResult:
     if use_fused:
-        return _run_fused(A, b, x0, tol, method, maxiter)
+        return _run_fused(A, b, x0, tol, method, maxiter, k)
     ctx = Context(scalar_dtype=scalar_dtype)
     if x0 is None:
         x0 = torch.zeros_like(b)
-    return _KERNELS[method](A, b, x0, tol=tol, maxiter=maxiter, ctx=ctx)
+    kw = dict(tol=tol, maxiter=maxiter, ctx=ctx)
+    if method in _KSKIP_METHODS:
+        kw.update(k=k, basis_norm=basis_norm)
+    return _KERNELS[method](A, b, x0, **kw)
+
+
+def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
+    """Operator, ``b``, ``x0`` and ``maxiter`` on the operator's device, the
+    route (fused or not), and ``basis_norm`` as the k-skip loops take it.
+
+    ``basis_norm=True`` keeps a solve off the fused kernels and is read by
+    the k-skip methods only, as in the JAX package."""
+    if basis_norm and fused is True:
+        raise ValueError(
+            "basis_norm= is not supported by the fused whole-solve kernels; "
+            "drop fused=True (the eager loops take it)"
+        )
+    A = as_operator(A)
+    b, x0, maxiter = _prepare(A, b, x0, maxiter)
+    use_fused = not basis_norm and _fused_eligible(A, method, M, scalar_dtype, fused)
+    return A, b, x0, maxiter, use_fused, bool(basis_norm) and method in _KSKIP_METHODS
 
 
 def solve_device(
@@ -153,12 +215,11 @@ def solve_device(
     """Like :func:`solve` but returns the raw :class:`SolveResult` of device
     tensors (fixed-shape traces, no host sync, no info dict)."""
     _check_method(method)
-    _check_unported(restarts=restarts, mesh=mesh, M=M, basis_norm=basis_norm,
-                    spectral_bounds=spectral_bounds)
-    A = as_operator(A)
-    b, x0, maxiter = _prepare(A, b, x0, maxiter)
-    use_fused = _fused_eligible(A, method, M, scalar_dtype, fused)
-    return _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused)
+    _check_unported(restarts=restarts, mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    A, b, x0, maxiter, use_fused, basis_norm = _plan(
+        A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
+    )
+    return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
 
 
 def solve(
@@ -173,19 +234,22 @@ def solve(
     ``x`` is a tensor on the operator's device.  ``info`` holds ``time``
     (the solve alone, between device synchronisations; a first call's kernel
     build is reported apart as ``compile_time``), ``nosl``, ``residual``,
-    ``converged``, ``iterations`` and, when the fused path's trace ran past
-    its capacity, ``residual_truncated``.  ``method`` is ``cg`` or ``mrr``;
+    ``converged``, ``iterations``, for ``adaptivekskipmrr`` ``khistory`` and
+    ``final_k``, and, when the fused path's trace ran past its capacity,
+    ``residual_truncated``.  ``method`` is ``cg``, ``mrr``, ``kskipcg``,
+    ``kskipmrr`` or ``adaptivekskipmrr`` (the k-skip methods take ``k``;
+    ``basis_norm=True`` normalises their Krylov chains on the eager loops);
     the other options of the JAX package raise ``NotImplementedError``
     naming the ROADMAP item that ports them.
     """
     _check_method(method)
     _check_unported(restarts=restarts, refine=refine, chunk_iters=chunk_iters, mesh=mesh,
-                    M=M, basis_norm=basis_norm, spectral_bounds=spectral_bounds)
-    A = as_operator(A)
-    b, x0, maxiter = _prepare(A, b, x0, maxiter)
-    use_fused = _fused_eligible(A, method, M, scalar_dtype, fused)
+                    M=M, spectral_bounds=spectral_bounds)
+    A, b, x0, maxiter, use_fused, basis_norm = _plan(
+        A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
+    )
     if verbose:
-        start_banner(_METHOD_NAMES[method])
+        start_banner(_METHOD_NAMES[method], k if method in _KSKIP_METHODS else None)
 
     on_cuda = A.device.type == "cuda"
     compile_time = None
@@ -195,7 +259,7 @@ def solve(
             compile_time = _build.build_seconds
         torch.cuda.synchronize(A.device)
     t0 = time.perf_counter()
-    result = _run_single(A, b, x0, tol, method, maxiter, scalar_dtype, use_fused)
+    result = _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
     if on_cuda:
         torch.cuda.synchronize(A.device)
     elapsed = time.perf_counter() - t0
@@ -204,7 +268,8 @@ def solve(
     if compile_time:
         info["compile_time"] = compile_time
     if verbose:
-        finish_banner(elapsed, info["converged"], info["iterations"], info["residual"][-1])
+        finish_banner(elapsed, info["converged"], info["iterations"], info["residual"][-1],
+                      info.get("final_k"))
     return result.x, info
 
 
@@ -220,3 +285,6 @@ def _scipy_style(method: str):
 
 cg = _scipy_style("cg")
 mrr = _scipy_style("mrr")
+kskipcg = _scipy_style("kskipcg")
+kskipmrr = _scipy_style("kskipmrr")
+adaptivekskipmrr = _scipy_style("adaptivekskipmrr")

@@ -40,8 +40,9 @@ def _host(t) -> np.ndarray:
 
 def build_info(result, elapsed_time: float) -> dict:
     """Info dict: ``time``, ``nosl``, ``residual``, ``converged``,
-    ``iterations``, and ``residual_truncated`` when the fused path's trace
-    ran past its capacity."""
+    ``iterations``, ``khistory``/``final_k`` where the solver adapts k, and
+    ``residual_truncated`` when the fused path's trace ran past its
+    capacity."""
     index = int(result.index)
     info = {
         "time": elapsed_time,
@@ -50,6 +51,10 @@ def build_info(result, elapsed_time: float) -> dict:
         "converged": bool(result.converged),
         "iterations": int(result.iterations),
     }
+    if result.k_trace is not None:
+        info["khistory"] = _host(result.k_trace)[: index + 1]
+    if result.final_k is not None:
+        info["final_k"] = int(result.final_k)
     if result.trace_truncated is not None and bool(result.trace_truncated):
         # iteration counts stay exact; only residual recording clamps
         info["residual_truncated"] = True

@@ -9,8 +9,8 @@
 // memory; at N = 250k the ~6 vectors an iteration touches (~12 MB in f64)
 // stay in the 50 MB L2.
 //
-// Grid-wide agreement: every inner product is a per-thread sum over a
-// grid-stride loop, a fixed-order block sum, one partial per block, a grid
+// Grid-wide agreement: every inner product goes through grid_sum
+// (reduce.cuh): a fixed-order block sum, one partial per block, a grid
 // sync, and then every block sums all partials in the same fixed order.
 // So every block holds bit-identical scalars, takes the same convergence
 // branch (no block can stall alone in a grid sync), and results repeat from
@@ -26,69 +26,17 @@
 // redundant partial sums are expected to dominate.  Fewer syncs (fusing the
 // CG direction update into the next stencil, splitting dots algebraically)
 // and fewer, fatter blocks are later work.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "reduce.cuh"
 #include "stencil.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSums = 3;  // most inner products reduced in one step
 // Per-block partial-sum slots (MrR uses all 8: init 3, <r,r> 1, <y,y>/<y,Ar>
 // 2, <r,s>/<s,s> 2; CG 2) and n-vectors of work space, by method.
 constexpr int kPartialSlots = 8;
 constexpr int kWorkVectors[2] = {3, 4};  // CG: r, p, v; MrR: r, y, z, Ar
-
-template <typename T>
-__device__ __forceinline__ T safe_div(T num, T den) {
-    return den == T(0) ? T(0) : num / den;
-}
-
-// Sums v[k] over the block in a fixed order; every thread gets the totals.
-template <typename T, int K>
-__device__ void block_sum(T (&v)[K], T* smem) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int k = 0; k < K; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();  // the previous call may still be reading smem
-    if (lane == 0)
-        for (int k = 0; k < K; ++k) smem[k * kWarps + warp] = v[k];
-    __syncthreads();
-    if (warp == 0) {
-        for (int k = 0; k < K; ++k) v[k] = lane < kWarps ? smem[k * kWarps + lane] : T(0);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int k = 0; k < K; ++k) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-        if (lane == 0)
-            for (int k = 0; k < K; ++k) smem[kMaxSums * kWarps + k] = v[k];
-    }
-    __syncthreads();
-    for (int k = 0; k < K; ++k) v[k] = smem[kMaxSums * kWarps + k];
-}
-
-// Grid-wide sums of v[k]: block partials go to slot[k * gridDim.x + block],
-// then every block sums all partials in the same order.  Contains the grid
-// sync that also publishes the vector writes made before the call.
-template <typename T, int K>
-__device__ void grid_sum(cg::grid_group& grid, T (&v)[K], T* slot, T* smem) {
-    block_sum(v, smem);
-    const int nb = gridDim.x;
-    if (threadIdx.x == 0)
-        for (int k = 0; k < K; ++k) slot[k * nb + blockIdx.x] = v[k];
-    grid.sync();
-    for (int k = 0; k < K; ++k) v[k] = T(0);
-    for (int j = threadIdx.x; j < nb; j += kThreads)
-        for (int k = 0; k < K; ++k) v[k] += __ldcg(slot + k * nb + j);
-    block_sum(v, smem);
-}
 
 // Whole MrR solve of A x = b from x0 = 0 (the wrapper shifts for x0).
 // work holds r, y, z, Ar (4 n); partials holds kPartialSlots slots of gridDim.x.
@@ -98,7 +46,7 @@ mrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restrict_
                  const T* __restrict__ scal, T* x, T* trace, int* stats, T* work,
                  T* partials, int maxiter, int trace_len) {
     cg::grid_group grid = cg::this_grid();
-    __shared__ T smem[kMaxSums * kWarps + kMaxSums];
+    __shared__ T smem[kBlockSumSmem];
     const int n = g.g0 * g.g1;
     const int nb = gridDim.x;
     const int first = blockIdx.x * kThreads + threadIdx.x;
@@ -199,7 +147,7 @@ cg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restrict__
                 const T* __restrict__ scal, T* x, T* trace, int* stats, T* work,
                 T* partials, int maxiter, int trace_len) {
     cg::grid_group grid = cg::this_grid();
-    __shared__ T smem[kMaxSums * kWarps + kMaxSums];
+    __shared__ T smem[kBlockSumSmem];
     const int n = g.g0 * g.g1;
     const int nb = gridDim.x;
     const int first = blockIdx.x * kThreads + threadIdx.x;
@@ -278,8 +226,8 @@ const void* kernel_for(int method, int dtype) {
 // (as many as can be resident on the current device at once, and no more
 // than n needs) and the elements of the work and partials buffers that
 // krylov_fused_solve takes.  method 0 = CG, 1 = MrR; dtype is the element
-// size in bytes.
-extern "C" int krylov_fused_workspace(int method, int dtype, int n, int* blocks,
+// size in bytes; max_blocks > 0 caps the grid (for grid-size sweeps).
+extern "C" int krylov_fused_workspace(int method, int dtype, int n, int max_blocks, int* blocks,
                                       long long* work_elems, long long* partial_elems) {
     if (method != 0 && method != 1) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0;
@@ -291,7 +239,8 @@ extern "C" int krylov_fused_workspace(int method, int dtype, int n, int* blocks,
             &per_sm, kernel_for(method, dtype), kThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int need = (n + kThreads - 1) / kThreads;
-    const int fit = per_sm * sms;
+    int fit = per_sm * sms;
+    if (max_blocks > 0 && max_blocks < fit) fit = max_blocks;
     *blocks = need < fit ? (need > 0 ? need : 1) : fit;
     *work_elems = static_cast<long long>(kWorkVectors[method]) * n;
     *partial_elems = static_cast<long long>(kPartialSlots) * *blocks;

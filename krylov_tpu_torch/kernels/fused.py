@@ -29,6 +29,9 @@ from krylov_tpu_torch.kernels.stencil import (
 from krylov_tpu_torch.solvers._common import safe_div
 
 TRACE_CAP = 65536
+# cap on the cooperative grid of K2/K3/K5/K6, read at call time; 0 leaves
+# it at the occupancy limit (set by diagnostics/grid_sweep.py)
+MAX_BLOCKS = 0
 
 _METHOD_CODE = {"cg": 0, "mrr": 1}
 _workspace = {}
@@ -37,14 +40,15 @@ _workspace = {}
 def workspace(method: str, dtype: torch.dtype, n: int) -> Tuple[int, int, int]:
     """``(blocks, work, partials)`` for a solve of ``n`` points on the
     current CUDA device: the blocks of the cooperative grid (all
-    co-resident) and the elements of the two scratch buffers, as the C
-    library sizes them.  Cached per device."""
-    key = (method, dtype, n, torch.cuda.current_device())
+    co-resident, at most ``MAX_BLOCKS`` when that is set) and the elements
+    of the two scratch buffers, as the C library sizes them.  Cached per
+    device."""
+    key = (method, dtype, n, MAX_BLOCKS, torch.cuda.current_device())
     if key not in _workspace:
         blocks, work, partials = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
         _build.check(
             _build.library().krylov_fused_workspace(
-                _METHOD_CODE[method], dtype.itemsize, n,
+                _METHOD_CODE[method], dtype.itemsize, n, MAX_BLOCKS,
                 ctypes.byref(blocks), ctypes.byref(work), ctypes.byref(partials),
             ),
             "krylov_fused_workspace",

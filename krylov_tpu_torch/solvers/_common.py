@@ -22,6 +22,28 @@ import torch
 SYNC_EVERY = 32
 
 
+def tree_select(pred: torch.Tensor, on_true, on_false) -> tuple:
+    """``torch.where(pred, a, b)`` leaf by leaf over two tuples (``pred`` is
+    a scalar bool tensor)."""
+    return tuple(torch.where(pred, a, b) for a, b in zip(on_true, on_false))
+
+
+def pow2_scale(s: torch.Tensor) -> torch.Tensor:
+    """Nearest power of two to ``s`` (1 where ``s <= 0`` or not finite).
+
+    The ``basis_norm`` chains scale each basis vector by this: a power of
+    two only moves the exponent, so the scaling adds no rounding.  The
+    exponent is ``log2 s`` rounded half to even and clipped to [-126, 127],
+    and ``2**e`` is built exactly from the float32 bit pattern
+    ``(e + 127) << 23``, as :func:`krylov_tpu.solvers._common.pow2_scale`
+    builds it (so a float64 norm beyond that range scales partially)."""
+    ok = torch.isfinite(s) & (s > 0)
+    e = torch.round(torch.log2(torch.where(ok, s, torch.ones_like(s)))).to(torch.int32)
+    e = e.clamp(-126, 127)
+    val = ((e + 127) << 23).view(torch.float32).to(s.dtype)
+    return torch.where(ok, val, torch.ones_like(s))
+
+
 def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """``num / den`` with exact-zero denominators mapped to 0 (a frozen
     update instead of a NaN at exact convergence)."""
@@ -35,24 +57,31 @@ def scale(alpha: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (alpha * v.to(alpha.dtype)).to(v.dtype)
 
 
+def set_at(trace: torch.Tensor, idx: torch.Tensor, value: torch.Tensor, keep=None) -> None:
+    """``trace[idx] = value`` on the device (``idx`` a 0-d integer tensor),
+    left as it was where the bool tensor ``keep`` is true."""
+    i = idx.view(1)
+    new = value.view(1).to(trace.dtype)
+    if keep is not None:
+        new = torch.where(keep, trace.index_select(0, i), new)
+    trace.index_copy_(0, i, new)
+
+
 def record_final(trace: torch.Tensor, i: torch.Tensor, conv: torch.Tensor, final: torch.Tensor):
     """Diverged exit: ``trace[i] = final`` unless converged (or ``i`` is past
     the trace, where the write is dropped)."""
-    idx = i.clamp(max=trace.numel() - 1).view(1)
-    keep = conv | (i >= trace.numel())
-    trace.index_copy_(
-        0, idx, torch.where(keep, trace.index_select(0, idx), final.view(1).to(trace.dtype))
-    )
+    set_at(trace, i.clamp(max=trace.numel() - 1), final, conv | (i >= trace.numel()))
 
 
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
     """Fixed-shape result of a solve, as device tensors.
 
-    ``residual_trace``/``nosl_trace`` have ``maxiter + 1`` slots (fewer on
-    the fused path past its trace capacity); entries beyond ``index`` are
-    undefined.  ``iterations`` is the number of solution updates, ``index``
-    the position of the final residual in the trace.
+    ``residual_trace``/``nosl_trace``/``k_trace`` are fixed-size buffers
+    (fewer slots on the fused path past its trace capacity); entries beyond
+    ``index`` are undefined.  ``iterations`` is the number of solution
+    updates, ``index`` the position of the final residual in the trace (the
+    outer-iteration count of the k-skip family).
     """
 
     x: torch.Tensor
@@ -61,6 +90,9 @@ class SolveResult:
     iterations: torch.Tensor
     index: torch.Tensor
     converged: torch.Tensor  # bool
+    # k per outer iteration and the last k (adaptive k-skip MrR only)
+    k_trace: Optional[torch.Tensor] = None
+    final_k: Optional[torch.Tensor] = None
     # True when the fused path ran past its trace capacity and the tail of
     # the history was overwritten in the last slot (None off that path).
     trace_truncated: Optional[torch.Tensor] = None

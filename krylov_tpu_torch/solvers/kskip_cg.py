@@ -1,0 +1,143 @@
+"""Communication-avoiding k-skip CG as an eager loop.
+
+Numerics follow :func:`krylov_tpu.solvers.kskip_cg.kskipcg_kernel`: each
+outer iteration builds the Krylov bases ``Ar[0..k]`` and ``Ap[0..k+1]``,
+reads the coefficient bundle
+
+    a[j] = <Ar[j//2], Ar[j//2 + j%2]>      j = 0..2k
+    f[j] = <Ap[j//2], Ap[j//2 + j%2]>      j = 0..2k+2   (f[2k+3] = 0, unread)
+    c[j] = <Ar[j//2], Ap[j//2 + j%2]>      j = 0..2k+1
+
+out of one Gram matrix of the stacked basis, and takes k+1 CG steps whose
+inner products advance by scalar recurrences only.  The convergence test
+reads ``sqrt(a[0]) = ||r||`` from the Gram.  ``basis_norm=True`` scales
+each basis vector by a power of two of its norm and carries the scales in
+the scalar dtype, rescaling the Gram so the bundle takes its exact values.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
+from krylov_tpu_torch.solvers._common import (
+    SYNC_EVERY,
+    SolveResult,
+    pow2_scale,
+    record_final,
+    safe_div,
+    scalar_dtype_of,
+    scale,
+    set_at,
+    tree_select,
+)
+
+
+def inv_pow2(s: torch.Tensor, vdt: torch.dtype) -> torch.Tensor:
+    """``1 / s`` in the vector dtype; exact, as ``s`` is a power of two."""
+    return (1.0 / s).to(vdt)
+
+
+def cg_step_scalars(a: list, f: list, c: list, k: int) -> list:
+    """``(alpha, beta)`` of the k+1 CG steps of one outer iteration, from
+    the bundle lists ``a``/``f``/``c`` (advanced in place by the
+    recurrences).  The recurrences read no vector, so every step's scalars
+    are known before the first vector update."""
+    alpha = safe_div(a[0], f[1])
+    out = [(alpha, safe_div(alpha**2 * f[2], a[0]) - 1)]
+    for j in range(k):
+        alpha, beta = out[-1]
+        for l in range(2 * (k - j) + 1):
+            a[l] = a[l] + alpha * (alpha * f[l + 2] - 2 * c[l + 1])
+            d = c[l] - alpha * f[l + 1]
+            c[l] = a[l] + d * beta
+            f[l] = c[l] + beta * (d + beta * f[l])
+        alpha = safe_div(a[0], f[1])
+        out.append((alpha, safe_div(alpha**2 * f[2], a[0]) - 1))
+    return out
+
+
+def kskipcg_kernel(
+    A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
+    k: int = 0, ctx: Context = DEFAULT_CONTEXT, basis_norm: bool = False,
+    b_norm: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    # b_norm divides the residuals (default ||b||): the plain K5/K6 pass
+    # that of the unshifted b
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    dev, vdt = b.device, b.dtype
+    sdt = scalar_dtype_of(ctx, b)
+    tol_t = torch.as_tensor(tol, dtype=vdt, device=dev)
+    b_norm = ctx.norm(b) if b_norm is None else b_norm
+    x = x0
+    r = b - ctx.matvec(A, x0)
+    p = r
+
+    max_outer = -(-maxiter // (k + 1))  # i advances by k+1 an outer iteration
+    rtrace = torch.zeros(max_outer + 1, dtype=sdt, device=dev)
+    ntrace = torch.zeros(max_outer + 1, dtype=torch.int32, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    index = torch.zeros((), dtype=torch.int64, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    K = k + 1  # offset of the Ap block in the stacked basis
+    for step in range(max_outer):
+        if basis_norm:
+            # 1 + 2k SpMVs, as the raw chains; the rescaled Gram equals the
+            # Gram of the true bases exactly
+            Ap1 = ctx.matvec(A, p)
+            s2 = ctx.dot_bundle([(r, r), (p, p), (Ap1, Ap1)])
+            s_r0, s_p0, s_p1 = (pow2_scale(torch.sqrt(s2[j])) for j in range(3))
+            Vr, Vp = [r * inv_pow2(s_r0, vdt)], [p * inv_pow2(s_p0, vdt), Ap1 * inv_pow2(s_p1, vdt)]
+            c_r, c_p = [s_r0], [s_p0, s_p1]
+            for _ in range(k):
+                Wr, Wp = ctx.matvec(A, Vr[-1]), ctx.matvec(A, Vp[-1])
+                n2 = ctx.dot_bundle([(Wr, Wr), (Wp, Wp)])
+                nr, np_ = pow2_scale(torch.sqrt(n2[0])), pow2_scale(torch.sqrt(n2[1]))
+                Vr.append(Wr * inv_pow2(nr, vdt))
+                c_r.append(c_r[-1] * nr)
+                Vp.append(Wp * inv_pow2(np_, vdt))
+                c_p.append(c_p[-1] * np_)
+            cs = torch.stack(c_r + c_p)
+            G = ctx.gram(torch.stack(Vr + Vp)) * (cs[:, None] * cs[None, :])
+            Ap = [p, Ap1]  # the vector updates take the true p and A p
+        else:
+            Ar = [r]
+            for _ in range(k):
+                Ar.append(ctx.matvec(A, Ar[-1]))
+            Ap = [p]
+            for _ in range(k + 1):
+                Ap.append(ctx.matvec(A, Ap[-1]))
+            G = ctx.gram(torch.stack(Ar + Ap))
+
+        a = [G[j // 2, j // 2 + j % 2] for j in range(2 * k + 1)]
+        f = [G[K + j // 2, K + j // 2 + j % 2] for j in range(2 * k + 3)]
+        f.append(torch.zeros((), dtype=sdt, device=dev))  # f[2k+3], unread
+        cc = [G[j // 2, K + j // 2 + j % 2] for j in range(2 * k + 2)]
+
+        res = torch.sqrt(a[0]) / b_norm
+        set_at(rtrace, index, res)
+        conv = res < tol_t
+
+        # k+1 CG steps driven by the scalar recurrences
+        x_n, r_n, p_cur, Ap_cur = x, r, Ap[0], Ap[1]
+        for t, (alpha, beta) in enumerate(cg_step_scalars(a, f, cc, k)):
+            if t:
+                Ap_cur = ctx.matvec(A, p_cur)
+            x_n = x_n + scale(alpha, p_cur)
+            r_n = r_n - scale(alpha, Ap_cur)
+            p_cur = r_n + scale(beta, p_cur)
+
+        x, r, p = tree_select(conv, (x, r, p), (x_n, r_n, p_cur))
+        i = torch.where(conv, i, i + (k + 1))
+        index = torch.where(conv, index, index + 1)
+        set_at(ntrace, index, i, keep=conv)
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+            break
+
+    record_final(rtrace, index, conv, ctx.norm(r) / b_norm)
+    return SolveResult(
+        x=x, residual_trace=rtrace, nosl_trace=ntrace, iterations=i, index=index, converged=conv,
+    )

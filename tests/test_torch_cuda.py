@@ -9,7 +9,11 @@ Tolerances: the SpMV differs from the plain version only by fused
 multiply-adds, rtol 1e-12 (f64) / 1e-5 (f32) against the largest entry.
 The fused solves sum inner products in another order (per-block partials):
 equal iteration counts, traces rtol 1e-9 (atol 1e-14), x rtol 1e-8
-(atol 1e-12), in float64.
+(atol 1e-12), in float64.  The fused k-skip solves (K5/K6) add the k-step
+scalar recurrences, which amplify that rounding: equal iteration, outer,
+nosl, ktrace and final_k values, traces rtol 1e-5, x rtol 1e-6 (atol
+1e-9), the tolerances of tests/test_kernels.py for the same kernels, in
+float64; float32 as F32_TOLS states.
 """
 
 import numpy as np
@@ -17,14 +21,20 @@ import pytest
 import torch
 
 import krylov_tpu_torch
-from krylov_tpu_torch.kernels import fused, stencil
-from krylov_tpu_torch.sparse import fixtures
+from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
+from krylov_tpu_torch.sparse import StencilMatrix, fixtures
 
 OPERATORS = {
     "2d": lambda **kw: fixtures.laplace2d(24, **kw),
     "2d-const": lambda **kw: fixtures.laplace2d(24, constant=True, **kw),
     "3d-const": lambda **kw: fixtures.laplace3d(10, constant=True, **kw),
 }
+# float32 K5/K6 by k: whole solves at k <= 2 against the float32 plain
+# version; at k = 4 the first outer iteration against the float64 plain
+# version on the same values, as the float32 k = 4 recurrences keep no
+# reproducible trajectory past it.  The limits of chip_smoke.py, 10x above
+# the largest readings on an H100 (trace relative, x relative to max |x|).
+F32_TOLS = {1: (6.9e-4, 1.5e-5), 2: (4.3e-2, 1.4e-4), 4: (0.23, 0.23)}
 KERNEL = {"cg": fused.fused_cg_solve_2d, "mrr": fused.fused_mrr_solve_2d}
 PLAIN = {"cg": fused.fused_cg_solve_2d_reference, "mrr": fused.fused_mrr_solve_2d_reference}
 
@@ -130,3 +140,169 @@ def test_kernel_runs_on_torch_current_stream(cuda):
         ys = stencil.stencil_matvec_2d(A.coef, xs, stencil=A.stencil, grid=A.grid)
     torch.cuda.synchronize()
     torch.testing.assert_close(ys, y_ref, rtol=0, atol=0)
+
+
+def _advection(device, g=(16, 16), eps=0.5):
+    """Non-normal advection-like stencil on which adaptive k-skip MrR rolls
+    back (tests/test_kernels.py:198-212), grid-coefficient form."""
+    iy = np.arange(g[0])[:, None]
+    ix = np.arange(g[1])[None, :]
+    coef = np.stack([
+        -(1 + eps) * np.broadcast_to(iy > 0, g).astype(float),
+        -(1 + eps) * np.broadcast_to(ix > 0, g).astype(float),
+        np.full(g, 4.5),
+        -(1 - eps) * np.broadcast_to(ix < g[1] - 1, g).astype(float),
+        -(1 - eps) * np.broadcast_to(iy < g[0] - 1, g).astype(float),
+    ])
+    return StencilMatrix(torch.from_numpy(coef).to(device), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), g)
+
+
+def _kskip_pair(A, b, method, k, adaptive, tol, maxiter):
+    """The K5/K6 kernel and its plain version on the same inputs, both in
+    K5's output layout (x, trace, nosl, ktrace, iters, conv, index, final_k)."""
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    kw = dict(stencil=stencil2, grid=grid2, maxiter=maxiter, k_max=max(k, 1), sub=sub)
+    b_norm = torch.linalg.vector_norm(b)
+    if method == "kskipcg":
+        before = fused_kskip.fused_kskipcg_solve_2d.launches
+        x, t, n, i, c, idx = fused_kskip.fused_kskipcg_solve_2d(coef2, b, tol, b_norm, k, **kw)
+        assert fused_kskip.fused_kskipcg_solve_2d.launches == before + 1
+        xr, tr, nr, ir, cr, idr = fused_kskip.fused_kskipcg_solve_2d_reference(coef2, b, tol, b_norm, k, **kw)
+        return (x, t, n, None, i, c, idx, None), (xr, tr, nr, None, ir, cr, idr, None)
+    before = fused_kskip.fused_kskipmrr_solve_2d.launches
+    got = fused_kskip.fused_kskipmrr_solve_2d(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
+    assert fused_kskip.fused_kskipmrr_solve_2d.launches == before + 1
+    want = fused_kskip.fused_kskipmrr_solve_2d_reference(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
+    return got, want
+
+
+def _check_kskip(got, want, trace_rtol=1e-5, x_rtol=1e-6, x_atol=1e-9):
+    (x, t, n, kt, i, c, idx, f), (xr, tr, nr, ktr, ir, cr, idr, fr) = got, want
+    assert (int(i), bool(c), int(idx)) == (int(ir), bool(cr), int(idr))
+    m = int(idx) + 1
+    torch.testing.assert_close(n[:m], nr[:m], rtol=0, atol=0)
+    if kt is not None:
+        torch.testing.assert_close(kt, ktr, rtol=0, atol=0)
+        assert int(f) == int(fr)
+    torch.testing.assert_close(t[:m], tr[:m], rtol=trace_rtol, atol=0)
+    torch.testing.assert_close(x, xr, rtol=x_rtol, atol=x_atol)
+    return int(f) if f is not None else None, bool(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+@pytest.mark.parametrize(
+    "method, k, adaptive",
+    [("kskipcg", 0, False), ("kskipcg", 4, False), ("kskipmrr", 2, False), ("kskipmrr", 4, True)],
+)
+def test_fused_kskip_kernel_matches_plain(cuda, method, k, adaptive, name):
+    A = OPERATORS[name](device=cuda)
+    b = _rhs(A.shape[0], 6, cuda)
+    _, conv = _check_kskip(*_kskip_pair(A, b, method, k, adaptive, 1e-8, A.shape[0]))
+    assert conv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+@pytest.mark.parametrize(
+    "method, k",
+    [("kskipcg", 1), ("kskipcg", 4), ("kskipmrr", 2), ("kskipmrr", 4), ("adaptivekskipmrr", 4)],
+)
+def test_fused_kskip_kernel_matches_plain_f32(cuda, method, k, name):
+    """The float32 builds of K5/K6 at tol 1e-5."""
+    A = OPERATORS[name](dtype=torch.float32, device=cuda)
+    b = _rhs(A.shape[0], 6, cuda, torch.float32)
+    if k < 4:
+        maxiter, A_ref, b_ref = A.shape[0], A, b
+    else:
+        maxiter = (k + 1) + (method != "kskipcg")
+        A_ref, b_ref = StencilMatrix(A.coef.double(), A.stencil, A.grid), b.double()
+    adaptive, m = method.startswith("adaptive"), method.removeprefix("adaptive")
+    got, _ = _kskip_pair(A, b, m, k, adaptive, 1e-5, maxiter)
+    _, want = _kskip_pair(A_ref, b_ref, m, k, adaptive, 1e-5, maxiter)
+    (x, t, n, kt, i, c, idx, f), (xr, tr, nr, ktr, ir, cr, idr, fr) = got, want
+    assert (int(i), bool(c), int(idx)) == (int(ir), bool(cr), int(idr)) and bool(c) == (k < 4)
+    m_ = int(idx) + 1
+    assert torch.equal(n[:m_], nr[:m_]) and (kt is None or (torch.equal(kt, ktr) and int(f) == int(fr)))
+    trace_rtol, x_rel = F32_TOLS[k]
+    torch.testing.assert_close(t[:m_].double(), tr[:m_].double(), rtol=trace_rtol, atol=0)
+    assert float((x.double() - xr.double()).abs().max() / xr.double().abs().max()) <= x_rel
+
+
+@pytest.mark.cuda
+def test_fused_kskip_rollback_matches_plain(cuda):
+    """The adaptive kernel rolls back on the advection stencil (k drops
+    below 6) exactly where its plain version does."""
+    A = _advection(cuda)
+    b = _rhs(A.shape[0], 3, cuda)
+    final_k, conv = _check_kskip(*_kskip_pair(A, b, "kskipmrr", 6, True, 1e-8, 2000))
+    assert final_k < 6 and conv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, adaptive", [("kskipcg", False), ("kskipmrr", True)])
+def test_fused_kskip_kernel_maxiter_divergence(cuda, method, adaptive):
+    A = fixtures.laplace2d(16, device=cuda)
+    b = _rhs(A.shape[0], 1, cuda)
+    _, conv = _check_kskip(*_kskip_pair(A, b, method, 2, adaptive, 1e-14, 9))
+    assert not conv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, vectors", [("kskipcg", 8), ("kskipmrr", 10)])
+def test_fused_kskip_workspace_sizes(cuda, method, vectors):
+    """The C library sizes the K5/K6 scratch from the method and k_max:
+    n-vectors of work by method, 6 k_max + 6 bundle partials and 3 grid-sum
+    slots a block plus 6 k_max + 6 totals, and the dynamic shared memory of
+    the bundle and the 2 (k_max + 1) step coefficients."""
+    n = 64 * 64
+    for k_max in (1, 8):
+        blocks, work, partials, smem = fused_kskip.workspace(method, torch.float64, n, k_max)
+        m = 6 * k_max + 6
+        assert 1 <= blocks <= n // 256 and work == vectors * n
+        assert partials == (m + 3) * blocks + m and smem == (m + 2 * (k_max + 1)) * 8
+    assert fused_kskip.workspace(method, torch.float32, n, 8)[3] == (54 + 18) * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "kskipcg"])
+def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
+    """fused.MAX_BLOCKS caps the cooperative grid of K2/K3/K5/K6 (for
+    grid-size sweeps) and sizes the partials by the capped grid; the solve
+    is the same up to the order of the sums."""
+    A = fixtures.laplace2d(64, constant=True, device=cuda)
+    b = _rhs(A.shape[0], 6, cuda)
+    n, b_norm = A.shape[0], torch.linalg.vector_norm(b)
+    kw = dict(stencil=A.stencil, grid=A.grid, maxiter=n)
+
+    def run():
+        if method == "cg":
+            x, _, iters, _ = fused.fused_cg_solve_2d(A.coef, b, 1e-8, b_norm, **kw)
+            return fused.workspace("cg", torch.float64, n), x, iters
+        x, _, _, iters, _, _ = fused_kskip.fused_kskipcg_solve_2d(A.coef, b, 1e-8, b_norm, 2, k_max=2, **kw)
+        return fused_kskip.workspace("kskipcg", torch.float64, n, 2), x, iters
+
+    full, x_full, iters_full = run()
+    monkeypatch.setattr(fused, "MAX_BLOCKS", 3)
+    capped, x, iters = run()
+    assert full[0] > 3 and capped[0] == 3
+    assert capped[2] == (8 * 3 if method == "cg" else (18 + 3) * 3 + 18)
+    assert int(iters) == int(iters_full)
+    torch.testing.assert_close(x, x_full, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["kskipcg", "kskipmrr", "adaptivekskipmrr"])
+def test_kskip_solve_on_cuda_matches_cpu(cuda, method):
+    """The same system through solve() on the card (kernels) and on the CPU
+    (plain versions), with a warm start."""
+    b = np.random.default_rng(7).standard_normal(32 * 32)
+    x0 = 0.1 * np.random.default_rng(8).standard_normal(32 * 32)
+    kw = dict(method=method, k=3, x0=x0, tol=1e-8)
+    x_c, info_c = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True), b, **kw)
+    x_g, info_g = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True, device=cuda), b, **kw)
+    assert x_g.device.type == "cuda" and info_g["converged"]
+    assert info_g["iterations"] == info_c["iterations"]
+    np.testing.assert_array_equal(info_g["nosl"], info_c["nosl"])
+    np.testing.assert_allclose(info_g["residual"], info_c["residual"], rtol=1e-5)
+    np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-6, atol=1e-9)

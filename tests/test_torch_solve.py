@@ -140,9 +140,9 @@ def test_unknown_method_raises():
         (dict(refine=1), "item 5"),
         (dict(chunk_iters=10), "item 10"),
         (dict(M=object()), "item 9"),
-        (dict(method="kskipmrr"), "item 6"),
+        (dict(method="cacg"), "item 9"),
     ],
-    ids=["restarts", "refine", "chunk_iters", "M", "kskipmrr"],
+    ids=["restarts", "refine", "chunk_iters", "M", "cacg"],
 )
 def test_unported_options_name_their_roadmap_item(kw, item):
     A = fixtures.laplace2d(6)
@@ -159,6 +159,11 @@ def test_fused_eligibility():
     assert not _fused_eligible(D, "cg", None, None, None)
     with pytest.raises(ValueError, match="fused=True requires"):
         _fused_eligible(D, "cg", None, None, True)
+    for method in ("kskipcg", "kskipmrr", "adaptivekskipmrr"):
+        assert _fused_eligible(S, method, None, None, None)
+        assert _fused_eligible(fixtures.laplace3d(4, constant=True), method, None, None, True)
+        assert not _fused_eligible(S, method, None, torch.float32, None)
+        assert not _fused_eligible(D, method, None, None, None)
 
 
 def test_import_leaves_jax_out():
