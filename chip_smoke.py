@@ -11,8 +11,13 @@ k-skip MrR (k=4) and adaptive k-skip MrR (k=8).  It checks the float64
 solves against float64 references (scipy/numpy MrR and CG; the JAX
 package's counts for the k-skip family) with the true residual below tol,
 holds the fused kernels against their plain versions at that size while it
-times them with CUDA events, and prints a JSON line of the kernels and last
-a JSON line with the device.
+times them with CUDA events.  Then it drives the paths that reuse the
+kernels: ``restarts=``/``refine=`` on the same system, ``solve_batched`` of
+8 right-hand sides (fused MrR; eager CG on a HYB operator), the HYB
+operator of ``powerlaw_spd(2**20)`` (matvec against scipy, CG against
+numpy, Matrix Market IO), and the ill-conditioned row-4b system of
+RESULTS.md, printed only.  It prints a JSON line of the kernels and last a
+JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
 no CUDA device it exits 1 before printing a result.
@@ -81,6 +86,11 @@ KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS
 KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
 KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
 SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
+NRHS = 8  # right-hand sides of the batched phase (bench.py's amortised stage)
+# batched eager CG on the HYB against solo solves: the dot products and the
+# matvec's row sums reduce in other kernels on a (batch, n) block than on
+# one vector, so x may differ by rounding only
+X_REL_EAGER = 1e-12
 
 
 def first_outer(method, k, outer):
@@ -287,6 +297,260 @@ def device_us(fn, kernel: str, reps: int):
     return None
 
 
+def true_rel(A_csr, b, x) -> float:
+    """||b - A x|| / ||b|| in float64 on the host, with the scipy matrix."""
+    import numpy as np
+
+    b64, x64 = np.asarray(b, dtype=np.float64), x.double().cpu().numpy()
+    return float(np.linalg.norm(b64 - A_csr @ x64) / np.linalg.norm(b64))
+
+
+def reset(fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+
+
+def check_launched(path: str, fns) -> dict:
+    """The launch counts of ``fns`` since :func:`reset`; raises when one of
+    them never launched."""
+    counts = {fn.__name__: fn.launches for fn in fns}
+    phase(f"{path} launches: {counts}")
+    for name, count in counts.items():
+        if count < 1:
+            raise AssertionError(f"the {path} never launched {name}")
+    return counts
+
+
+def fidelity(ops, b_np, A_csr, fused, stencil) -> None:
+    """7. restarts= and refine= on the main-path system through solve(),
+    counters from this run only: the corrections launch K2, the defects
+    b - A x K1.  float32 restarts=2 is printed (one ulp of x at max |x| ~ 76
+    puts the float32 defect near tol); float32 refine=3 must end below tol
+    by the host float64 residual; float64 restarts=1 is the skip case."""
+    import torch
+
+    import krylov_tpu_torch
+
+    f64, f32 = torch.float64, torch.float32
+    counted = (stencil.stencil_matvec_2d, fused.fused_mrr_solve_2d)
+    reset(counted)
+    runs = {
+        "restarts=2 float32": (ops[f32], dict(restarts=2)),
+        "refine=3 float32": (ops[f32], dict(refine=3)),
+        "restarts=1 float64": (ops[f64], dict(restarts=1)),
+    }
+    out = {label: krylov_tpu_torch.solve(A, b_np, method="mrr", tol=TOL, maxiter=MAXITER, **kw)
+           for label, (A, kw) in runs.items()}
+    check_launched("fidelity path", counted)
+    for label, (x, info) in out.items():
+        host = true_rel(A_csr, b_np, x)
+        phase(f"fidelity mrr {label}: iters {info['iterations']}, converged {info['converged']}, "
+              f"true_residual (info) {info['true_residual']:.6e}, host f64 true res {host:.6e}, "
+              f"x {x.dtype}, refinements {info.get('refinements', '-')}, solve() time {info['time'] * 1e3:.3f} ms")
+        if x.shape != (NX * NX,) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"fidelity {label}: x not finite or of the wrong shape")
+    x, info = out["refine=3 float32"]
+    if not (x.dtype == f64 and info["converged"] and info["true_residual"] < TOL
+            and true_rel(A_csr, b_np, x) < TOL):
+        raise AssertionError("fidelity: float32 refine=3 did not end below tol")
+    x, info = out["restarts=1 float64"]
+    # the float64 base solve already meets tol, so the correction is skipped
+    if info["iterations"] != 934 or not (info["converged"] and info["true_residual"] < TOL
+                                         and true_rel(A_csr, b_np, x) < TOL):
+        raise AssertionError("fidelity: float64 restarts=1 is not the 934-iteration skip case")
+
+
+def irregular_system(dev):
+    """The phase-9 system: powerlaw_spd(2**20) (scipy CSR, float64) and its
+    container on the card through as_operator, which must pick HYB."""
+    import torch
+
+    from krylov_tpu_torch.sparse import HybMatrix, as_operator, fixtures
+
+    t0 = time.perf_counter()
+    P = fixtures.powerlaw_spd(2**20)
+    t1 = time.perf_counter()
+    H = as_operator(P, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    phase(f"irregular system powerlaw_spd(2**20): nnz {P.nnz}, host build {t1 - t0:.2f} s; as_operator -> "
+          f"{type(H).__name__} in {t2 - t1:.2f} s (ELL width {H.width if isinstance(H, HybMatrix) else '-'})")
+    if not isinstance(H, HybMatrix):
+        raise AssertionError(f"as_operator chose {type(H).__name__} for the power-law system, not HybMatrix")
+    phase(f"  HYB: ELL width {H.width}, tail chunks {H.tail_rows.shape[0]} x {H.tail_width}, "
+          f"stored entries {H.stored_entries} ({H.stored_entries / P.nnz:.3f} per nonzero)")
+    return P, H
+
+
+def batched(ops, hyb, dev, fused) -> None:
+    """8. solve_batched of NRHS right-hand sides, counters from this run
+    only.  Fused route (MrR on the main-path stencil, float64 and float32):
+    one K2 launch per member, back to back with no host sync in between
+    (run under torch.cuda.set_sync_debug_mode("error")); each member equals
+    a solo fused solve of the same b: the same kernel on the same values.
+    Eager route (CG on the phase-9 HYB, float64): one batched loop; each
+    member against a solo eager solve, whose dot products reduce in another
+    kernel: equal counts, x within X_REL_EAGER of max |x|."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+
+    f64, f32 = torch.float64, torch.float32
+    reset((fused.fused_mrr_solve_2d,))
+    for dt in (f64, f32):
+        B = torch.from_numpy(np.random.default_rng(21).standard_normal((NRHS, NX * NX))).to(dev, dt)
+        tol = torch.tensor(TOL, dtype=dt, device=dev)
+
+        def run():
+            torch.cuda.set_sync_debug_mode("error")  # a host sync inside raises
+            try:
+                return krylov_tpu_torch.solve_batched(ops[dt], B, method="mrr", tol=tol, maxiter=MAXITER)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        run()  # warm-up
+        t_batch, res = cuda_ms(run)
+        t_solo, solos = cuda_ms(lambda: [krylov_tpu_torch.solve_device(ops[dt], b, method="mrr", tol=TOL,
+                                                                       maxiter=MAXITER) for b in B])
+        x_diff = max(float((res.x[j] - s.x).abs().max()) for j, s in enumerate(solos))
+        iters = res.iterations.tolist()
+        phase(f"batched mrr {dt} fused, {NRHS} RHS: iterations {iters}, converged {res.converged.tolist()}; "
+              f"{t_batch / NRHS:.3f} ms per solve (solve_batched, CUDA events), solo solve_device "
+              f"{t_solo / NRHS:.3f} ms per solve; max |x - x_solo| {x_diff:.3e}")
+        for j, s in enumerate(solos):
+            if int(res.iterations[j]) != int(s.iterations) or bool(res.converged[j]) != bool(s.converged):
+                raise AssertionError(f"batched mrr {dt} member {j}: counts differ from the solo solve")
+            torch.testing.assert_close(res.x[j], s.x, rtol=1e-12, atol=0)
+            m = int(s.index) + 1
+            torch.testing.assert_close(res.residual_trace[j, :m], s.residual_trace[:m], rtol=1e-12, atol=0)
+        if dt == f64 and not bool(res.converged.all()):
+            raise AssertionError("batched mrr float64: a member did not converge")
+    check_launched("batched fused path", (fused.fused_mrr_solve_2d,))
+
+    P, H = hyb
+    B = torch.from_numpy(np.random.default_rng(22).standard_normal((NRHS, H.shape[0]))).to(dev)
+    krylov_tpu_torch.solve_batched(H, B[:2], method="cg", tol=TOL, maxiter=MAXITER)  # warm-up
+    t_batch, res = cuda_ms(lambda: krylov_tpu_torch.solve_batched(H, B, method="cg", tol=TOL, maxiter=MAXITER))
+    t_solo, solos = cuda_ms(lambda: [krylov_tpu_torch.solve_device(H, b, method="cg", tol=TOL, maxiter=MAXITER)
+                                     for b in B])
+    x_rel = max(rel_err(res.x[j], s.x) for j, s in enumerate(solos))
+    true_res = max(true_rel(P, B[j].cpu().numpy(), res.x[j]) for j in range(NRHS))
+    phase(f"batched cg float64 eager, HYB powerlaw_spd(2**20), {NRHS} RHS: iterations {res.iterations.tolist()}, "
+          f"converged {res.converged.tolist()}; {t_batch / NRHS:.3f} ms per solve (solve_batched, CUDA events), "
+          f"solo {t_solo / NRHS:.3f} ms per solve; max |x - x_solo| / max |x_solo| {x_rel:.3e} "
+          f"(tol {X_REL_EAGER:g}); max host f64 true res {true_res:.6e}")
+    for j, s in enumerate(solos):
+        if int(res.iterations[j]) != int(s.iterations) or not bool(res.converged[j]):
+            raise AssertionError(f"batched hyb cg member {j}: counts differ from the solo solve or not converged")
+    if not (x_rel <= X_REL_EAGER and true_res < TOL):
+        raise AssertionError("batched hyb cg: x differs from the solo solves, or the true residual is above tol")
+
+
+def irregular(hyb, dev) -> None:
+    """9. The HYB operator: its matvec against scipy float64 A @ x (and two
+    runs bitwise equal: the tail's scatter-add sorts its rows), timed, with
+    the ELL gather of an 8-RHS block timed in both batch layouts; CG
+    in float64 on the eager loop at the numpy float64 CG count on the same
+    CSR; then Matrix Market IO on a small system, reporting which native
+    path ran."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import scipy.io
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import native
+    from krylov_tpu_torch.sparse import fixtures, io
+
+    P, H = hyb
+    x_np = np.random.default_rng(23).standard_normal(H.shape[0])
+    x = torch.from_numpy(x_np).to(dev)
+    y = H.matvec(x)
+    err = float(np.abs(y.cpu().numpy() - P @ x_np).max() / np.abs(P @ x_np).max())
+    t, y2 = cuda_ms(lambda: H.matvec(x), reps=50)
+    X = torch.from_numpy(np.random.default_rng(24).standard_normal((NRHS, H.shape[0]))).to(dev)
+    tb, Y = cuda_ms(lambda: H.matvec(X), reps=10)
+    b_err = max(rel_err(Y[j], H.matvec(X[j])) for j in range(NRHS))
+    phase(f"HYB matvec float64 N={H.shape[0]}: max |y - y_scipy| / max |y_scipy| {err:.3e} (tol 1e-12), "
+          f"repeat bitwise equal {torch.equal(y, y2)}; {t * 1e3:.3f} us ({P.nnz / (t * 1e-3) / 1e9:.3f} Gnnz/s, "
+          f"CUDA events over 50 calls); {NRHS}-RHS block {tb * 1e3:.3f} us ({NRHS * P.nnz / (tb * 1e-3) / 1e9:.3f} "
+          f"Gnnz/s), batched vs solo max rel {b_err:.3e} (tol 1e-12)")
+    if not (err <= 1e-12 and b_err <= 1e-12 and torch.equal(y, y2)):
+        raise AssertionError("HYB matvec disagrees with scipy, with the solo matvec, or between two runs")
+    # the layout choice of sparse/formats.py: the block's ELL gather with the
+    # batch leading, against the JAX package's row gather of an (n, batch)
+    # block
+    idx, Xt = H.ell_indices.reshape(-1), X.T.contiguous()
+    t_lead, _ = cuda_ms(lambda: X.index_select(-1, idx), reps=10)
+    t_rows, _ = cuda_ms(lambda: Xt.index_select(0, idx), reps=10)
+    phase(f"  ELL gather of the {NRHS}-RHS block (CUDA events over 10 calls): batch leading {t_lead * 1e3:.3f} us, "
+          f"rows of the (n, {NRHS}) block {t_rows * 1e3:.3f} us")
+
+    b_np = np.random.default_rng(25).standard_normal(H.shape[0])
+    ref_iters, _ = numpy_cg(P, b_np, TOL, MAXITER)
+    x_cg, info = krylov_tpu_torch.solve(H, b_np, method="cg", tol=TOL, maxiter=MAXITER)
+    res = true_rel(P, b_np, x_cg)
+    phase(f"HYB cg float64 eager: iters {info['iterations']} (numpy f64 CG {ref_iters}), converged "
+          f"{info['converged']}, recurred res {info['residual'][-1]:.6e}, host f64 true res {res:.6e}, "
+          f"solve() time {info['time'] * 1e3:.3f} ms")
+    if info["iterations"] != ref_iters or not (info["converged"] and res < TOL):
+        raise AssertionError("HYB cg float64: count differs from numpy or the true residual is above tol")
+
+    small = fixtures.powerlaw_spd(3000, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "powerlaw.mtx")
+        scipy.io.mmwrite(path, small)
+        A = io.load_mtx(path, device=dev)
+    xs = np.random.default_rng(26).standard_normal(3000)
+    e = float(np.abs(A.matvec(torch.from_numpy(xs).to(dev)).cpu().numpy() - small @ xs).max())
+    lib = "native library" if native.available() else f"numpy/scipy fallback ({native.load_error or 'no library'})"
+    phase(f"io.load_mtx powerlaw_spd(3000) -> {type(A).__name__} on {A.device} through the {lib}; "
+          f"max |A x - scipy| {e:.3e}")
+    if not e <= 1e-12:
+        raise AssertionError("io.load_mtx: the loaded operator disagrees with scipy")
+
+
+def row4b(dev) -> None:
+    """10. The ill-conditioned power-law companion (row 4b of RESULTS.md),
+    printed, not held: float32 vectors, tol 1e-4, MAXITER, CG and the
+    monomial k-skip family with float64 scalars, each with its converged
+    flag, count, host float64 true residual and time."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch.sparse import as_operator, fixtures
+
+    tol = 1e-4
+    t0 = time.perf_counter()
+    P = fixtures.powerlaw_spd(2**20, shift=1e-3, diag_scale_decades=1.5)
+    A = as_operator(P, dtype=torch.float32, device=dev)
+    phase(f"row 4b powerlaw_spd(2**20, shift=1e-3, diag_scale_decades=1.5): {type(A).__name__} float32, "
+          f"nnz {P.nnz}, set-up {time.perf_counter() - t0:.2f} s")
+    b_np = np.random.default_rng(27).standard_normal(P.shape[0]).astype(np.float32)
+    t0 = time.perf_counter()
+    ref_iters, ref_hist = numpy_cg(P, b_np.astype(np.float64), tol, MAXITER)
+    phase(f"  numpy f64 CG on the same CSR: {ref_iters} iterations, residual {ref_hist[-1]:.6e}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs = [
+        ("cg", 0, {}),
+        ("kskipmrr", 4, dict(scalar_dtype=torch.float64)),
+        ("adaptivekskipmrr", 8, dict(scalar_dtype=torch.float64)),
+        ("adaptivekskipmrr", 8, dict(scalar_dtype=torch.float64, basis_norm=True)),
+    ]
+    for m, k, kw in runs:
+        x, info = krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=tol, maxiter=MAXITER, **kw)
+        res = true_rel(P, b_np, x)
+        extra = "" if "final_k" not in info else f", final k {info['final_k']}"
+        phase(f"  row 4b {m} k={k}{' basis_norm' if kw.get('basis_norm') else ''}"
+              f"{' f64 scalars' if kw else ''}: converged {info['converged']}, iters {info['iterations']}, "
+              f"recurred res {info['residual'][-1]:.6e}, host f64 true res {res:.6e}{extra}, "
+              f"solve() time {info['time']:.3f} s")
+
+
 def main() -> int:
     import torch
 
@@ -393,8 +657,7 @@ def main() -> int:
     runs = [("mrr", f64), ("cg", f64), ("mrr", f32), ("cg", f32)]
     ops = {dt: fixtures.laplace2d(NX, dtype=dt, constant=True, device=dev) for dt in (f64, f32)}
     counted = (stencil.stencil_matvec_2d, fused.fused_mrr_solve_2d, fused.fused_cg_solve_2d)
-    for fn in counted:
-        fn.launches = 0
+    reset(counted)
     results = {}
     for m, dt in runs:
         results[m, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, tol=TOL, maxiter=MAXITER)
@@ -402,11 +665,7 @@ def main() -> int:
     x0_np = results["mrr", f32][0].double().cpu().numpy()
     results["mrr warm", f64] = krylov_tpu_torch.solve(ops[f64], b_np, method="mrr", x0=x0_np,
                                                       tol=TOL, maxiter=MAXITER)
-    launches = {fn.__name__: fn.launches for fn in counted}
-    phase(f"main path launches: {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"the main path never launched {name}")
+    launches = check_launched("main path", counted)
 
     A_csr = laplace2d_csr_f64(NX)
     refs = {"mrr": numpy_mrr(A_csr, b_np, TOL, MAXITER), "cg": numpy_cg(A_csr, b_np, TOL, MAXITER),
@@ -434,17 +693,12 @@ def main() -> int:
 
     # 5b. the k-skip path through solve(), counters from this run only
     counted_k = (fused_kskip.fused_kskipcg_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
-    for fn in counted_k:
-        fn.launches = 0
+    reset(counted_k)
     kres = {}
     for dt in (f64, f32):
         for m, k in KSKIP_RUNS.items():
             kres[m, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)
-    klaunches = {fn.__name__: fn.launches for fn in counted_k}
-    phase(f"k-skip path launches: {klaunches}")
-    for name, count in klaunches.items():
-        if count < 1:
-            raise AssertionError(f"the k-skip path never launched {name}")
+    klaunches = check_launched("k-skip path", counted_k)
     # the eager loops on the card: an independent second route, float64; in
     # float32 printed only, also with float64 inner products
     for m, k in KSKIP_RUNS.items():
@@ -575,6 +829,12 @@ def main() -> int:
         phase(f"device time {dt} (torch.profiler): " + ", ".join(
             f"{k} {'not measured' if v is None else f'{v:.3f} us'}" for k, v in us.items())
             + f"; cooperative grid blocks of 256 threads: {blocks}")
+
+    fidelity(ops, b_np, A_csr, fused, stencil)
+    hyb = irregular_system(dev)
+    batched(ops, hyb, dev, fused)
+    irregular(hyb, dev)
+    row4b(dev)
 
     kernels = [
         {"name": "stencil_matvec_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/stencil.cu",

@@ -1,20 +1,23 @@
-"""SciPy-compatible front door: :func:`solve`, :func:`solve_device` and the
-``cg``/``mrr``/``kskipcg``/``kskipmrr``/``adaptivekskipmrr`` wrappers, with
-the signatures of :mod:`krylov_tpu.api`.
+"""SciPy-compatible front door: :func:`solve`, :func:`solve_device`,
+:func:`solve_batched` and the ``cg``/``mrr``/``kskipcg``/``kskipmrr``/
+``adaptivekskipmrr`` wrappers, with the signatures of :mod:`krylov_tpu.api`.
 
 A solve runs on the device of the operator's tensors; ``b`` and ``x0`` are
 moved there.  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
 systems take the fused whole-solve kernels (:mod:`.kernels.fused`,
 :mod:`.kernels.fused_kskip`), other operators (and ``fused=False``,
 ``basis_norm=True`` or a wider ``scalar_dtype``) the eager loops of
-:mod:`.solvers`.
+:mod:`.solvers`.  ``restarts=`` appends device-side defect corrections to a
+solve, ``refine=`` host-float64 iterative refinement.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from krylov_tpu_torch.context import Context
@@ -29,7 +32,8 @@ from krylov_tpu_torch.solvers import (
     mrr_kernel,
 )
 from krylov_tpu_torch.solvers._common import check_square
-from krylov_tpu_torch.sparse.formats import StencilMatrix, as_operator
+from krylov_tpu_torch.sparse.convert import host64, host_matvec64
+from krylov_tpu_torch.sparse.formats import StencilMatrix, as_operator, to_device
 
 _METHOD_NAMES = {
     "cg": "CG",
@@ -66,14 +70,10 @@ def _check_method(method: str) -> None:
         raise ValueError(f"unknown method {method!r}; available: {sorted(_METHOD_NAMES)}")
 
 
-def _check_unported(restarts=0, refine=0, chunk_iters=None, mesh=None, M=None,
-                    spectral_bounds=None) -> None:
+def _check_unported(chunk_iters=None, mesh=None, M=None, spectral_bounds=None) -> None:
     """Raise for options this package does not take yet, naming the
     ROADMAP queue-1 item that brings them."""
-    fidelity = "fidelity: restarts=/refine= (ROADMAP queue 1, item 5)"
     for name, given, item in (
-        ("restarts", restarts != 0, fidelity),
-        ("refine", refine != 0, fidelity),
         ("chunk_iters", chunk_iters is not None, "chunked exact continuation (ROADMAP queue 1, item 10)"),
         ("mesh", mesh is not None, "the distributed port (ROADMAP queue 1, item 11)"),
         ("M", M is not None, "preconditioners (ROADMAP queue 1, item 9)"),
@@ -163,6 +163,14 @@ def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int, k: int) 
     )
 
 
+def _matvec(A, x):
+    """``A x`` through K1 for a 2-D/3-D stencil operator, the container's
+    own matvec otherwise."""
+    from krylov_tpu_torch.kernels.stencil import stencil_matvec
+
+    return stencil_matvec(A, x) if isinstance(A, StencilMatrix) else A.matvec(x)
+
+
 def _prepare(A, b, x0, maxiter):
     """``b`` and ``x0`` (None stays None) as contiguous tensors on ``A``'s
     device and dtype, and the default ``maxiter``."""
@@ -177,7 +185,7 @@ def _prepare(A, b, x0, maxiter):
     return b, x0, n if maxiter is None else maxiter
 
 
-def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm) -> SolveResult:
+def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm) -> SolveResult:
     if use_fused:
         return _run_fused(A, b, x0, tol, method, maxiter, k)
     ctx = Context(scalar_dtype=scalar_dtype)
@@ -187,6 +195,39 @@ def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basi
     if method in _KSKIP_METHODS:
         kw.update(k=k, basis_norm=basis_norm)
     return _KERNELS[method](A, b, x0, **kw)
+
+
+def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
+                restarts=0) -> SolveResult:
+    """One solve, then ``restarts`` device-side defect-correction passes
+    (:func:`krylov_tpu.api._run_single`).
+
+    The solvers converge on the recurred residual, which in float32 drifts
+    from the true one.  Each pass forms ``r = b - A x`` in working
+    precision on the device and, while ``||r|| / ||b||`` is still at or
+    above ``tol``, solves ``A d = r`` from zero to the equivalent relative
+    tolerance (with a 5x margin, in ``[2e-7, 0.5]``), passed to the solver
+    as a 0-d device tensor, and adds ``d`` to ``x``.  Where the JAX package
+    decides with ``lax.cond`` on the device, this reads ``true_rel >= tol``
+    on the host once a pass.  The result then carries ``true_residual``,
+    and ``converged`` is ``true_residual < tol``."""
+    result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+    if restarts == 0:
+        return result
+    tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
+    b_norm = torch.linalg.vector_norm(b)
+    x, iters = result.x, result.iterations
+    for _ in range(restarts):
+        r = b - _matvec(A, x)
+        r_norm = torch.linalg.vector_norm(r)
+        # tol on the original system is tol * b_norm / r_norm on the defect
+        inner_tol = torch.clamp(0.2 * tol_t * b_norm / torch.clamp(r_norm, min=1e-30), 2e-7, 0.5).to(b.dtype)
+        if bool(r_norm / b_norm >= tol_t):
+            res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+            x, iters = x + res2.x, iters + res2.iterations
+    true_final = torch.linalg.vector_norm(b - _matvec(A, x)) / b_norm
+    return dataclasses.replace(result, x=x, iterations=iters, converged=true_final < tol_t,
+                               true_residual=true_final)
 
 
 def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
@@ -200,7 +241,7 @@ def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
             "basis_norm= is not supported by the fused whole-solve kernels; "
             "drop fused=True (the eager loops take it)"
         )
-    A = as_operator(A)
+    A = as_operator(A, device=b.device if isinstance(b, torch.Tensor) else None)
     b, x0, maxiter = _prepare(A, b, x0, maxiter)
     use_fused = not basis_norm and _fused_eligible(A, method, M, scalar_dtype, fused)
     return A, b, x0, maxiter, use_fused, bool(basis_norm) and method in _KSKIP_METHODS
@@ -213,13 +254,18 @@ def solve_device(
     spectral_bounds=None,
 ) -> SolveResult:
     """Like :func:`solve` but returns the raw :class:`SolveResult` of device
-    tensors (fixed-shape traces, no host sync, no info dict)."""
+    tensors (fixed-shape traces, no info dict; the solve itself syncs with
+    the host only where its loop reads convergence).
+
+    ``restarts``: device-side defect-correction passes appended to the
+    solve (see :func:`_run_single`); the result then carries
+    ``true_residual`` and ``converged`` reflects it."""
     _check_method(method)
-    _check_unported(restarts=restarts, mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    _check_unported(mesh=mesh, M=M, spectral_bounds=spectral_bounds)
     A, b, x0, maxiter, use_fused, basis_norm = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
-    return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+    return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, restarts)
 
 
 def solve(
@@ -231,21 +277,37 @@ def solve(
 ):
     """Solve the SPD system ``A x = b``; returns ``(x, info)``.
 
-    ``x`` is a tensor on the operator's device.  ``info`` holds ``time``
-    (the solve alone, between device synchronisations; a first call's kernel
-    build is reported apart as ``compile_time``), ``nosl``, ``residual``,
-    ``converged``, ``iterations``, for ``adaptivekskipmrr`` ``khistory`` and
-    ``final_k``, and, when the fused path's trace ran past its capacity,
+    ``A`` is one of this package's containers, a scipy sparse matrix or a
+    2-D numpy array or tensor (a host input lands on ``b``'s device when
+    ``b`` is a tensor, else on the CPU).  ``x`` is a tensor on the
+    operator's device.  ``info`` holds ``time`` (the solve alone, between
+    device synchronisations; a first call's kernel build is reported apart
+    as ``compile_time``), ``nosl``, ``residual``, ``converged``,
+    ``iterations``, for ``adaptivekskipmrr`` ``khistory`` and ``final_k``,
+    and, when the fused path's trace ran past its capacity,
     ``residual_truncated``.  ``method`` is ``cg``, ``mrr``, ``kskipcg``,
     ``kskipmrr`` or ``adaptivekskipmrr`` (the k-skip methods take ``k``;
-    ``basis_norm=True`` normalises their Krylov chains on the eager loops);
-    the other options of the JAX package raise ``NotImplementedError``
-    naming the ROADMAP item that ports them.
+    ``basis_norm=True`` normalises their Krylov chains on the eager loops).
+
+    ``restarts=m`` appends ``m`` device-side defect corrections in working
+    precision (:func:`_run_single`); ``info`` then holds ``true_residual``.
+    ``refine=m`` runs host-float64 iterative refinement after the solve, as
+    the JAX package does: while the float64 true residual is at or above
+    ``tol`` (checked at most ``m`` times), the defect ``r = b - A x`` is
+    formed in float64 on the host (:func:`~krylov_tpu_torch.sparse.convert.host_matvec64`),
+    ``A d = r`` is solved in working precision through :func:`solve` with
+    the same options, and ``x += d`` accumulates in float64.  ``info`` then
+    holds ``true_residual`` and ``refinements``, its traces run on through
+    the corrections (the residuals rescaled to the original system), and
+    ``converged`` is ``true_residual < tol``.  The returned ``x`` is then a
+    float64 tensor on the operator's device, where the JAX package returns
+    a float64 numpy array.  The other options of the JAX package raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them.
     """
     _check_method(method)
-    _check_unported(restarts=restarts, refine=refine, chunk_iters=chunk_iters, mesh=mesh,
-                    M=M, spectral_bounds=spectral_bounds)
-    A, b, x0, maxiter, use_fused, basis_norm = _plan(
+    _check_unported(chunk_iters=chunk_iters, mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    b_in = b
+    A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
     if verbose:
@@ -259,7 +321,8 @@ def solve(
             compile_time = _build.build_seconds
         torch.cuda.synchronize(A.device)
     t0 = time.perf_counter()
-    result = _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+    result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
+                         restarts)
     if on_cuda:
         torch.cuda.synchronize(A.device)
     elapsed = time.perf_counter() - t0
@@ -267,10 +330,101 @@ def solve(
     info = build_info(result, elapsed)
     if compile_time:
         info["compile_time"] = compile_time
+    x = result.x
+    if refine:
+        x = _refine(A, b_in, x, info, refine, tol, dict(
+            method=method, maxiter=maxiter, k=k, M=M, mesh=mesh, scalar_dtype=scalar_dtype, fused=fused,
+            chunk_iters=chunk_iters, basis_norm=basis_norm, spectral_bounds=spectral_bounds,
+        ))
     if verbose:
-        finish_banner(elapsed, info["converged"], info["iterations"], info["residual"][-1],
+        finish_banner(info["time"], info["converged"], info["iterations"], info["residual"][-1],
                       info.get("final_k"))
-    return result.x, info
+    return x, info
+
+
+def _refine(A, b, x, info: dict, refine: int, tol: float, options: dict) -> torch.Tensor:
+    """Host-float64 iterative refinement of ``x`` (the ``refine=`` path of
+    :func:`krylov_tpu.api.solve`), merging each correction solve into
+    ``info``.  Returns ``x`` as a float64 tensor on ``A``'s device."""
+    A_host = to_device(A, "cpu")  # one copy; the float64 matvecs read it
+    b64 = host64(b)
+    b_norm = np.linalg.norm(b64)
+    x64 = host64(x)
+    refinements = 0
+    true_rel = float(np.linalg.norm(b64 - host_matvec64(A_host, x64)) / b_norm)
+    for _ in range(refine):
+        if not np.isfinite(true_rel) or true_rel < tol:
+            break
+        r64 = b64 - host_matvec64(A_host, x64)
+        r_norm = np.linalg.norm(r64)
+        # tol on the original system is tol * b_norm / r_norm on the defect
+        inner_tol = float(np.clip(tol * b_norm / r_norm, 1e-7, 0.1))
+        d, seg = solve(A, r64, x0=None, tol=inner_tol, **options)
+        x64 = x64 + host64(d)
+        refinements += 1
+        true_rel = float(np.linalg.norm(b64 - host_matvec64(A_host, x64)) / b_norm)
+        info["time"] += seg["time"]
+        info["nosl"] = np.concatenate([info["nosl"], seg["nosl"][1:] + info["nosl"][-1]])
+        # the correction's residuals, rescaled to the original system
+        info["residual"] = np.concatenate([info["residual"], seg["residual"][1:] * (r_norm / b_norm)])
+        if "khistory" in info and "khistory" in seg:
+            info["khistory"] = np.concatenate([info["khistory"], seg["khistory"][1:]])
+        if "final_k" in seg:
+            info["final_k"] = seg["final_k"]
+        info["iterations"] += seg["iterations"]
+    info["converged"] = bool(true_rel < tol)
+    info["true_residual"] = true_rel
+    info["refinements"] = refinements
+    # float64: a cast back to the working dtype would floor ||b - A x|| again
+    return torch.from_numpy(x64).to(A.device)
+
+
+def solve_batched(
+    A, B, method: str = "cg", X0=None, tol: float = 1e-5,
+    maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
+    scalar_dtype=None, fused=None, basis_norm: bool = False,
+    spectral_bounds=None,
+) -> SolveResult:
+    """Solve ``A x_i = b_i`` for a batch of right-hand sides ``B`` of shape
+    ``(batch, N)``; returns the stacked :class:`SolveResult` of device
+    tensors (``x`` of shape ``(batch, N)``, traces ``(batch, L)``, and
+    ``iterations``, ``index``, ``converged`` and, where the method sets
+    them, ``k_trace``/``final_k`` per member).  Each member keeps its own
+    convergence point.
+
+    On the fused route the members run one fused kernel each, back to back
+    on one stream with no host sync in between (the JAX package's
+    ``lax.map``).  On the eager route CG and MrR run the whole batch as one
+    loop over ``(batch, N)`` blocks, each member freezing on its own (the
+    JAX package's ``vmap``); the k-skip methods run member by member."""
+    _check_method(method)
+    _check_unported(mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
+    B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
+    if B.ndim != 2 or B.shape[1] != A.shape[0]:
+        raise ValueError(f"B must be (batch, N={A.shape[0]}), got {tuple(B.shape)}")
+    if X0 is not None:
+        X0 = torch.as_tensor(X0, device=A.device).to(A.dtype).contiguous()
+        if X0.shape != B.shape:
+            raise ValueError(f"X0 has shape {tuple(X0.shape)}, B has shape {tuple(B.shape)}")
+    A, _, _, maxiter, use_fused, basis_norm = _plan(
+        A, B[0], None, method, maxiter, M, scalar_dtype, fused, basis_norm
+    )
+    # one tolerance tensor for the whole batch, in A's dtype as the JAX
+    # package casts it: the fused kernels read it without a host transfer
+    tol = torch.as_tensor(tol, dtype=A.dtype, device=A.device)
+    if not use_fused and method in ("cg", "mrr"):
+        X0 = torch.zeros_like(B) if X0 is None else X0
+        return _KERNELS[method](A, B, X0, tol=tol, maxiter=maxiter, ctx=Context(scalar_dtype=scalar_dtype))
+    members = [
+        _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, use_fused,
+                  basis_norm)
+        for j in range(B.shape[0])
+    ]
+    return SolveResult(**{
+        f.name: None if getattr(members[0], f.name) is None else torch.stack([getattr(m, f.name) for m in members])
+        for f in dataclasses.fields(SolveResult)
+    })
 
 
 def _scipy_style(method: str):

@@ -3,7 +3,8 @@
 The counterpart of :class:`krylov_tpu.context.Context` with ``axis=None``:
 reductions are plain tensor ops.  ``scalar_dtype`` widens the *operands*
 of every inner product (not just the result), so the products themselves
-are exact to the wide precision.  The mesh form (``psum`` over a device
+are exact to the wide precision.  ``dot`` and ``norm`` reduce over the last
+axis, so a ``(batch, n)`` block gives one value per member.  The mesh form (``psum`` over a device
 axis) waits for the distributed port (ROADMAP queue 1, item 11).
 """
 
@@ -31,7 +32,8 @@ class Context:
         return v.to(self.scalar_dtype) if self.scalar_dtype is not None else v
 
     def dot(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        return torch.dot(self._wide(u), self._wide(v))
+        u, v = self._wide(u), self._wide(v)
+        return torch.dot(u, v) if u.ndim == 1 else (u * v).sum(-1)
 
     def norm(self, u: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self.dot(u, u))

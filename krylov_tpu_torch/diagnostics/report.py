@@ -40,7 +40,8 @@ def _host(t) -> np.ndarray:
 
 def build_info(result, elapsed_time: float) -> dict:
     """Info dict: ``time``, ``nosl``, ``residual``, ``converged``,
-    ``iterations``, ``khistory``/``final_k`` where the solver adapts k, and
+    ``iterations``, ``khistory``/``final_k`` where the solver adapts k,
+    ``true_residual`` after ``restarts=`` defect corrections, and
     ``residual_truncated`` when the fused path's trace ran past its
     capacity."""
     index = int(result.index)
@@ -55,6 +56,8 @@ def build_info(result, elapsed_time: float) -> dict:
         info["khistory"] = _host(result.k_trace)[: index + 1]
     if result.final_k is not None:
         info["final_k"] = int(result.final_k)
+    if result.true_residual is not None:
+        info["true_residual"] = float(result.true_residual)
     if result.trace_truncated is not None and bool(result.trace_truncated):
         # iteration counts stay exact; only residual recording clamps
         info["residual_truncated"] = True

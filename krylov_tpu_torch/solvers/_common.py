@@ -10,6 +10,12 @@ The convergence flag stays on the device.  The host reads it only every
 :data:`SYNC_EVERY` iterations; the bodies run in between keep the frozen state
 (and rewrite the same trace slot with the same value), so the result is the
 same as a loop that stops at once.
+
+The helpers take a leading batch axis (vectors ``(batch, n)``, scalars and
+counters ``(batch,)``, traces ``(batch, L)``), so a loop written for one
+system runs a batch as a ``vmap``-ped ``lax.while_loop`` does: every member
+keeps its own counters, trace slot and convergence flag, and freezes on its
+own.
 """
 
 from __future__ import annotations
@@ -22,10 +28,16 @@ import torch
 SYNC_EVERY = 32
 
 
+def bcast(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``s`` (a scalar per batch member) with trailing unit axes up to
+    ``v``'s rank, so it broadcasts over each member's vector."""
+    return s.reshape(s.shape + (1,) * (v.ndim - s.ndim))
+
+
 def tree_select(pred: torch.Tensor, on_true, on_false) -> tuple:
     """``torch.where(pred, a, b)`` leaf by leaf over two tuples (``pred`` is
-    a scalar bool tensor)."""
-    return tuple(torch.where(pred, a, b) for a, b in zip(on_true, on_false))
+    a bool per batch member)."""
+    return tuple(torch.where(bcast(pred, a), a, b) for a, b in zip(on_true, on_false))
 
 
 def pow2_scale(s: torch.Tensor) -> torch.Tensor:
@@ -54,23 +66,24 @@ def safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 def scale(alpha: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``alpha * v`` computed in ``alpha``'s (scalar) dtype, cast back to
     ``v``'s — the JAX solvers' ``(alpha * v).astype(v.dtype)``."""
-    return (alpha * v.to(alpha.dtype)).to(v.dtype)
+    return (bcast(alpha, v) * v.to(alpha.dtype)).to(v.dtype)
 
 
 def set_at(trace: torch.Tensor, idx: torch.Tensor, value: torch.Tensor, keep=None) -> None:
-    """``trace[idx] = value`` on the device (``idx`` a 0-d integer tensor),
-    left as it was where the bool tensor ``keep`` is true."""
-    i = idx.view(1)
-    new = value.view(1).to(trace.dtype)
+    """``trace[..., idx] = value`` on the device (``idx`` an integer per
+    batch member), left as it was where the bool tensor ``keep`` is true."""
+    i = idx.unsqueeze(-1)
+    new = value.unsqueeze(-1).to(trace.dtype)
     if keep is not None:
-        new = torch.where(keep, trace.index_select(0, i), new)
-    trace.index_copy_(0, i, new)
+        new = torch.where(keep.unsqueeze(-1), trace.gather(-1, i), new)
+    trace.scatter_(-1, i, new)
 
 
 def record_final(trace: torch.Tensor, i: torch.Tensor, conv: torch.Tensor, final: torch.Tensor):
-    """Diverged exit: ``trace[i] = final`` unless converged (or ``i`` is past
-    the trace, where the write is dropped)."""
-    set_at(trace, i.clamp(max=trace.numel() - 1), final, conv | (i >= trace.numel()))
+    """Diverged exit: ``trace[..., i] = final`` unless converged (or ``i`` is
+    past the trace, where the write is dropped)."""
+    last = trace.shape[-1]
+    set_at(trace, i.clamp(max=last - 1), final, conv | (i >= last))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +94,8 @@ class SolveResult:
     (fewer slots on the fused path past its trace capacity); entries beyond
     ``index`` are undefined.  ``iterations`` is the number of solution
     updates, ``index`` the position of the final residual in the trace (the
-    outer-iteration count of the k-skip family).
+    outer-iteration count of the k-skip family).  A batched solve stacks
+    every field along a leading batch axis.
     """
 
     x: torch.Tensor
@@ -93,6 +107,9 @@ class SolveResult:
     # k per outer iteration and the last k (adaptive k-skip MrR only)
     k_trace: Optional[torch.Tensor] = None
     final_k: Optional[torch.Tensor] = None
+    # ||b - A x|| / ||b|| in working precision, set by the ``restarts=``
+    # defect correction of :mod:`krylov_tpu_torch.api` (None otherwise)
+    true_residual: Optional[torch.Tensor] = None
     # True when the fused path ran past its trace capacity and the tail of
     # the history was overwritten in the last slot (None off that path).
     trace_truncated: Optional[torch.Tensor] = None

@@ -4,6 +4,11 @@ Numerics follow :func:`krylov_tpu.solvers.cg.cg_kernel`: per iteration one
 SpMV, ``sigma = <p, Ap>``, ``alpha = gamma/sigma``, ``x += alpha p``,
 ``r -= alpha v``, ``beta = gamma'/gamma``, ``p = r + beta p``, with
 convergence on ``||r||/||b|| < tol`` checked before the update.
+
+``b`` and ``x0`` may carry a leading batch axis ``(batch, n)``: the batch
+then runs as one loop over ``(batch, n)`` blocks, each member with its own
+counters, trace row and convergence point, as ``jax.vmap`` of the JAX
+solver gives them.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from krylov_tpu_torch.solvers._common import (
     safe_div,
     scalar_dtype_of,
     scale,
+    set_at,
+    tree_select,
 )
 
 
@@ -32,12 +39,13 @@ def cg_kernel(
     p = r
     gamma = ctx.dot(r, r)
 
-    trace = torch.zeros(maxiter + 1, dtype=scalar_dtype_of(ctx, b), device=dev)
-    i = torch.zeros((), dtype=torch.int64, device=dev)
-    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    batch = b.shape[:-1]
+    trace = torch.zeros(batch + (maxiter + 1,), dtype=scalar_dtype_of(ctx, b), device=dev)
+    i = torch.zeros(batch, dtype=torch.int64, device=dev)
+    conv = torch.zeros(batch, dtype=torch.bool, device=dev)
     for step in range(maxiter):
         res = torch.sqrt(gamma) / b_norm
-        trace.index_copy_(0, i.view(1), res.view(1))
+        set_at(trace, i, res)
         conv = res < tol
 
         v = ctx.matvec(A, p)
@@ -47,19 +55,16 @@ def cg_kernel(
         gamma_n = ctx.dot(r_n, r_n)
         p_n = r_n + scale(safe_div(gamma_n, gamma), p)
 
-        x, r, p, gamma = (
-            torch.where(conv, old, new)
-            for old, new in ((x, x_n), (r, r_n), (p, p_n), (gamma, gamma_n))
-        )
+        x, r, p, gamma = tree_select(conv, (x, r, p, gamma), (x_n, r_n, p_n, gamma_n))
         i = i + (~conv).to(i.dtype)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
             break
 
     record_final(trace, i, conv, torch.sqrt(gamma) / b_norm)
     return SolveResult(
         x=x,
         residual_trace=trace,
-        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev),
+        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev).expand_as(trace),
         iterations=i,
         index=i,
         converged=conv,

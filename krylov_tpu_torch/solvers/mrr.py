@@ -4,7 +4,8 @@ Numerics follow :func:`krylov_tpu.solvers.mrr.mrr_kernel`: an initial
 half-iteration sets ``zeta = <r,Ar>/<Ar,Ar>``, ``y = zeta Ar``,
 ``z = -zeta r``; each iteration then computes ``gamma = <y,Ar>/<y,y>``,
 ``s = Ar - gamma y``, ``zeta = <r,s>/<s,s>``, ``eta = -zeta gamma`` and
-updates ``y, z, r, x`` by the 2-term recurrences.
+updates ``y, z, r, x`` by the 2-term recurrences.  ``b`` and ``x0`` may
+carry a leading batch axis, as in :mod:`krylov_tpu_torch.solvers.cg`.
 """
 
 from __future__ import annotations
@@ -15,10 +16,13 @@ from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
     SYNC_EVERY,
     SolveResult,
+    bcast,
     record_final,
     safe_div,
     scalar_dtype_of,
     scale,
+    set_at,
+    tree_select,
 )
 
 
@@ -29,11 +33,12 @@ def mrr_kernel(
     dev, dt = b.device, b.dtype
     sdt = scalar_dtype_of(ctx, b)
     b_norm = ctx.norm(b)
-    trace = torch.zeros(maxiter + 1, dtype=sdt, device=dev)
+    batch = b.shape[:-1]
+    trace = torch.zeros(batch + (maxiter + 1,), dtype=sdt, device=dev)
 
     # initial residual + half-iteration
     r = b - ctx.matvec(A, x0)
-    trace[0] = ctx.norm(r) / b_norm
+    trace[..., 0] = ctx.norm(r) / b_norm
     Ar = ctx.matvec(A, r)
     rAr, ArAr = ctx.dot_bundle([(r, Ar), (Ar, Ar)])
     zeta = safe_div(rAr, ArAr)
@@ -42,13 +47,13 @@ def mrr_kernel(
     r = r - y
     x = x0 - z
 
-    i = torch.ones((), dtype=torch.int64, device=dev)
-    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    i = torch.ones(batch, dtype=torch.int64, device=dev)
+    conv = torch.zeros(batch, dtype=torch.bool, device=dev)
     for step in range(maxiter - 1):
         Ar = ctx.matvec(A, r)
         rr, mu, nu = ctx.dot_bundle([(r, r), (y, y), (y, Ar)])
         res = torch.sqrt(rr) / b_norm
-        trace.index_copy_(0, i.view(1), res.view(1))
+        set_at(trace, i, res)
         conv = res < tol
 
         gamma = safe_div(nu, mu)
@@ -56,24 +61,22 @@ def mrr_kernel(
         rs, ss = ctx.dot_bundle([(r, s), (s, s)])
         zeta = safe_div(rs, ss)
         eta = -zeta * gamma
+        eta, zeta = bcast(eta, y), bcast(zeta, y)
         y_n = (eta * y.to(sdt) + zeta * Ar.to(sdt)).to(dt)
         z_n = (eta * z.to(sdt) - zeta * r.to(sdt)).to(dt)
         r_n = r - y_n
         x_n = x - z_n
 
-        x, r, y, z = (
-            torch.where(conv, old, new)
-            for old, new in ((x, x_n), (r, r_n), (y, y_n), (z, z_n))
-        )
+        x, r, y, z = tree_select(conv, (x, r, y, z), (x_n, r_n, y_n, z_n))
         i = i + (~conv).to(i.dtype)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
             break
 
     record_final(trace, i, conv, ctx.norm(r) / b_norm)
     return SolveResult(
         x=x,
         residual_trace=trace,
-        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev),
+        nosl_trace=torch.arange(maxiter + 1, dtype=torch.int32, device=dev).expand_as(trace),
         iterations=i,
         index=i,
         converged=conv,

@@ -1,11 +1,26 @@
 """Sparse operator containers holding torch tensors.
 
-The counterparts of :mod:`krylov_tpu.sparse.formats` for the stencil main
-path: :class:`DiaMatrix` (banded storage) and :class:`StencilMatrix`
-(a stencil on a structured grid, with per-term coefficient grids or
-constant per-term weights).  Containers are frozen dataclasses; structural
-metadata (offsets, stencil, grid, shape) is plain Python, the numeric data
-is one tensor whose device is the device the operator runs on.
+The counterparts of :mod:`krylov_tpu.sparse.formats`: :class:`DiaMatrix`
+(banded storage), :class:`StencilMatrix` (a stencil on a structured grid,
+with per-term coefficient grids or constant per-term weights),
+:class:`EllMatrix` (padded fixed-width rows), :class:`HybMatrix` (ELL plus
+a tail of fixed-width chunks for long rows) and :class:`DenseMatrix`.
+Containers are frozen dataclasses; structural metadata (offsets, stencil,
+grid, shape) is plain Python, the numeric data are tensors on the device
+the operator runs on.
+
+Every ``matvec`` takes ``x`` of shape ``(n,)`` or ``(batch, n)``.  The
+gather containers (ELL, HYB) gather with the batch leading, one element
+per stored index and member, and add each HYB tail chunk as one
+batch-wide row.  The JAX package's ``vmap`` rules gather batch-wide rows
+of an ``(n, batch)`` block instead.  On an H100 with PyTorch 2.11, torch's
+row gathers of such a block (``index_select``, indexing, ``gather``) take
+10-19 ms at 2^20 rows and 16 slots a row for any batch of 2 or more (one
+thread block per index), against 0.94 ms for the leading-batch gather of
+8 members; the HYB matvec of 8 right-hand sides takes 17.6 ms one way and
+4.8 ms the other.  The JAX package's slice-gather formulation
+of ``gather_rows`` is a TPU addressing device and has no counterpart
+here: a GPU gathers elements directly.
 """
 
 from __future__ import annotations
@@ -17,13 +32,60 @@ import numpy as np
 import torch
 
 
+def as_torch_dtype(dtype):
+    """The torch dtype of a torch or numpy dtype (None stays None)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def as_numpy_dtype(dtype):
+    """The numpy dtype of a torch or numpy dtype (None stays None)."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def _pad_shift(x: torch.Tensor, pads, shifts, size):
-    """Shifted window of the zero-padded ``x`` (one slice per axis)."""
+    """Shifted window of the zero-padded ``x`` (one slice per trailing
+    axis; leading axes are batch axes)."""
     xp = torch.nn.functional.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
     idx = tuple(
         slice(lo + d, lo + d + g) for (lo, _), d, g in zip(pads, shifts, size)
     )
-    return xp[idx]
+    return xp[(...,) + idx]
+
+
+def _gather_sum(data: torch.Tensor, indices: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``sum_s data[i, s] * x[..., indices[i, s]]`` for ``x`` of shape
+    ``(n,)`` or ``(batch, n)``: one element gather per stored index and
+    batch member."""
+    g = x.index_select(-1, indices.reshape(-1)).view(x.shape[:-1] + indices.shape)
+    return (data * g).sum(-1)
+
+
+def _scatter_add_rows(y: torch.Tensor, rows: torch.Tensor, extra: torch.Tensor) -> torch.Tensor:
+    """``y[..., rows] += extra``, duplicate rows accumulating (in place).
+
+    The rows are indexed on a view with the batch axis trailing, so each
+    index adds a batch-wide row.  On CUDA, ``index_add_`` accumulates
+    duplicates with atomics, whose order (and so the last bits of a row fed
+    by several HYB tail chunks) changes from run to run;
+    ``index_put_(accumulate=True)`` sorts the rows first and is
+    deterministic there.  On the CPU, ``index_add_`` adds in index order,
+    as the JAX package's scatter does."""
+    yt, et = y.movedim(-1, 0), extra.movedim(-1, 0)
+    if y.device.type == "cuda":
+        yt.index_put_((rows,), et, accumulate=True)
+    else:
+        yt.index_add_(0, rows, et)
+    return y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,14 +122,14 @@ class DiaMatrix:
         """y[i] = sum_d data[d, i] * x[i + offsets[d]] via zero-padded shifts."""
         n = self.shape[0]
         pads = [(max(0, -min(self.offsets)), max(0, max(self.offsets)))]
-        y = torch.zeros(n, dtype=x.dtype, device=x.device)
+        y = x.new_zeros(x.shape[:-1] + (n,))
         for d, off in enumerate(self.offsets):
             y = y + self.data[d] * _pad_shift(x, pads, (off,), (n,))
         return y
 
     def todense(self) -> np.ndarray:
         n, m = self.shape
-        data = self.data.cpu().numpy()
+        data = _host(self.data)
         out = np.zeros((n, m), dtype=data.dtype)
         for d, off in enumerate(self.offsets):
             i = np.arange(max(0, -off), min(n, m - off))
@@ -147,12 +209,12 @@ class StencilMatrix:
         ]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        xg = x.reshape(self.grid)
+        xg = x.reshape(x.shape[:-1] + self.grid)
         pads = self._pads()
         y = torch.zeros_like(xg)
         for s, disp in enumerate(self.stencil):
             y = y + self.coef[s] * _pad_shift(xg, pads, disp, self.grid)
-        return y.reshape(-1)
+        return y.reshape(x.shape)
 
     def collapse_to_2d(self):
         """Collapse a 3-D stencil operator to the 2-D form the kernels take:
@@ -191,26 +253,174 @@ class StencilMatrix:
         return self.to_dia().todense()
 
 
-Operator = DiaMatrix | StencilMatrix
+@dataclasses.dataclass(frozen=True)
+class EllMatrix:
+    """ELLPACK (padded fixed-width rows).
+
+    ``data[i, s]`` is the value of the ``s``-th stored entry of row ``i``
+    and ``indices[i, s]`` (int32) its column.  Padding slots hold value 0
+    with an in-range column, so they add nothing to the matvec
+    ``(data * x[indices]).sum(-1)``.
+    """
+
+    data: torch.Tensor  # (nrows, width)
+    indices: torch.Tensor  # (nrows, width) int32
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def width(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(torch.count_nonzero(self.data))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return _gather_sum(self.data, self.indices, x)
+
+    def todense(self) -> np.ndarray:
+        data, idx = _host(self.data), _host(self.indices)
+        out = np.zeros(self.shape, dtype=data.dtype)
+        np.add.at(out, (np.arange(idx.shape[0])[:, None], idx), data)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HybMatrix:
+    """Hybrid ELL + tail storage for skewed row-nnz distributions.
+
+    The first ``w`` entries of every row live in an ELL block
+    (``ell_data``/``ell_indices``, ``(n, w)``).  The overflow of each
+    longer row is split into chunks of the fixed-width tail block
+    (``tail_data``/``tail_indices``, ``(t, w_tail)``), each chunk naming
+    its row in ``tail_rows``; the chunks of a row are added to it by a
+    scatter-add.  Padding slots hold value 0 with an in-range column;
+    padding chunks name row 0 with all-zero data.  ``w`` is chosen at
+    conversion time to minimise storage
+    (:func:`krylov_tpu_torch.sparse.convert.hyb_split_width`).
+    """
+
+    ell_data: torch.Tensor  # (n, w)
+    ell_indices: torch.Tensor  # (n, w) int32
+    tail_rows: torch.Tensor  # (t,) int32
+    tail_data: torch.Tensor  # (t, w_tail)
+    tail_indices: torch.Tensor  # (t, w_tail) int32
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ell_data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.ell_data.device
+
+    @property
+    def width(self) -> int:
+        return self.ell_data.shape[1]
+
+    @property
+    def tail_width(self) -> int:
+        return self.tail_data.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(torch.count_nonzero(self.ell_data)) + int(torch.count_nonzero(self.tail_data))
+
+    @property
+    def stored_entries(self) -> int:
+        """Padded storage slots in all (what HYB minimises against ELL)."""
+        return self.ell_data.numel() + self.tail_data.numel()
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        y = _gather_sum(self.ell_data, self.ell_indices, x)
+        return _scatter_add_rows(y, self.tail_rows, _gather_sum(self.tail_data, self.tail_indices, x))
+
+    def todense(self) -> np.ndarray:
+        data, idx = _host(self.ell_data), _host(self.ell_indices)
+        out = np.zeros(self.shape, dtype=data.dtype)
+        np.add.at(out, (np.arange(idx.shape[0])[:, None], idx), data)
+        t_idx = _host(self.tail_indices)
+        np.add.at(out, (_host(self.tail_rows)[:, None], t_idx), _host(self.tail_data))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseMatrix:
+    """Dense operand; the matvec is one matrix product."""
+
+    data: torch.Tensor  # (nrows, ncols)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.data.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return self.data.shape[0] * self.data.shape[1]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.data @ x if x.ndim == 1 else x @ self.data.T
+
+    def todense(self) -> np.ndarray:
+        return _host(self.data)
+
+
+Operator = DiaMatrix | StencilMatrix | EllMatrix | HybMatrix | DenseMatrix
+_CONTAINERS = (DiaMatrix, StencilMatrix, EllMatrix, HybMatrix, DenseMatrix)
 
 
 def to_device(A: Operator, device) -> Operator:
     """``A`` with its tensor leaves moved to ``device`` (a plain ``.to()``)."""
-    field = "data" if isinstance(A, DiaMatrix) else "coef"
-    return dataclasses.replace(A, **{field: getattr(A, field).to(device)})
+    moved = {
+        f.name: getattr(A, f.name).to(device)
+        for f in dataclasses.fields(A)
+        if isinstance(getattr(A, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(A, **moved)
 
 
-def as_operator(A) -> Operator:
-    """Return ``A`` if it is one of this package's containers.
+def as_operator(A, dtype=None, device=None) -> Operator:
+    """Coerce ``A`` into one of this package's containers.
 
-    Scipy sparse matrices, dense arrays and the ELL/HYB/dense containers
-    are not ported yet (ROADMAP queue 1, item 8: irregular operators and
-    IO)."""
-    if isinstance(A, (DiaMatrix, StencilMatrix)):
+    The containers pass unchanged.  A scipy sparse matrix goes through
+    :func:`krylov_tpu_torch.sparse.convert.from_scipy` (DIA, ELL or HYB by
+    its pattern) and a 2-D numpy array or tensor becomes a
+    :class:`DenseMatrix`; ``dtype`` (torch or numpy) casts them, and they
+    land on ``device`` (a host input defaults to the CPU; a tensor stays
+    where it is).  ``krylov_tpu`` containers carry across with
+    :func:`krylov_tpu_torch.sparse.convert.from_jax_operator`."""
+    from krylov_tpu_torch.sparse import convert
+
+    if isinstance(A, _CONTAINERS):
         return A
+    if hasattr(A, "tocsr") and hasattr(A, "nnz"):  # scipy sparse
+        return convert.from_scipy(A, dtype=dtype, device=device)
+    if isinstance(A, (np.ndarray, torch.Tensor)):
+        data = torch.as_tensor(A, device=device)
+        if dtype is not None:
+            data = data.to(as_torch_dtype(dtype))
+        if data.ndim != 2:
+            raise ValueError(f"expected a 2-D operand, got shape {tuple(data.shape)}")
+        return DenseMatrix(data)
     raise TypeError(
-        f"krylov_tpu_torch takes DiaMatrix or StencilMatrix operators, got "
-        f"{type(A).__name__}; scipy/dense/ELL/HYB inputs wait for the "
-        "'irregular operators and IO' port (ROADMAP queue 1, item 8); "
+        f"krylov_tpu_torch takes its own containers, scipy sparse matrices and "
+        f"2-D numpy arrays or tensors, got {type(A).__module__}.{type(A).__name__}; "
         "krylov_tpu containers convert with sparse.convert.from_jax_operator"
     )

@@ -22,7 +22,7 @@ import torch
 
 import krylov_tpu_torch
 from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
-from krylov_tpu_torch.sparse import StencilMatrix, fixtures
+from krylov_tpu_torch.sparse import StencilMatrix, convert, fixtures, to_device
 
 OPERATORS = {
     "2d": lambda **kw: fixtures.laplace2d(24, **kw),
@@ -306,3 +306,79 @@ def test_kskip_solve_on_cuda_matches_cpu(cuda, method):
     np.testing.assert_array_equal(info_g["nosl"], info_c["nosl"])
     np.testing.assert_allclose(info_g["residual"], info_c["residual"], rtol=1e-5)
     np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-6, atol=1e-9)
+
+
+IRREGULAR = {
+    "ell": lambda dtype: fixtures.random_spd_ell(3000, seed=2, dtype=dtype),
+    "hyb": lambda dtype: convert.to_hyb(fixtures.powerlaw_spd(4000, seed=11, max_deg=400), dtype=dtype),
+    "dense": lambda dtype: convert.to_dense(fixtures.powerlaw_spd(300, seed=3), dtype=dtype),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", sorted(IRREGULAR))
+def test_batched_irregular_matvec_on_cuda_matches_cpu(cuda, name, dtype, rtol):
+    """The (batch, n) matvec of ELL/HYB/dense on the card against the CPU
+    result and against the card's own solo matvecs (max error against the
+    largest entry), and two card runs bitwise equal: the HYB tail's
+    scatter-add sorts its rows, so its sums keep one order."""
+    A = IRREGULAR[name](dtype)
+    X = torch.from_numpy(np.random.default_rng(5).standard_normal((4, A.shape[0]))).to(dtype)
+    Y_cpu = A.matvec(X)
+    A_g = to_device(A, cuda)
+    Y = A_g.matvec(X.to(cuda))
+    assert Y.shape == X.shape and Y.device.type == "cuda"
+    scale = float(Y_cpu.abs().max())
+    torch.testing.assert_close(Y.cpu(), Y_cpu, rtol=0, atol=rtol * scale)
+    for j in range(4):
+        torch.testing.assert_close(Y[j], A_g.matvec(X[j].to(cuda)), rtol=0, atol=rtol * scale)
+    assert torch.equal(A_g.matvec(X.to(cuda)), Y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "mrr", "kskipmrr"])
+def test_solve_batched_fused_members_equal_solo_on_cuda(cuda, method):
+    """Each member of a fused batch is the solo fused solve of its b: the
+    same kernel launch on the same values."""
+    A = fixtures.laplace2d(32, constant=True, device=cuda)
+    B = torch.from_numpy(np.random.default_rng(9).standard_normal((3, A.shape[0]))).to(cuda)
+    before = KERNEL.get(method, fused_kskip.fused_kskipmrr_solve_2d).launches
+    res = krylov_tpu_torch.solve_batched(A, B, method=method, k=2, tol=1e-8)
+    assert KERNEL.get(method, fused_kskip.fused_kskipmrr_solve_2d).launches == before + 3
+    for j in range(3):
+        solo = krylov_tpu_torch.solve_device(A, B[j], method=method, k=2, tol=1e-8)
+        assert int(res.iterations[j]) == int(solo.iterations) and bool(res.converged[j])
+        assert torch.equal(res.x[j], solo.x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "mrr"])
+def test_batched_eager_on_cuda_matches_cpu(cuda, method):
+    """The batched eager loop on a HYB operator on the card against the
+    same loop on the CPU (float64: equal counts, x rtol 1e-10)."""
+    A = convert.to_hyb(fixtures.powerlaw_spd(3000, seed=4, diag_scale_decades=0.5))
+    B = np.random.default_rng(10).standard_normal((3, A.shape[0]))
+    res_c = krylov_tpu_torch.solve_batched(A, B, method=method, tol=1e-10)
+    res_g = krylov_tpu_torch.solve_batched(to_device(A, cuda), torch.from_numpy(B).to(cuda), method=method, tol=1e-10)
+    assert torch.equal(res_g.iterations.cpu(), res_c.iterations) and bool(res_g.converged.all())
+    torch.testing.assert_close(res_g.x.cpu(), res_c.x, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_restarts_and_refine_on_cuda(cuda):
+    """float32 on the card: restarts= corrects through K2 (the defects
+    through K1) and refine= returns a float64 x on the card, both ending
+    below tol by the host float64 residual."""
+    A = fixtures.laplace2d(64, dtype=torch.float32, constant=True, device=cuda)
+    b = np.random.default_rng(11).standard_normal(A.shape[0]).astype(np.float32)
+    k1, k2 = stencil.stencil_matvec_2d.launches, fused.fused_mrr_solve_2d.launches
+    res = krylov_tpu_torch.solve_device(A, b, method="mrr", tol=1e-6, restarts=2)
+    assert stencil.stencil_matvec_2d.launches > k1 and fused.fused_mrr_solve_2d.launches > k2 + 1
+    x, info = krylov_tpu_torch.solve(A, b, method="mrr", tol=1e-7, refine=3)
+    assert x.dtype == torch.float64 and x.device.type == "cuda"
+    A64 = convert.host_matvec64
+    for xx, tol in ((res.x, 1e-6), (x, 1e-7)):
+        true = np.linalg.norm(b - A64(A, xx)) / np.linalg.norm(b)
+        assert true < tol
+    assert bool(res.converged) and info["converged"] and info["true_residual"] < 1e-7

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from krylov_tpu.sparse import fixtures as jfx
-from krylov_tpu_torch.sparse import DiaMatrix, StencilMatrix, as_operator, fixtures, to_device
+from krylov_tpu_torch.sparse import DenseMatrix, DiaMatrix, EllMatrix, StencilMatrix, as_operator, fixtures, to_device
 from krylov_tpu_torch.sparse.convert import from_jax_operator
 
 RTOL = 1e-12
@@ -110,8 +110,9 @@ def test_fixture_dtype_and_device_arguments():
 def test_as_operator_passes_port_containers_and_rejects_others():
     A = fixtures.laplace2d(4)
     assert as_operator(A) is A
-    with pytest.raises(TypeError, match="irregular operators and IO"):
-        as_operator(np.eye(4))
+    D = as_operator(np.eye(4))
+    assert isinstance(D, DenseMatrix) and D.device.type == "cpu"
+    np.testing.assert_array_equal(D.data.numpy(), np.eye(4))
     with pytest.raises(TypeError, match="from_jax_operator"):
         as_operator(jfx.laplace2d(4))
 
@@ -119,5 +120,10 @@ def test_as_operator_passes_port_containers_and_rejects_others():
 def test_from_jax_operator_dtype_cast():
     At = from_jax_operator(jfx.laplace2d(5), dtype=torch.float32)
     assert At.dtype == torch.float32
-    with pytest.raises(TypeError, match="StencilMatrix or DiaMatrix"):
-        from_jax_operator(jfx.random_spd_ell(16))
+    E = jfx.random_spd_ell(16)
+    Et = from_jax_operator(E, dtype=torch.float32)
+    assert isinstance(Et, EllMatrix) and Et.dtype == torch.float32 and Et.indices.dtype == torch.int32
+    np.testing.assert_array_equal(Et.indices.numpy(), np.asarray(E.indices))
+    np.testing.assert_array_equal(Et.data.numpy(), np.asarray(E.data).astype(np.float32))
+    with pytest.raises(TypeError, match="krylov_tpu container"):
+        from_jax_operator(object())

@@ -136,8 +136,10 @@ def test_unknown_method_raises():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(restarts=2), "item 5"),
-        (dict(refine=1), "item 5"),
+        # restarts= and refine= are ported; with mesh= or spectral_bounds=
+        # they still raise, naming the item that brings those
+        (dict(restarts=2, mesh=object()), "item 11"),
+        (dict(refine=1, spectral_bounds=(0.1, 8.0)), "item 9"),
         (dict(chunk_iters=10), "item 10"),
         (dict(M=object()), "item 9"),
         (dict(method="cacg"), "item 9"),
