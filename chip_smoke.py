@@ -6,9 +6,12 @@ Builds the CUDA kernels from the sources in this checkout, holds each one
 against its plain PyTorch version on the card, then drives two paths of
 ``krylov_tpu_torch.solve`` on the 2-D 5-point Laplacian at N = 250,000
 (constant-weight stencil form) in float64 and float32: MrR and CG (and a
-float64 MrR warm-started from the float32 answer), then k-skip CG (k=4),
-k-skip MrR (k=4) and adaptive k-skip MrR (k=8).  It checks the float64
-solves against float64 references (scipy/numpy MrR and CG; the JAX
+float64 MrR warm-started from the float32 answer), which run K2/K3 on their
+resident route, then k-skip CG (k=4), k-skip MrR (k=4) and adaptive k-skip
+MrR (k=8).  K2/K3's streaming route is held against its plain version on
+``laplace2d(1500)`` (N = 2.25M), above the resident route's capacity, and
+K1 is timed beside its one-call yardstick, ``torch.nn.functional.conv2d``.
+It checks the float64 solves against float64 references (scipy/numpy MrR and CG; the JAX
 package's counts for the k-skip family) with the true residual below tol,
 holds the fused kernels against their plain versions at that size while it
 times them with CUDA events.  Then it drives the paths that reuse the
@@ -37,8 +40,13 @@ MAXITER = 3000
 # fused kernel against its plain version: the sums run in another order
 # (per-block partials), so the recurrences drift apart by rounding over
 # ~1000 iterations.  The float32 limits sit about 10x above the largest
-# differences read on an H100 at N = 250k (trace 7.8e-6 relative, x 9.9e-5
-# absolute with max |x| ~ 76); a wrong kernel misses them by orders.
+# differences read on an H100 (700 W) at N = 250k: trace 7.8e-6 relative,
+# x 9.9e-5 absolute with max |x| ~ 76 for the streaming kernels, trace
+# 7.1e-6, x 9.9e-5 for the resident ones, whose sums run in another order
+# again (PERF.md); a wrong kernel misses them by orders.  The float64
+# limits are those of tests/test_torch_cuda.py; the largest float64
+# readings, on either route, are trace 9.3e-15 relative and x 2.0e-13
+# absolute.
 TOLS = {
     "float64": dict(trace_rtol=1e-9, x_rtol=1e-8, x_atol=1e-12),
     "float32": dict(trace_rtol=1e-4, x_rtol=1e-4, x_atol=1e-3),
@@ -86,6 +94,12 @@ KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS
 KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
 KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
 SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
+NX_STREAM = 1500  # N = 2.25M: above the resident route's capacity in float64
+MAXITER_STREAM = 300  # the streaming phase's fixed iteration count
+# published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float64 and
+# float32 outside the tensor cores, and HBM bandwidth
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 NRHS = 8  # right-hand sides of the batched phase (bench.py's amortised stage)
 # batched eager CG on the HYB against solo solves: the dot products and the
 # matvec's row sums reduce in other kernels on a (batch, n) block than on
@@ -106,6 +120,31 @@ def phase(msg: str) -> None:
 def rel_err(a, b) -> float:
     """max |a - b| / max |b|."""
     return float((a - b).abs().max() / b.abs().max())
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    """``(ms, "operations" or "bytes")``: the least time the card could take
+    for ``flops`` operations in ``dtype`` and ``nbytes`` moved, the larger of
+    the two over the published peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fused_flops(method: str, nnz: int, n: int, iters: int) -> float:
+    """Operations of a K2 (MrR) or K3 (CG) solve of ``iters`` iterations: a
+    stencil (2 nnz) and the pointwise work, 20 n for MrR (six products or
+    sums, the y, z, x and r updates) and 10 n for CG (sigma, gamma, the x, r
+    and p updates), an iteration."""
+    return iters * (2 * nnz + (20 if method == "mrr" else 10) * n)
+
+
+def kskip_flops(method: str, k: int, nnz: int, n: int, outer: int) -> float:
+    """Operations of a K5/K6 solve of ``outer`` outer iterations at k: 3k + 2
+    stencils (the two basis streams and the steps), 6k + 6 products of the
+    bundle and k + 1 vector steps (CG: x, r, p; MrR: y, z, x, r), each
+    outer iteration."""
+    step = 6 if method == "kskipcg" else 10
+    return outer * ((3 * k + 2) * 2 * nnz + (6 * k + 6) * 2 * n + (k + 1) * step * n)
 
 
 def laplace2d_csr_f64(nx):
@@ -281,8 +320,34 @@ def compare_kskip(label, got, want, trace_rtol, x_rel):
 def device_us(fn, kernel: str, reps: int):
     """Mean device time in microseconds of the CUDA kernel whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls; None when the
-    profiler recorded no device time for it."""
+    profiler recorded no device time for it in three tries (a profile of
+    one long cooperative launch has come back without its kernel record)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            total = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
+            if kernel in evt.key and total and evt.count:
+                return total / evt.count
+    return None
+
+
+def us_text(us) -> str:
+    return "not measured" if us is None else f"{us:.3f} us"
+
+
+def kernels_us(fn, reps: int):
+    """Mean device time in microseconds of all CUDA kernels that one call of
+    ``fn`` launches, from torch.profiler over ``reps`` calls; None when the
+    profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -290,11 +355,33 @@ def device_us(fn, kernel: str, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
-        if kernel in evt.key and total and evt.count:
-            return total / evt.count
-    return None
+    total = sum(evt.device_time_total for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
+    return total / reps if total else None
+
+
+def conv2d_yardstick(A, x):
+    """K1's one-call yardstick, timed here and called nowhere in the port:
+    ``torch.nn.functional.conv2d`` of the constant 2-D stencil as a 3x3
+    weight with padding=1 (cuDNN's TF32 off) on the same ``x``.  Returns
+    (ms a call by CUDA events over 200 calls, device us a call from the
+    profiler, max |y_conv - y_K1| / max |y_K1|)."""
+    import torch
+
+    from krylov_tpu_torch.kernels import stencil
+
+    w = torch.zeros((1, 1, 3, 3), dtype=A.dtype, device=x.device)
+    for (d0, d1), c in zip(A.stencil, A.coef):
+        w[0, 0, 1 + d0, 1 + d1] = c
+    xi = x.reshape(1, 1, *A.grid)
+    torch.backends.cudnn.allow_tf32 = False
+
+    def conv():
+        return torch.nn.functional.conv2d(xi, w, padding=1)
+
+    conv()  # warm-up: cuDNN picks its algorithm
+    ms, y = cuda_ms(conv, reps=200)
+    y_k1 = stencil.stencil_matvec_2d(A.coef, x, stencil=A.stencil, grid=A.grid)
+    return ms, kernels_us(conv, 50), rel_err(y.reshape(-1), y_k1)
 
 
 def true_rel(A_csr, b, x) -> float:
@@ -308,6 +395,14 @@ def true_rel(A_csr, b, x) -> float:
 def reset(fns) -> None:
     for fn in fns:
         fn.launches = 0
+        for route in ("resident", "streaming"):
+            if hasattr(fn, f"launches_{route}"):
+                setattr(fn, f"launches_{route}", 0)
+
+
+def route_counts(fns) -> dict:
+    """``{name: (resident, streaming)}`` launches of the K2/K3 wrappers."""
+    return {fn.__name__: (fn.launches_resident, fn.launches_streaming) for fn in fns}
 
 
 def check_launched(path: str, fns) -> dict:
@@ -319,6 +414,46 @@ def check_launched(path: str, fns) -> dict:
         if count < 1:
             raise AssertionError(f"the {path} never launched {name}")
     return counts
+
+
+def streaming(dev, fused) -> dict:
+    """6c. K2/K3's streaming route against its plain version on
+    laplace2d(NX_STREAM, constant) in float64 (N = 2.25M, above the
+    resident route's capacity), MAXITER_STREAM iterations with tol 0, b from
+    seed 14; launch counters from this run only.  Returns, by method,
+    (launches, max |x - x_plain|, kernel ms, plain ms, bound)."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch.sparse import fixtures
+
+    A = fixtures.laplace2d(NX_STREAM, constant=True, device=dev)
+    n = A.shape[0]
+    b = torch.from_numpy(np.random.default_rng(14).standard_normal(n)).to(dev)
+    b_norm = torch.linalg.vector_norm(b)
+    kw = dict(stencil=A.stencil, grid=A.grid, maxiter=MAXITER_STREAM)
+    k23 = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d)
+    out = {}
+    for m, kern, plain in (("mrr", fused.fused_mrr_solve_2d, fused.fused_mrr_solve_2d_reference),
+                           ("cg", fused.fused_cg_solve_2d, fused.fused_cg_solve_2d_reference)):
+        p = fused.device_plan(m, A.grid, A.stencil, torch.float64)
+        if p.route != "streaming":
+            raise AssertionError(f"laplace2d({NX_STREAM}) planned {p.route} for {m}, not streaming")
+        kern(A.coef, b, 0.0, b_norm, **kw)  # warm-up
+        reset(k23)
+        tk, got = cuda_ms(lambda: kern(A.coef, b, 0.0, b_norm, **kw))
+        routes = route_counts(k23)
+        tp, want = cuda_ms(lambda: plain(A.coef, b, 0.0, b_norm, **kw))
+        err = compare_solves(f"K{'3' if m == 'cg' else '2'} {m} streaming laplace2d({NX_STREAM}, constant) f64, "
+                             f"maxiter {MAXITER_STREAM}, {p.blocks} blocks", got, want, **TOLS["float64"])
+        launches = routes[kern.__name__][1]
+        if launches != 1 or routes[kern.__name__][0]:
+            raise AssertionError(f"the streaming phase did not launch {m} on the streaming route: {routes}")
+        out[m] = (launches, err, tk, tp,
+                  bound(fused_flops(m, A.nnz, n, int(got[2])), 2 * n * 8, "float64"))
+        phase(f"streaming {m} float64 N={n}: kernel {tk:.3f} ms, plain {tp:.3f} ms for {int(got[2])} iterations "
+              f"(CUDA events); bound {out[m][4][0]:.3f} ms ({out[m][4][1]})")
+    return out
 
 
 def fidelity(ops, b_np, A_csr, fused, stencil) -> None:
@@ -600,7 +735,10 @@ def main() -> int:
             if label == "laplace2d(500, constant)" and dt == f64:
                 k1_err = float((y - y_ref).abs().max())
 
-    # 4. K2/K3 against their plain versions on small grids, float64
+    # 4. K2/K3 against their plain versions on small grids, float64, on the
+    # resident route
+    k23 = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d)
+    reset(k23)
     for make, label in (
         (lambda: fixtures.laplace2d(64, device=dev), "laplace2d(64)"),
         (lambda: fixtures.laplace2d(64, constant=True, device=dev), "laplace2d(64, constant)"),
@@ -613,9 +751,12 @@ def main() -> int:
         kw = dict(stencil=st2, grid=g2, maxiter=A.shape[0], sub=sub)
         for m, kern, plain in (("cg", fused.fused_cg_solve_2d, fused.fused_cg_solve_2d_reference),
                                ("mrr", fused.fused_mrr_solve_2d, fused.fused_mrr_solve_2d_reference)):
-            compare_solves(f"K{'3' if m == 'cg' else '2'} {m} {label} f64",
+            p = fused.device_plan(m, g2, st2, f64)
+            compare_solves(f"K{'3' if m == 'cg' else '2'} {m} {label} f64 ({p.route}, {p.blocks} blocks)",
                            kern(coef2, b, 1e-8, b_norm, **kw), plain(coef2, b, 1e-8, b_norm, **kw),
                            **TOLS["float64"])
+    if any(res < 3 or stream for res, stream in route_counts(k23).values()):
+        raise AssertionError(f"phase 4 did not run K2/K3 on the resident route: {route_counts(k23)}")
 
     # 4b. K5/K6 against their plain versions on small grids, two seeds:
     # whole solves in float64, and in float32 at k <= 2; the float32 k = 4
@@ -666,6 +807,10 @@ def main() -> int:
     results["mrr warm", f64] = krylov_tpu_torch.solve(ops[f64], b_np, method="mrr", x0=x0_np,
                                                       tol=TOL, maxiter=MAXITER)
     launches = check_launched("main path", counted)
+    routes = route_counts(counted[1:])
+    phase(f"main path K2/K3 launches by route (resident, streaming): {routes}")
+    if any(res < 1 or stream for res, stream in routes.values()):
+        raise AssertionError(f"the main path did not run K2/K3 on the resident route alone: {routes}")
 
     A_csr = laplace2d_csr_f64(NX)
     refs = {"mrr": numpy_mrr(A_csr, b_np, TOL, MAXITER), "cg": numpy_cg(A_csr, b_np, TOL, MAXITER),
@@ -732,13 +877,14 @@ def main() -> int:
 
     # 6. K2/K3 against their plain versions at the main-path shape, timed:
     # median of 3 fresh b
-    ms, k23_err = {}, {}
+    ms, k23_err, k23_bound = {}, {}, {}
     for dt in (f64, f32):
         coef2, st2, g2, sub = ops[dt].collapse_to_2d()
         kw = dict(stencil=st2, grid=g2, maxiter=MAXITER, sub=sub)
         for m, kern, plain in (("mrr", fused.fused_mrr_solve_2d, fused.fused_mrr_solve_2d_reference),
                                ("cg", fused.fused_cg_solve_2d, fused.fused_cg_solve_2d_reference)):
-            t_k, t_p, errs = [], [], []
+            t_k, t_p, errs, bounds = [], [], [], []
+            name = str(dt).removeprefix("torch.")
             for seed in (1, 2, 3):
                 b = torch.from_numpy(np.random.default_rng(seed).standard_normal(NX * NX)).to(dev, dt)
                 b_norm = torch.linalg.vector_norm(b)
@@ -747,12 +893,17 @@ def main() -> int:
                 t_p.append(tp)
                 t_k.append(tk)
                 errs.append(compare_solves(f"K{'3' if m == 'cg' else '2'} {m} laplace2d({NX}, constant) "
-                                           f"{dt} seed {seed}", got, want, **TOLS[str(dt).removeprefix("torch.")]))
+                                           f"{dt} seed {seed}", got, want, **TOLS[name]))
+                bounds.append(bound(fused_flops(m, ops[dt].nnz, NX * NX, int(got[2])),
+                                    2 * NX * NX * dt.itemsize, name))
             ms[m, dt] = (statistics.median(t_k), statistics.median(t_p))
             k23_err[m, dt] = max(errs)
+            k23_bound[m, dt] = sorted(bounds)[1]
+            p = fused.device_plan(m, g2, st2, dt)
             phase(f"time-to-solution {m} {dt} N={NX * NX}: kernel {ms[m, dt][0]:.3f} ms, "
                   f"plain {ms[m, dt][1]:.3f} ms (median of 3, CUDA events; "
-                  f"{summary[m, dt]} iterations on seed 0)")
+                  f"{summary[m, dt]} iterations on seed 0); {p.route} route, {p.blocks} blocks of {p.threads} "
+                  f"threads, {p.ppt} points a thread; bound {k23_bound[m, dt][0]:.3f} ms ({k23_bound[m, dt][1]})")
     spmv = {}
     for dt in (f64, f32):
         coef2, st2, g2, sub = ops[dt].collapse_to_2d()
@@ -764,13 +915,27 @@ def main() -> int:
         spmv[dt] = (t_k, t_p)
         phase(f"K1 SpMV {dt} N={NX * NX}: kernel {t_k * 1e3:.3f} us ({ops[dt].nnz / (t_k * 1e-3) / 1e9:.3f} Gnnz/s), "
               f"plain {t_p * 1e3:.3f} us ({ops[dt].nnz / (t_p * 1e-3) / 1e9:.3f} Gnnz/s)")
+    # K1's one-call yardstick, conv2d of the same stencil, and both device
+    # times from the profiler
+    conv = {}
+    for dt in (f64, f32):
+        coef2, st2, g2, sub = ops[dt].collapse_to_2d()
+        x = torch.from_numpy(np.random.default_rng(13).standard_normal(NX * NX)).to(dev, dt)
+        k1_us = kernels_us(lambda: stencil.stencil_matvec_2d(coef2, x, stencil=st2, grid=g2, sub=sub), 50)
+        conv[dt] = conv2d_yardstick(ops[dt], x)
+        c_ms, c_us, err = conv[dt]
+        phase(f"K1 against conv2d {dt} N={NX * NX}: K1 {us_text(k1_us)} device, {spmv[dt][0] * 1e3:.3f} us a call; "
+              f"conv2d {us_text(c_us)} device, {c_ms * 1e3:.3f} us a call (CUDA events, cuDNN TF32 off); "
+              f"max |y_conv - y_K1| / max |y_K1| {err:.3e}")
+        if not err <= (1e-12 if dt == f64 else 1e-5):
+            raise AssertionError(f"conv2d and K1 disagree on the same stencil ({dt})")
 
     # 6b. K5/K6 against their plain versions at the main-path shape on
     # SEEDS, the kernel timed as the median over them, the plain version too;
     # static k-skip MrR k=8 stands beside adaptive k=8 as a witness that the
     # gap comes from k.  Then the whole float32 solves that are not held
     # (see KSKIP_FULL), printed side by side.
-    kms, kerr = {}, {}
+    kms, kerr, kouter = {}, {}, {}
     for (m, k, name), tols in KSKIP_FULL.items():
         dt = getattr(torch, name)
         first = dt == f32 and k >= 4
@@ -782,6 +947,7 @@ def main() -> int:
             tp, want = cuda_ms(lambda: kskip_call(m, k, ops[dt], b, TOL, maxiter, plain=True, plain64=first))
             t_k.append(tk)
             t_p.append(tp)
+            kouter.setdefault((m, k, name), []).append(int(got[6]))
             errs.append(compare_kskip(f"{kernel_id[m]} {m} k={k} laplace2d({NX}, constant) {name} seed {seed}"
                                       + (f", maxiter {maxiter} against float64" if first else ""),
                                       got, want, **tols))
@@ -818,42 +984,59 @@ def main() -> int:
         us = {
             "K1 stencil2d_kernel": device_us(
                 lambda: stencil.stencil_matvec_2d(coef2, x, stencil=st2, grid=g2, sub=sub), "stencil2d_kernel", 50),
-            "K2 mrr_fused_kernel": device_us(
+            "K2 mrr_resident_kernel": device_us(
                 lambda: fused.fused_mrr_solve_2d(coef2, x, TOL, b_norm, stencil=st2, grid=g2, maxiter=MAXITER, sub=sub),
-                "mrr_fused_kernel", 1),
-            "K3 cg_fused_kernel": device_us(
+                "mrr_resident_kernel", 3),
+            "K3 cg_resident_kernel": device_us(
                 lambda: fused.fused_cg_solve_2d(coef2, x, TOL, b_norm, stencil=st2, grid=g2, maxiter=MAXITER, sub=sub),
-                "cg_fused_kernel", 1),
+                "cg_resident_kernel", 3),
         }
-        blocks = {m: fused.workspace(m, dt, NX * NX)[0] for m in ("mrr", "cg")}
-        phase(f"device time {dt} (torch.profiler): " + ", ".join(
+        plans = {m: fused.device_plan(m, g2, st2, dt) for m in ("mrr", "cg")}
+        phase(f"device time {dt} (torch.profiler, b = x of seed 13): " + ", ".join(
             f"{k} {'not measured' if v is None else f'{v:.3f} us'}" for k, v in us.items())
-            + f"; cooperative grid blocks of 256 threads: {blocks}")
+            + "; grids: " + ", ".join(f"{m} {p.route} {p.blocks} x {p.threads}" for m, p in plans.items()))
 
+    stream = streaming(dev, fused)
     fidelity(ops, b_np, A_csr, fused, stencil)
     hyb = irregular_system(dev)
     batched(ops, hyb, dev, fused)
     irregular(hyb, dev)
     row4b(dev)
 
+    # the k-skip bounds for the timed solves (the median of their outer
+    # iteration counts over SEEDS)
+    k5_bound, k6_bound = (
+        bound(kskip_flops(m, 4, ops[f64].nnz, NX * NX, statistics.median(kouter[m, 4, "float64"])),
+              2 * NX * NX * 8, "float64") for m in ("kskipmrr", "kskipcg"))
+    k1_bound = bound(2 * ops[f64].nnz, 2 * NX * NX * 8, "float64")
+
+    def entry(name, source, replaces, launches, err, ms_, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
+    res_src, str_src = "krylov_tpu_torch/kernels/csrc/fused_resident.cu", "krylov_tpu_torch/kernels/csrc/fused.cu"
     kernels = [
-        {"name": "stencil_matvec_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/stencil.cu",
-         "replaces": "krylov_tpu/kernels/stencil.py:89", "launches": launches["stencil_matvec_2d"],
-         "max_abs_err": k1_err, "ms": spmv[f64][0], "plain_ms": spmv[f64][1]},
-        {"name": "fused_mrr_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused.cu",
-         "replaces": "krylov_tpu/kernels/fused.py:344", "launches": launches["fused_mrr_solve_2d"],
-         "max_abs_err": k23_err["mrr", f64], "ms": ms["mrr", f64][0], "plain_ms": ms["mrr", f64][1]},
-        {"name": "fused_cg_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused.cu",
-         "replaces": "krylov_tpu/kernels/fused.py:259", "launches": launches["fused_cg_solve_2d"],
-         "max_abs_err": k23_err["cg", f64], "ms": ms["cg", f64][0], "plain_ms": ms["cg", f64][1]},
-        {"name": "fused_kskipmrr_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
-         "replaces": "krylov_tpu/kernels/fused_kskip.py:528", "launches": klaunches["fused_kskipmrr_solve_2d"],
-         "max_abs_err": max(kerr["kskipmrr", 4, "float64"], kerr["adaptivekskipmrr", 8, "float64"]),
-         "ms": kms["kskipmrr", 4, "float64"][0], "plain_ms": kms["kskipmrr", 4, "float64"][1]},
-        {"name": "fused_kskipcg_solve_2d", "route": "cuda", "source": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
-         "replaces": "krylov_tpu/kernels/fused_kskip.py:629", "launches": klaunches["fused_kskipcg_solve_2d"],
-         "max_abs_err": kerr["kskipcg", 4, "float64"], "ms": kms["kskipcg", 4, "float64"][0],
-         "plain_ms": kms["kskipcg", 4, "float64"][1]},
+        entry("stencil_matvec_2d", "krylov_tpu_torch/kernels/csrc/stencil.cu", "krylov_tpu/kernels/stencil.py:89",
+              launches["stencil_matvec_2d"], k1_err, spmv[f64][0], spmv[f64][1], k1_bound, conv[f64][0]),
+        entry("fused_mrr_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:344",
+              routes["fused_mrr_solve_2d"][0], k23_err["mrr", f64], ms["mrr", f64][0], ms["mrr", f64][1],
+              k23_bound["mrr", f64]),
+        entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344", stream["mrr"][0],
+              stream["mrr"][1], stream["mrr"][2], stream["mrr"][3], stream["mrr"][4]),
+        entry("fused_cg_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:259",
+              routes["fused_cg_solve_2d"][0], k23_err["cg", f64], ms["cg", f64][0], ms["cg", f64][1],
+              k23_bound["cg", f64]),
+        entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259", stream["cg"][0],
+              stream["cg"][1], stream["cg"][2], stream["cg"][3], stream["cg"][4]),
+        entry("fused_kskipmrr_solve_2d", "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
+              "krylov_tpu/kernels/fused_kskip.py:528", klaunches["fused_kskipmrr_solve_2d"],
+              max(kerr["kskipmrr", 4, "float64"], kerr["adaptivekskipmrr", 8, "float64"]),
+              kms["kskipmrr", 4, "float64"][0], kms["kskipmrr", 4, "float64"][1], k5_bound),
+        entry("fused_kskipcg_solve_2d", "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
+              "krylov_tpu/kernels/fused_kskip.py:629", klaunches["fused_kskipcg_solve_2d"],
+              kerr["kskipcg", 4, "float64"], kms["kskipcg", 4, "float64"][0], kms["kskipcg", 4, "float64"][1],
+              k6_bound),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

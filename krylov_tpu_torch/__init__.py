@@ -6,7 +6,9 @@ inputs convert at the front door), with device-side restarts, host-float64
 refinement and batched right-hand sides.  2-D/3-D stencil systems run the
 whole solve in one hand-written CUDA kernel on a CUDA device
 (``kernels/csrc``), or through the kernels' plain PyTorch versions on the
-CPU; other operators run eager loops.  The package imports no JAX.
+CPU; other operators run eager loops.  Host input goes to the CUDA device
+unless the caller names another (``device=``, :func:`set_default_device`).
+The package imports no JAX.
 """
 
 from krylov_tpu_torch import sparse
@@ -20,9 +22,11 @@ from krylov_tpu_torch.api import (
     solve_batched,
     solve_device,
 )
+from krylov_tpu_torch.device import default_device, set_default_device
 
 __version__ = "0.1.0"
 
 __all__ = [
     "sparse", "solve", "solve_device", "solve_batched", "cg", "mrr", "kskipcg", "kskipmrr", "adaptivekskipmrr",
+    "default_device", "set_default_device",
 ]

@@ -3,7 +3,9 @@
 ``adaptivekskipmrr`` wrappers, with the signatures of :mod:`krylov_tpu.api`.
 
 A solve runs on the device of the operator's tensors; ``b`` and ``x0`` are
-moved there.  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
+moved there.  A scipy or numpy operator lands on ``b``'s device when ``b``
+is a tensor, else on the default device of :mod:`krylov_tpu_torch.device`
+(the CUDA device unless the caller chose another).  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
 systems take the fused whole-solve kernels (:mod:`.kernels.fused`,
 :mod:`.kernels.fused_kskip`), other operators (and ``fused=False``,
 ``basis_norm=True`` or a wider ``scalar_dtype``) the eager loops of
@@ -279,8 +281,9 @@ def solve(
 
     ``A`` is one of this package's containers, a scipy sparse matrix or a
     2-D numpy array or tensor (a host input lands on ``b``'s device when
-    ``b`` is a tensor, else on the CPU).  ``x`` is a tensor on the
-    operator's device.  ``info`` holds ``time`` (the solve alone, between
+    ``b`` is a tensor, else on the default device, the CUDA device unless
+    :func:`krylov_tpu_torch.set_default_device` chose another).  ``x`` is a
+    tensor on the operator's device.  ``info`` holds ``time`` (the solve alone, between
     device synchronisations; a first call's kernel build is reported apart
     as ``compile_time``), ``nosl``, ``residual``, ``converged``,
     ``iterations``, for ``adaptivekskipmrr`` ``khistory`` and ``final_k``,

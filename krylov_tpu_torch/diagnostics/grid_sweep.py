@@ -1,14 +1,22 @@
-"""Time per solve of the fused kernels K2/K3/K5/K6 against the size of their
-cooperative grid, on one CUDA card.
+"""Time per solve of the fused kernels K2/K3/K5/K6 against the size and the
+route of their cooperative grid, and the latency of one grid sync, on one
+CUDA card.
 
     python -m krylov_tpu_torch.diagnostics.grid_sweep [--blocks 66,132,264,396,528,0]
+                                                     [--resident 66,100,132,0]
                                                      [--k 1,2,4,8] [--nx 500]
 
 The system is the 2-D 5-point Laplacian (constant-weight stencil) with
 ``nx * nx`` points in float64, ``b`` from ``default_rng(1)``, tol 1e-5 and
-maxiter 3000.  The grid is capped through ``kernels.fused.MAX_BLOCKS``
-(0: the occupancy limit, the kernels' default); a cap above that limit
-changes nothing.  Each time is the median of 3 solves between CUDA events.
+maxiter 3000.  K2/K3 run on the streaming route at each ``--blocks`` cap and
+on the resident route at each ``--resident`` cap (``kernels.fused.ROUTE``
+and ``MAX_BLOCKS``; 0: the plan's grid); K5/K6 at each ``--blocks`` cap and
+k of ``--k`` (an empty list skips them).  A cap above what fits changes
+nothing.  Each time is the median of 3 solves between CUDA events.  Last,
+a cooperative grid that only syncs gives the time of one grid sync:
+(time of 2000 syncs - time of 200) / 1800, median of 3, at each grid,
+block size and kind of sync of ``SYNC_GRIDS`` (the scratch's zeroing launch
+is in both times and cancels).
 """
 
 from __future__ import annotations
@@ -20,8 +28,15 @@ import subprocess
 import numpy as np
 import torch
 
-from krylov_tpu_torch.kernels import fused, fused_kskip
+from krylov_tpu_torch.kernels import _build, fused, fused_kskip
 from krylov_tpu_torch.sparse import fixtures
+
+# (blocks, threads, mode) of the sync probe: cooperative groups'
+# grid.sync() (mode 0) on the resident grid at 512 and 256 threads and on
+# the streaming grid; the resident kernels' grid_allsum (mode 1) on the
+# resident grid and half of it
+SYNC_GRIDS = ((132, 512, 0), (132, 256, 0), (528, 256, 0), (132, 512, 1), (66, 512, 1))
+SYNC_MODES = ("grid.sync()", "grid_allsum")
 
 
 def median_ms(fn):
@@ -39,9 +54,30 @@ def median_ms(fn):
     return statistics.median(times), out
 
 
+def sync_us(blocks: int, threads: int, mode: int) -> float:
+    """Microseconds of one grid sync of ``blocks`` blocks of ``threads``
+    (``mode``: an index of ``SYNC_MODES``)."""
+    lib = _build.library()
+
+    def run(reps):
+        def call():
+            partials = torch.zeros(2 * (6 * blocks + 6), dtype=torch.int64, device="cuda")  # 16-byte words
+            _build.check(lib.krylov_sync_probe(blocks, threads, reps, mode, partials.data_ptr(),
+                                               torch.cuda.current_stream().cuda_stream), "krylov_sync_probe")
+        return call
+
+    run(10)()  # warm-up
+    return (median_ms(run(2000))[0] - median_ms(run(200))[0]) / 1800 * 1e3
+
+
+def _ints(text: str):
+    return [int(v) for v in text.split(",") if v]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks", default="66,132,264,396,528,0")
+    ap.add_argument("--resident", default="66,100,132,0")
     ap.add_argument("--k", default="1,2,4,8")
     ap.add_argument("--nx", type=int, default=500)
     args = ap.parse_args()
@@ -53,14 +89,22 @@ def main() -> None:
     b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)).cuda()
     b_norm = torch.linalg.vector_norm(b)
     kw = dict(stencil=st2, grid=g2, maxiter=3000, sub=sub)
-    for cap in (int(v) for v in args.blocks.split(",")):
+    fused2 = (("mrr", fused.fused_mrr_solve_2d), ("cg", fused.fused_cg_solve_2d))
+    for route, caps in (("streaming", _ints(args.blocks)), ("resident", _ints(args.resident))):
+        fused.ROUTE = route
+        for cap in caps:
+            fused.MAX_BLOCKS = cap
+            for m, fn in fused2:
+                p = fused.device_plan(m, g2, st2, torch.float64)
+                blocks = p.blocks if route == "resident" else fused.workspace(m, torch.float64, n, p.blocks)[0]
+                t, (_, _, iters, _) = median_ms(lambda: fn(coef2, b, 1e-5, b_norm, **kw))
+                shape = f"{p.rows} rows a band, {p.ppt} points a thread" if route == "resident" else "256 threads"
+                print(f"K{'2' if m == 'mrr' else '3'} {m} {route} blocks {blocks} ({shape}): {t:.3f} ms, "
+                      f"{int(iters)} iters, {t / int(iters) * 1e3:.3f} us/iter", flush=True)
+    fused.ROUTE = None
+    for cap in _ints(args.blocks) if args.k else ():
         fused.MAX_BLOCKS = cap
-        for m, fn in (("mrr", fused.fused_mrr_solve_2d), ("cg", fused.fused_cg_solve_2d)):
-            blocks = fused.workspace(m, torch.float64, n)[0]
-            t, (_, _, iters, _) = median_ms(lambda: fn(coef2, b, 1e-5, b_norm, **kw))
-            print(f"K{'2' if m == 'mrr' else '3'} {m} blocks {blocks}: {t:.3f} ms, {int(iters)} iters, "
-                  f"{t / int(iters) * 1e3:.3f} us/iter", flush=True)
-        for k in (int(v) for v in args.k.split(",")):
+        for k in _ints(args.k):
             for m, fn in (("kskipcg", fused_kskip.fused_kskipcg_solve_2d),
                           ("kskipmrr", fused_kskip.fused_kskipmrr_solve_2d)):
                 blocks = fused_kskip.workspace(m, torch.float64, n, k)[0]
@@ -69,6 +113,9 @@ def main() -> None:
                 print(f"{'K6' if m == 'kskipcg' else 'K5'} {m} k={k} blocks {blocks}: {t:.3f} ms, "
                       f"{int(iters)} iters, {int(outer)} outer, {t / int(outer) * 1e3:.3f} us/outer", flush=True)
     fused.MAX_BLOCKS = 0
+    for blocks, threads, mode in SYNC_GRIDS:
+        print(f"grid sync ({SYNC_MODES[mode]}), {blocks} blocks of {threads} threads: "
+              f"{sync_us(blocks, threads, mode):.3f} us (cooperative kernel that only syncs)", flush=True)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("stencil.cu", "fused.cu", "fused_kskip.cu")
+SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu")
 HEADERS = ("stencil.cuh", "reduce.cuh")
 MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
 # compile flags of every source; the link adds -shared
@@ -91,6 +91,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.krylov_fused_workspace.restype = i
     lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
     lib.krylov_fused_solve.restype = i
+    lib.krylov_resident_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
+    lib.krylov_resident_solve.restype = i
+    lib.krylov_sync_probe.argtypes = [i, i, i, i, p, p]
+    lib.krylov_sync_probe.restype = i
     lib.krylov_kskip_workspace.argtypes = [
         i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i),

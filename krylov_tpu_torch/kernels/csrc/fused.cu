@@ -1,13 +1,14 @@
-// K2/K3: whole-solve MrR and CG on a 2-D (or collapsed 3-D) stencil
-// operator, the entire iteration loop in one launch.
+// K2/K3, streaming route: whole-solve MrR and CG on a 2-D (or collapsed
+// 3-D) stencil operator, the entire iteration loop in one launch, for
+// systems too large for the resident route (fused_resident.cu), whose bands
+// must fit one block an SM's registers and shared memory
+// (kernels/fused.py::plan decides).
 //
 // Replaces krylov_tpu/kernels/fused.py::fused_mrr_solve_2d
 // (_mrr_fused_kernel) and ::fused_cg_solve_2d (_cg_fused_kernel).  On the
 // TPU one core ran the loop with every vector resident in VMEM.  Here the
-// loop runs in a persistent cooperative grid (cudaLaunchCooperativeKernel,
-// as many blocks as fit on the card at once) and the vectors live in device
-// memory; at N = 250k the ~6 vectors an iteration touches (~12 MB in f64)
-// stay in the 50 MB L2.
+// loop runs in a persistent cooperative grid (cudaLaunchCooperativeKernel)
+// and the vectors live in device memory, streamed through L2 on every pass.
 //
 // Grid-wide agreement: every inner product goes through grid_sum
 // (reduce.cuh): a fixed-order block sum, one partial per block, a grid
@@ -21,11 +22,13 @@
 // the stencil, and the next stencil starts only after a grid sync.  That is
 // three grid syncs an iteration for either method.
 //
-// Bound: at N = 250k an iteration moves ~12 MB (f64) through L2 and does
-// ~15 flops a point; the three grid syncs (a few microseconds each) and the
-// redundant partial sums are expected to dominate.  Fewer syncs (fusing the
-// CG direction update into the next stencil, splitting dots algebraically)
-// and fewer, fatter blocks are later work.
+// Bound: as the resident route (fused_resident.cu): compute, ~0.21 ms for
+// MrR's and ~0.15 ms for CG's float64 solve at N = 250k.  Each pass here
+// streams the vectors it touches through L2 and ends in a grid sync whose
+// grid sum loads every block's partial in every block.  The grid is the
+// plan's: 4 blocks of 256 threads an SM (528 on an H100), where a sweep of
+// grid sizes found the time an iteration lowest (PERF.md), and no more
+// blocks than the points need.
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
@@ -223,13 +226,13 @@ const void* kernel_for(int method, int dtype) {
 }  // namespace
 
 // The work space of a solve of n points: the blocks of the cooperative grid
-// (as many as can be resident on the current device at once, and no more
-// than n needs) and the elements of the work and partials buffers that
-// krylov_fused_solve takes.  method 0 = CG, 1 = MrR; dtype is the element
-// size in bytes; max_blocks > 0 caps the grid (for grid-size sweeps).
+// (max_blocks, the plan's, but no more than can be resident on the current
+// device at once or than n needs) and the elements of the work and partials
+// buffers that krylov_fused_solve takes.  method 0 = CG, 1 = MrR; dtype is
+// the element size in bytes.
 extern "C" int krylov_fused_workspace(int method, int dtype, int n, int max_blocks, int* blocks,
                                       long long* work_elems, long long* partial_elems) {
-    if (method != 0 && method != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if ((method != 0 && method != 1) || max_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -240,7 +243,7 @@ extern "C" int krylov_fused_workspace(int method, int dtype, int n, int max_bloc
     if (err != cudaSuccess) return static_cast<int>(err);
     const int need = (n + kThreads - 1) / kThreads;
     int fit = per_sm * sms;
-    if (max_blocks > 0 && max_blocks < fit) fit = max_blocks;
+    if (max_blocks < fit) fit = max_blocks;
     *blocks = need < fit ? (need > 0 ? need : 1) : fit;
     *work_elems = static_cast<long long>(kWorkVectors[method]) * n;
     *partial_elems = static_cast<long long>(kPartialSlots) * *blocks;

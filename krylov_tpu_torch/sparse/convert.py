@@ -4,7 +4,8 @@ package's containers.
 
 The counterparts of :mod:`krylov_tpu.sparse.convert`: the sparsity pattern
 is analysed once on the host with numpy/scipy and the arrays are built as
-the JAX package builds them, then moved to ``device`` as tensors.  ``dtype``
+the JAX package builds them, then moved to ``device`` as tensors (by
+default the CUDA device, see :mod:`krylov_tpu_torch.device`).  ``dtype``
 is a torch or numpy dtype (None keeps the input's); index arrays are int32.
 
 :func:`from_jax_operator` reads a ``krylov_tpu`` container's leaves through
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from krylov_tpu_torch.device import resolve
 from krylov_tpu_torch.sparse.formats import (
     DenseMatrix,
     DiaMatrix,
@@ -34,7 +36,7 @@ from krylov_tpu_torch.sparse.formats import (
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return torch.as_tensor(np.ascontiguousarray(a), device=resolve(device))
 
 
 def _csr_parts(A):
@@ -269,7 +271,7 @@ def host_matvec64(A: Operator, x) -> np.ndarray:
 _FROM_JAX = {cls.__name__: cls for cls in (StencilMatrix, DiaMatrix, EllMatrix, HybMatrix, DenseMatrix)}
 
 
-def from_jax_operator(A, device="cpu", dtype=None):
+def from_jax_operator(A, device=None, dtype=None):
     """Convert a ``krylov_tpu`` container (``StencilMatrix``, ``DiaMatrix``,
     ``EllMatrix``, ``HybMatrix`` or ``DenseMatrix``) into this package's.
 
@@ -287,6 +289,6 @@ def from_jax_operator(A, device="cpu", dtype=None):
         elif f.name in ("grid", "offsets", "shape"):
             kw[f.name] = tuple(int(g) for g in v)
         else:
-            t = torch.as_tensor(np.array(v), device=device)
+            t = _tensor(np.array(v), device)
             kw[f.name] = t.to(as_torch_dtype(dtype)) if dtype is not None and t.is_floating_point() else t
     return cls(**kw)

@@ -3,7 +3,8 @@ random diagonally dominant ELL matrix and a power-law graph Laplacian.
 
 The same matrices as :mod:`krylov_tpu.sparse.fixtures`, from the same
 seeds: coefficients are computed in numpy (scipy for the random families)
-and moved to ``device`` once.  ``dtype`` is a torch or numpy dtype.
+and moved to ``device`` once (by default the CUDA device, see
+:mod:`krylov_tpu_torch.device`).  ``dtype`` is a torch or numpy dtype.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from krylov_tpu_torch.device import resolve
 from krylov_tpu_torch.sparse.formats import (
     DiaMatrix,
     EllMatrix,
@@ -21,10 +23,10 @@ from krylov_tpu_torch.sparse.formats import (
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a), device=device).to(as_torch_dtype(dtype))
+    return torch.as_tensor(np.ascontiguousarray(a), device=resolve(device)).to(as_torch_dtype(dtype))
 
 
-def poisson1d(n: int, dtype=torch.float64, device="cpu") -> DiaMatrix:
+def poisson1d(n: int, dtype=torch.float64, device=None) -> DiaMatrix:
     """1-D Poisson tridiagonal SPD matrix: diag 2, off-diagonals -1."""
     data = np.zeros((3, n))
     data[0, 1:] = -1.0  # A[i, i-1]
@@ -35,7 +37,7 @@ def poisson1d(n: int, dtype=torch.float64, device="cpu") -> DiaMatrix:
 
 def laplace2d(
     nx: int, ny: int | None = None, dtype=torch.float64, constant: bool = False,
-    device="cpu",
+    device=None,
 ) -> StencilMatrix:
     """2-D 5-point Laplacian on an ny*nx grid, row-major, Dirichlet
     boundaries; ``constant=True`` gives the per-term weight form."""
@@ -68,7 +70,7 @@ _STENCIL_3D = (
 
 def laplace3d(
     nx: int, ny: int | None = None, nz: int | None = None,
-    dtype=torch.float64, constant: bool = False, device="cpu",
+    dtype=torch.float64, constant: bool = False, device=None,
 ) -> StencilMatrix:
     """3-D 7-point Laplacian on an nz*ny*nx grid, Dirichlet boundaries."""
     ny = ny if ny is not None else nx
@@ -91,7 +93,7 @@ def laplace3d(
     return StencilMatrix(_tensor(coef, dtype, device), _STENCIL_3D, shp)
 
 
-def random_spd_ell(n: int, row_nnz: int = 8, seed: int = 0, dtype=torch.float64, device="cpu") -> EllMatrix:
+def random_spd_ell(n: int, row_nnz: int = 8, seed: int = 0, dtype=torch.float64, device=None) -> EllMatrix:
     """Random diagonally dominant SPD matrix in ELL storage: S + S^T with a
     diagonal of the absolute row sums plus one, from a random sparse S."""
     import scipy.sparse as sp
@@ -146,7 +148,8 @@ def powerlaw_spd(
 
 def rhs_for_solution(A, x_true, device=None) -> torch.Tensor:
     """``b = A @ x_true`` for a known-solution test, as a tensor on
-    ``device`` (by default the operator's, or the CPU for a scipy matrix).
+    ``device`` (by default the operator's, or the default device for a
+    scipy matrix).
     For a container, computed on the host in float64 and cast to
     ``x_true``'s dtype."""
     from krylov_tpu_torch.sparse.convert import host_matvec64
@@ -156,9 +159,9 @@ def rhs_for_solution(A, x_true, device=None) -> torch.Tensor:
     if hasattr(A, "matvec"):
         b, device = host_matvec64(A, x).astype(x.dtype), A.device if device is None else device
     else:
-        b = np.asarray(A @ x)
+        b, device = np.asarray(A @ x), resolve(device)
     return torch.as_tensor(b, device=device)
 
 
-def ones_rhs(n: int, dtype=torch.float64, device="cpu") -> torch.Tensor:
-    return torch.ones(n, dtype=as_torch_dtype(dtype), device=device)
+def ones_rhs(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    return torch.ones(n, dtype=as_torch_dtype(dtype), device=resolve(device))

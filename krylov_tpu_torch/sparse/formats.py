@@ -31,6 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from krylov_tpu_torch.device import default_device
+
 
 def as_torch_dtype(dtype):
     """The torch dtype of a torch or numpy dtype (None stays None)."""
@@ -403,8 +405,9 @@ def as_operator(A, dtype=None, device=None) -> Operator:
     :func:`krylov_tpu_torch.sparse.convert.from_scipy` (DIA, ELL or HYB by
     its pattern) and a 2-D numpy array or tensor becomes a
     :class:`DenseMatrix`; ``dtype`` (torch or numpy) casts them, and they
-    land on ``device`` (a host input defaults to the CPU; a tensor stays
-    where it is).  ``krylov_tpu`` containers carry across with
+    land on ``device`` (a host input defaults to the CUDA device, see
+    :mod:`krylov_tpu_torch.device`; a tensor stays where it is).
+    ``krylov_tpu`` containers carry across with
     :func:`krylov_tpu_torch.sparse.convert.from_jax_operator`."""
     from krylov_tpu_torch.sparse import convert
 
@@ -413,6 +416,8 @@ def as_operator(A, dtype=None, device=None) -> Operator:
     if hasattr(A, "tocsr") and hasattr(A, "nnz"):  # scipy sparse
         return convert.from_scipy(A, dtype=dtype, device=device)
     if isinstance(A, (np.ndarray, torch.Tensor)):
+        if device is None and isinstance(A, np.ndarray):
+            device = default_device()
         data = torch.as_tensor(A, device=device)
         if dtype is not None:
             data = data.to(as_torch_dtype(dtype))

@@ -3,7 +3,8 @@
 The counterparts of :mod:`krylov_tpu.sparse.io`.  ``.mtx`` parsing takes
 the native C++ path of :mod:`krylov_tpu_torch.native` when its library
 loads, and scipy otherwise.  ``dtype`` is a torch or numpy dtype (None
-keeps float64); the container lands on ``device`` (the CPU by default).
+keeps float64); the container lands on ``device`` (by default the CUDA
+device, see :mod:`krylov_tpu_torch.device`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from krylov_tpu_torch import native
+from krylov_tpu_torch.device import resolve
 from krylov_tpu_torch.sparse import convert
 from krylov_tpu_torch.sparse.formats import (
     DiaMatrix,
@@ -52,7 +54,7 @@ def _from_csr_arrays(n, shape, indptr, indices, data, dtype, prefer, device):
     import torch
 
     def tensor(a, cast=True):
-        t = torch.as_tensor(a, device=device)
+        t = torch.as_tensor(a, device=resolve(device))
         return t.to(as_torch_dtype(dtype)) if cast and dtype is not None else t
 
     if prefer == "dense":

@@ -26,6 +26,16 @@ from krylov_tpu_torch.solvers import SolveResult, cg_kernel, mrr_kernel
 from krylov_tpu_torch.sparse import fixtures
 from krylov_tpu_torch.sparse.convert import from_jax_operator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The entry points put host input on the card by default; these tests
+    ask for the CPU."""
+    previous = krylov_tpu_torch.set_default_device("cpu")
+    yield
+    krylov_tpu_torch.set_default_device(previous)
+
+
 TOLS = {"cg": (1e-9, 1e-13, 1e-8, 1e-12), "mrr": (1e-9, 1e-13, 1e-8, 1e-12)}
 KSKIP_TOLS = (1e-5, 1e-11, 1e-6, 1e-9)
 

@@ -7,9 +7,10 @@ This file imports no JAX, so it runs on a machine that has none:
 
 Tolerances: the SpMV differs from the plain version only by fused
 multiply-adds, rtol 1e-12 (f64) / 1e-5 (f32) against the largest entry.
-The fused solves sum inner products in another order (per-block partials):
-equal iteration counts, traces rtol 1e-9 (atol 1e-14), x rtol 1e-8
-(atol 1e-12), in float64.  The fused k-skip solves (K5/K6) add the k-step
+The fused solves (either route of K2/K3) sum inner products in another
+order (per-block partials): equal iteration counts, traces rtol 1e-9 (atol
+1e-14), x rtol 1e-8 (atol 1e-12), in float64; float32 as ROUTE_TOLS
+states.  The fused k-skip solves (K5/K6) add the k-step
 scalar recurrences, which amplify that rounding: equal iteration, outer,
 nosl, ktrace and final_k values, traces rtol 1e-5, x rtol 1e-6 (atol
 1e-9), the tolerances of tests/test_kernels.py for the same kernels, in
@@ -86,12 +87,61 @@ def test_fused_kernel_matches_plain(cuda, method, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method, vectors", [("cg", 3), ("mrr", 4)])
 def test_fused_workspace_sizes(cuda, method, vectors):
-    """The C library sizes the scratch buffers: n-vectors of work by method,
-    8 partial-sum slots a block, and no more blocks than n points need."""
+    """The C library sizes the streaming route's scratch: n-vectors of work
+    by method, 8 partial-sum slots a block, and the plan's blocks (4 an SM,
+    no more than n points need); the resident route's scratch is the plan's
+    edge-row exchange and 6 sum words a band plus 6."""
     n = 64 * 64
-    blocks, work, partials = fused.workspace(method, torch.float64, n)
-    assert 1 <= blocks <= n // 256 and work == vectors * n and partials == 8 * blocks
-    assert fused.workspace(method, torch.float64, n) == (blocks, work, partials)
+    p = fused.plan(method, (64, 64), fixtures.laplace2d(4, device=cuda).stencil, torch.float64,
+                   torch.cuda.get_device_properties(cuda).multi_processor_count, route="streaming")
+    blocks, work, partials = fused.workspace(method, torch.float64, n, p.blocks)
+    assert blocks == p.blocks == n // 256 and work == vectors * n and partials == 8 * blocks
+    assert fused.workspace(method, torch.float64, n, p.blocks) == (blocks, work, partials)
+    r = fused.device_plan(method, (64, 64), fixtures.laplace2d(4, device=cuda).stencil, torch.float64)
+    assert r.route == "resident" and fused.resident_buffers(r, (64, 64)) == (r.blocks * 2 * 64, 6 * r.blocks + 6)
+
+
+# resident K2/K3 against the plain versions: a grid whose rows do not divide
+# evenly among 132 bands, the collapsed 3-D constant form with its sub mask,
+# the grid-coefficient form, and a grid of 5 rows (5 bands)
+RESIDENT_CASES = {
+    "uneven rows": lambda **kw: fixtures.laplace2d(40, 133, constant=True, **kw),
+    "3d-const sub": lambda **kw: fixtures.laplace3d(16, constant=True, **kw),
+    "grid coefficients": lambda **kw: fixtures.laplace2d(48, 37, **kw),
+    "few bands": lambda **kw: fixtures.laplace2d(30, 5, constant=True, **kw),
+}
+# (trace rtol, x rtol, x atol): float64 as the other fused tests; float32
+# as chip_smoke.py's TOLS
+ROUTE_TOLS = {torch.float64: (1e-9, 1e-8, 1e-12), torch.float32: (1e-4, 1e-4, 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("route", ["resident", "streaming"])
+@pytest.mark.parametrize("name", sorted(RESIDENT_CASES))
+@pytest.mark.parametrize("method", ["cg", "mrr"])
+def test_fused_routes_match_plain(cuda, method, name, route, dtype, monkeypatch):
+    """Each route of K2/K3 on the same inputs against the plain version:
+    equal counts and convergence, traces and x within ROUTE_TOLS; the
+    route's own launch counter moves."""
+    A = RESIDENT_CASES[name](dtype=dtype, device=cuda)
+    b = _rhs(A.shape[0], 6, cuda, dtype)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    tol = 1e-8 if dtype == torch.float64 else 1e-5
+    kw = dict(stencil=stencil2, grid=grid2, maxiter=A.shape[0], sub=sub)
+    b_norm = torch.linalg.vector_norm(b)
+    monkeypatch.setattr(fused, "ROUTE", route)
+    assert fused.device_plan(method, grid2, stencil2, dtype).route == route
+    fn = KERNEL[method]
+    before, before_route = fn.launches, getattr(fn, f"launches_{route}")
+    x, t, i, c = fn(coef2, b, tol, b_norm, **kw)
+    assert fn.launches == before + 1 and getattr(fn, f"launches_{route}") == before_route + 1
+    xr, tr, ir, cr = PLAIN[method](coef2, b, tol, b_norm, **kw)
+    assert int(i) == int(ir) and bool(c) and bool(cr)
+    m = int(i) + 1
+    trace_rtol, x_rtol, x_atol = ROUTE_TOLS[dtype]
+    torch.testing.assert_close(t[:m], tr[:m], rtol=trace_rtol, atol=0)
+    torch.testing.assert_close(x, xr, rtol=x_rtol, atol=x_atol)
 
 
 @pytest.mark.cuda
@@ -114,7 +164,8 @@ def test_solve_on_cuda_matches_cpu(cuda, method):
     (plain versions), with a warm start."""
     b = np.random.default_rng(7).standard_normal(32 * 32)
     x0 = 0.1 * np.random.default_rng(8).standard_normal(32 * 32)
-    x_c, info_c = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True), b, method=method, x0=x0, tol=1e-8)
+    x_c, info_c = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True, device="cpu"), b, method=method, x0=x0,
+                                         tol=1e-8)
     x_g, info_g = krylov_tpu_torch.solve(
         fixtures.laplace2d(32, constant=True, device=cuda), b, method=method, x0=x0, tol=1e-8
     )
@@ -267,9 +318,10 @@ def test_fused_kskip_workspace_sizes(cuda, method, vectors):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["cg", "kskipcg"])
 def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
-    """fused.MAX_BLOCKS caps the cooperative grid of K2/K3/K5/K6 (for
-    grid-size sweeps) and sizes the partials by the capped grid; the solve
-    is the same up to the order of the sums."""
+    """fused.MAX_BLOCKS caps the cooperative grid of K2/K3 (on the route
+    the plan takes, here the resident one: fewer, taller bands) and of
+    K5/K6, and sizes the scratch by the capped grid; the solve is the same
+    up to the order of the sums."""
     A = fixtures.laplace2d(64, constant=True, device=cuda)
     b = _rhs(A.shape[0], 6, cuda)
     n, b_norm = A.shape[0], torch.linalg.vector_norm(b)
@@ -278,7 +330,9 @@ def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
     def run():
         if method == "cg":
             x, _, iters, _ = fused.fused_cg_solve_2d(A.coef, b, 1e-8, b_norm, **kw)
-            return fused.workspace("cg", torch.float64, n), x, iters
+            p = fused.device_plan("cg", A.grid, A.stencil, torch.float64)
+            assert p.route == "resident"
+            return (p.blocks, *fused.resident_buffers(p, A.grid)), x, iters
         x, _, _, iters, _, _ = fused_kskip.fused_kskipcg_solve_2d(A.coef, b, 1e-8, b_norm, 2, k_max=2, **kw)
         return fused_kskip.workspace("kskipcg", torch.float64, n, 2), x, iters
 
@@ -286,7 +340,7 @@ def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
     monkeypatch.setattr(fused, "MAX_BLOCKS", 3)
     capped, x, iters = run()
     assert full[0] > 3 and capped[0] == 3
-    assert capped[2] == (8 * 3 if method == "cg" else (18 + 3) * 3 + 18)
+    assert capped[2] == (6 * 3 + 6 if method == "cg" else (18 + 3) * 3 + 18)
     assert int(iters) == int(iters_full)
     torch.testing.assert_close(x, x_full, rtol=1e-6, atol=1e-9)
 
@@ -299,7 +353,7 @@ def test_kskip_solve_on_cuda_matches_cpu(cuda, method):
     b = np.random.default_rng(7).standard_normal(32 * 32)
     x0 = 0.1 * np.random.default_rng(8).standard_normal(32 * 32)
     kw = dict(method=method, k=3, x0=x0, tol=1e-8)
-    x_c, info_c = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True), b, **kw)
+    x_c, info_c = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True, device="cpu"), b, **kw)
     x_g, info_g = krylov_tpu_torch.solve(fixtures.laplace2d(32, constant=True, device=cuda), b, **kw)
     assert x_g.device.type == "cuda" and info_g["converged"]
     assert info_g["iterations"] == info_c["iterations"]
@@ -309,9 +363,9 @@ def test_kskip_solve_on_cuda_matches_cpu(cuda, method):
 
 
 IRREGULAR = {
-    "ell": lambda dtype: fixtures.random_spd_ell(3000, seed=2, dtype=dtype),
-    "hyb": lambda dtype: convert.to_hyb(fixtures.powerlaw_spd(4000, seed=11, max_deg=400), dtype=dtype),
-    "dense": lambda dtype: convert.to_dense(fixtures.powerlaw_spd(300, seed=3), dtype=dtype),
+    "ell": lambda dtype: fixtures.random_spd_ell(3000, seed=2, dtype=dtype, device="cpu"),
+    "hyb": lambda dtype: convert.to_hyb(fixtures.powerlaw_spd(4000, seed=11, max_deg=400), dtype=dtype, device="cpu"),
+    "dense": lambda dtype: convert.to_dense(fixtures.powerlaw_spd(300, seed=3), dtype=dtype, device="cpu"),
 }
 
 
@@ -357,7 +411,7 @@ def test_solve_batched_fused_members_equal_solo_on_cuda(cuda, method):
 def test_batched_eager_on_cuda_matches_cpu(cuda, method):
     """The batched eager loop on a HYB operator on the card against the
     same loop on the CPU (float64: equal counts, x rtol 1e-10)."""
-    A = convert.to_hyb(fixtures.powerlaw_spd(3000, seed=4, diag_scale_decades=0.5))
+    A = convert.to_hyb(fixtures.powerlaw_spd(3000, seed=4, diag_scale_decades=0.5), device="cpu")
     B = np.random.default_rng(10).standard_normal((3, A.shape[0]))
     res_c = krylov_tpu_torch.solve_batched(A, B, method=method, tol=1e-10)
     res_g = krylov_tpu_torch.solve_batched(to_device(A, cuda), torch.from_numpy(B).to(cuda), method=method, tol=1e-10)

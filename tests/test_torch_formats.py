@@ -13,9 +13,20 @@ import numpy as np
 import pytest
 import torch
 
+import krylov_tpu_torch
 from krylov_tpu.sparse import fixtures as jfx
 from krylov_tpu_torch.sparse import DenseMatrix, DiaMatrix, EllMatrix, StencilMatrix, as_operator, fixtures, to_device
 from krylov_tpu_torch.sparse.convert import from_jax_operator
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The entry points put host input on the card by default; these tests
+    ask for the CPU."""
+    previous = krylov_tpu_torch.set_default_device("cpu")
+    yield
+    krylov_tpu_torch.set_default_device(previous)
+
 
 RTOL = 1e-12
 

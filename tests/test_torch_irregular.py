@@ -44,6 +44,15 @@ from krylov_tpu_torch.sparse import (
 from krylov_tpu_torch.sparse.convert import from_jax_operator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The entry points put host input on the card by default; these tests
+    ask for the CPU."""
+    previous = krylov_tpu_torch.set_default_device("cpu")
+    yield
+    krylov_tpu_torch.set_default_device(previous)
+
+
 def _skewed(n=600, **kw):
     return jfx.powerlaw_spd(n, seed=11, max_deg=n // 4, **kw)
 

@@ -23,6 +23,16 @@ from krylov_tpu_torch.kernels import fused, stencil
 from krylov_tpu_torch.sparse import fixtures
 from krylov_tpu_torch.sparse.convert import from_jax_operator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The entry points put host input on the card by default; these tests
+    ask for the CPU."""
+    previous = krylov_tpu_torch.set_default_device("cpu")
+    yield
+    krylov_tpu_torch.set_default_device(previous)
+
+
 JAX_FUSED = {"cg": jax_fused_cg, "mrr": jax_fused_mrr}
 PORT_FUSED = {"cg": fused.fused_cg_solve_2d, "mrr": fused.fused_mrr_solve_2d}
 

@@ -25,6 +25,16 @@ from krylov_tpu_torch.solvers import SolveResult
 from krylov_tpu_torch.sparse import fixtures
 from krylov_tpu_torch.sparse.convert import from_jax_operator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The entry points put host input on the card by default; these tests
+    ask for the CPU."""
+    previous = krylov_tpu_torch.set_default_device("cpu")
+    yield
+    krylov_tpu_torch.set_default_device(previous)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SYSTEMS = {
