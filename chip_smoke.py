@@ -8,9 +8,12 @@ against its plain PyTorch version on the card, then drives two paths of
 (constant-weight stencil form) in float64 and float32: MrR and CG (and a
 float64 MrR warm-started from the float32 answer), which run K2/K3 on their
 resident route, then k-skip CG (k=4), k-skip MrR (k=4) and adaptive k-skip
-MrR (k=8).  K2/K3's streaming route is held against its plain version on
-``laplace2d(1500)`` (N = 2.25M), above the resident route's capacity, and
-K1 is timed beside its one-call yardstick, ``torch.nn.functional.conv2d``.
+MrR (k=8), which run K5/K6 on theirs.  K2/K3's streaming route is held
+against its plain version on ``laplace2d(1500)`` (N = 2.25M), above the
+resident route's capacity; K5/K6's streaming route is forced at N = 250k,
+held beside the resident one against the same plain run (of the first
+seed) and driven through the k-skip path.  K1 is timed beside its one-call yardstick,
+``torch.nn.functional.conv2d``.
 It checks the float64 solves against float64 references (scipy/numpy MrR and CG; the JAX
 package's counts for the k-skip family) with the true residual below tol,
 holds the fused kernels against their plain versions at that size while it
@@ -57,35 +60,37 @@ TOLS = {
 # the same stencil: equal counts, nosl, ktrace and final k, the residual
 # trace within trace_rtol entry by entry and max |x - x_plain| / max
 # |x_plain| within x_rel.  Each limit sits 10x above the largest reading on
-# an H100 (700 W) over the seeds of its phase (beside it; PERF.md, PR 2).
+# an H100 (700 W) over the seeds of its phase and both routes (beside it;
+# PERF.md).
 # The k-step recurrences amplify the rounding of the inner products, by
 # about 1e6 at k = 4 and 1e12 at k = 8 (the float64 readings over eps), so
 # the float64 limits grow with k.  In float32 that leaves no reproducible
 # trajectory at k >= 4: there a kernel is held over its first outer
-# iteration against the plain version in float64 on the same inputs (its
-# float32 rounding, all digits of it at k = 8), and whole float32 solves
-# are held at k = 1 and 2 and in the rollback case.
+# iteration at k = 4 against the plain version in float64 on the same
+# inputs (its float32 rounding, amplified); at k = 8 not a digit of float32
+# is left, so those solves are printed, not held.  Whole float32 solves are
+# held at k = 1 and 2 and in the rollback case.
 KSKIP_SMALL_TOLS = {  # whole solves; ("float32", 4): the first outer iteration
     ("float64", 1): dict(trace_rtol=2.3e-13, x_rel=2.1e-14),  # 2.207e-14, 2.005e-15
-    ("float64", 2): dict(trace_rtol=4.6e-14, x_rel=1.3e-13),  # 4.588e-15, 1.283e-14
-    ("float64", 4): dict(trace_rtol=3e-8, x_rel=5.4e-11),  # 2.938e-09, 5.354e-12
+    ("float64", 2): dict(trace_rtol=6.2e-14, x_rel=3.6e-13),  # 6.184e-15, 3.585e-14
+    ("float64", 4): dict(trace_rtol=3e-8, x_rel=2.6e-10),  # 2.938e-09, 2.536e-11
     ("float64", "rollback"): dict(trace_rtol=6.2e-6, x_rel=4.1e-15),  # 6.149e-07, 4.034e-16
     ("float32", 1): dict(trace_rtol=6.9e-4, x_rel=1.5e-5),  # 6.841e-05, 1.480e-06
     ("float32", 2): dict(trace_rtol=4.3e-2, x_rel=1.4e-4),  # 4.287e-03, 1.339e-05
-    ("float32", 4): dict(trace_rtol=0.23, x_rel=0.23),  # 2.24e-02, 2.25e-02
-    ("float32", "rollback"): dict(trace_rtol=0.12, x_rel=1.3e-6),  # 1.109e-02, 1.234e-07
+    ("float32", 4): dict(trace_rtol=0.35, x_rel=0.23),  # 3.477e-02, 2.251e-02
+    ("float32", "rollback"): dict(trace_rtol=0.18, x_rel=3.3e-6),  # 1.794e-02, 3.249e-07
 }
-KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS
+KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS (streaming: SEEDS[0])
     ("kskipcg", 4, "float64"): dict(trace_rtol=1.1e-8, x_rel=3.1e-10),  # 1.091e-09, 3.018e-11
-    ("kskipmrr", 4, "float64"): dict(trace_rtol=2.9e-14, x_rel=2.9e-9),  # 2.834e-15, 2.887e-10
+    ("kskipmrr", 4, "float64"): dict(trace_rtol=3.1e-14, x_rel=3.1e-9),  # 3.077e-15, 3.075e-10
     ("kskipmrr", 8, "float64"): dict(trace_rtol=1.8e-2, x_rel=2.1e-3),  # 1.762e-03, 2.033e-04
     ("adaptivekskipmrr", 8, "float64"): dict(trace_rtol=1.8e-2, x_rel=2.1e-3),  # the same
-    ("kskipcg", 1, "float32"): dict(trace_rtol=4.8e-3, x_rel=1.4e-4),  # 4.724e-04, 1.337e-05
-    ("kskipmrr", 2, "float32"): dict(trace_rtol=7.2e-2, x_rel=4.3e-3),  # 7.171e-03, 4.227e-04
+    ("kskipcg", 1, "float32"): dict(trace_rtol=4.9e-3, x_rel=1.4e-4),  # 4.900e-04, 1.337e-05
+    ("kskipmrr", 2, "float32"): dict(trace_rtol=7.2e-2, x_rel=5.7e-3),  # 7.171e-03, 5.663e-04
     # the first outer iteration, against the float64 plain version
-    ("kskipcg", 4, "float32"): dict(trace_rtol=0.25, x_rel=6.5e-2),  # 2.48e-02, 6.48e-03
-    ("kskipmrr", 4, "float32"): dict(trace_rtol=6.5e-3, x_rel=0.12),  # 6.49e-04, 1.13e-02
-    ("adaptivekskipmrr", 8, "float32"): dict(trace_rtol=7.9, x_rel=4.9),  # 0.783, 0.481: no digit left
+    ("kskipcg", 4, "float32"): dict(trace_rtol=0.33, x_rel=8.8e-2),  # 3.266e-02, 8.711e-03
+    ("kskipmrr", 4, "float32"): dict(trace_rtol=6.5e-3, x_rel=0.12),  # 6.490e-04, 1.134e-02
+    ("adaptivekskipmrr", 4, "float32"): dict(trace_rtol=6.5e-3, x_rel=0.12),  # as static k=4: no rollback yet
 }
 # The k-skip main path, with the counts of krylov_tpu.solve (the JAX
 # package) on the CPU with x64 on the same system, b, tol and maxiter:
@@ -94,6 +99,8 @@ KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS
 KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
 KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
 SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
+KSKIP_ROUTES = ("resident", "streaming")  # K5/K6's routes, each held against the same plain run
+T0 = time.perf_counter()
 NX_STREAM = 1500  # N = 2.25M: above the resident route's capacity in float64
 MAXITER_STREAM = 300  # the streaming phase's fixed iteration count
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float64 and
@@ -115,6 +122,11 @@ def first_outer(method, k, outer):
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(name: str) -> None:
+    """Print the seconds since the start, as a phase begins."""
+    phase(f"-- {name} at {time.perf_counter() - T0:.1f} s")
 
 
 def rel_err(a, b) -> float:
@@ -210,6 +222,29 @@ def numpy_cg(A, b, tol, maxiter):
     return i, hist
 
 
+def torch_cg(A, b, tol, maxiter):
+    """Float64 CG with torch's sparse CSR SpMV (a library call, used nowhere
+    in the port) on ``A``'s device; returns (iterations, residual history)."""
+    b_norm = float(b.norm())
+    r = b.clone()
+    p = r.clone()
+    gamma = r.dot(r)
+    hist = []
+    i = 0
+    while i < maxiter:
+        hist.append(float(gamma.sqrt()) / b_norm)
+        if hist[-1] < tol:
+            break
+        v = A @ p
+        alpha = gamma / p.dot(v)
+        r = r - alpha * v
+        gamma_new = r.dot(r)
+        p = r + (gamma_new / gamma) * p
+        gamma = gamma_new
+        i += 1
+    return i, hist
+
+
 def cuda_ms(fn, reps=1):
     """Mean milliseconds of ``fn()`` on the card, between CUDA events, and
     what the last call returned."""
@@ -287,6 +322,39 @@ def kskip_call(method, k, A, b, tol, maxiter, plain=False, plain64=False):
         return x, t, n, None, i, c, idx, None
     fn = fk.fused_kskipmrr_solve_2d_reference if plain else fk.fused_kskipmrr_solve_2d
     return fn(coef2, b, tol, b_norm, k, adaptive=method == "adaptivekskipmrr", **kw)
+
+
+def kskip_routes(method, k, A, b, tol, maxiter, routes=KSKIP_ROUTES) -> dict:
+    """:func:`kskip_call` of the kernel on each of ``routes``, forced
+    through ``kernels.fused.ROUTE`` (a forced resident route that does not
+    fit raises), timed between CUDA events: ``{route: (ms, output)}``."""
+    from krylov_tpu_torch.kernels import fused
+
+    out = {}
+    for route in routes:
+        fused.ROUTE = route
+        try:
+            out[route] = cuda_ms(lambda: kskip_call(method, k, A, b, tol, maxiter))
+        finally:
+            fused.ROUTE = None
+    return out
+
+
+def held(failures: list, check, *args, **kw):
+    """``check(*args, **kw)``; an AssertionError is printed and joins
+    ``failures`` (the phase raises them together once every reading is
+    printed) and gives None."""
+    try:
+        return check(*args, **kw)
+    except AssertionError as e:
+        phase(f"  FAILED: {e}")
+        failures.append(str(e).splitlines()[0])
+        return None
+
+
+def raise_failures(name: str, failures: list) -> None:
+    if failures:
+        raise AssertionError(f"{name}: {len(failures)} check(s) failed: " + "; ".join(failures))
 
 
 def compare_kskip(label, got, want, trace_rtol, x_rel):
@@ -401,7 +469,8 @@ def reset(fns) -> None:
 
 
 def route_counts(fns) -> dict:
-    """``{name: (resident, streaming)}`` launches of the K2/K3 wrappers."""
+    """``{name: (resident, streaming)}`` launches of the K2/K3 or K5/K6
+    wrappers."""
     return {fn.__name__: (fn.launches_resident, fn.launches_streaming) for fn in fns}
 
 
@@ -414,6 +483,39 @@ def check_launched(path: str, fns) -> dict:
         if count < 1:
             raise AssertionError(f"the {path} never launched {name}")
     return counts
+
+
+def kskip_streaming(ops, b_np, A_csr, fused, fused_kskip) -> dict:
+    """6d. The k-skip path of phase 5b in float64 with K5/K6 forced onto
+    their streaming route (``kernels.fused.ROUTE``), counters from this run
+    only: every launch streams, the counts stay ``KSKIP_F64`` and the true
+    residuals below tol.  Returns the launches of each wrapper."""
+    import numpy as np
+
+    import krylov_tpu_torch
+
+    counted = (fused_kskip.fused_kskipcg_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
+    reset(counted)
+    fused.ROUTE = "streaming"
+    try:
+        out = {m: krylov_tpu_torch.solve(ops, b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)
+               for m, k in KSKIP_RUNS.items()}
+    finally:
+        fused.ROUTE = None
+    check_launched("k-skip path, streaming route", counted)
+    routes = route_counts(counted)
+    phase(f"k-skip path K5/K6 launches by route (resident, streaming), streaming forced: {routes}")
+    if any(res or stream < 1 for res, stream in routes.values()):
+        raise AssertionError(f"the forced streaming k-skip path did not run K5/K6 on the streaming route: {routes}")
+    for m, (x, info) in out.items():
+        outer = len(info["residual"]) - 1
+        true_res = float(np.linalg.norm(b_np - A_csr @ x.cpu().numpy()) / np.linalg.norm(b_np))
+        phase(f"solve {m} float64, K5/K6 streaming: iters {info['iterations']}, outer {outer}, converged "
+              f"{info['converged']}, true res {true_res:.6e}, solve() wall {info['time'] * 1e3:.3f} ms")
+        if (info["iterations"], outer) != KSKIP_F64[m] or not (info["converged"] and true_res < TOL):
+            raise AssertionError(f"{m} f64 streaming: {info['iterations']} iterations, {outer} outer, true res "
+                                 f"{true_res:.3e}; the JAX package gives {KSKIP_F64[m]}")
+    return {name: stream for name, (_, stream) in routes.items()}
 
 
 def streaming(dev, fused) -> dict:
@@ -667,8 +769,10 @@ def row4b(dev) -> None:
           f"nnz {P.nnz}, set-up {time.perf_counter() - t0:.2f} s")
     b_np = np.random.default_rng(27).standard_normal(P.shape[0]).astype(np.float32)
     t0 = time.perf_counter()
-    ref_iters, ref_hist = numpy_cg(P, b_np.astype(np.float64), tol, MAXITER)
-    phase(f"  numpy f64 CG on the same CSR: {ref_iters} iterations, residual {ref_hist[-1]:.6e}, "
+    P64 = torch.sparse_csr_tensor(torch.from_numpy(P.indptr).long(), torch.from_numpy(P.indices).long(),
+                                  torch.from_numpy(P.data), P.shape, dtype=torch.float64, device=dev)
+    ref_iters, ref_hist = torch_cg(P64, torch.from_numpy(b_np).to(dev, torch.float64), tol, MAXITER)
+    phase(f"  float64 CG on the same CSR (torch sparse SpMV): {ref_iters} iterations, residual {ref_hist[-1]:.6e}, "
           f"{time.perf_counter() - t0:.2f} s")
     runs = [
         ("cg", 0, {}),
@@ -710,11 +814,13 @@ def main() -> int:
     phase(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    mark("2 build")
     # 2. build
     t0 = time.perf_counter()
     _build.library()
     phase(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.nvcc()}, {' '.join(_build.FLAGS)})")
 
+    mark("3 K1")
     # 3. K1 against its plain version
     k1_err = None
     for make, label in (
@@ -735,6 +841,7 @@ def main() -> int:
             if label == "laplace2d(500, constant)" and dt == f64:
                 k1_err = float((y - y_ref).abs().max())
 
+    mark("4 K2/K3 small")
     # 4. K2/K3 against their plain versions on small grids, float64, on the
     # resident route
     k23 = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d)
@@ -758,11 +865,14 @@ def main() -> int:
     if any(res < 3 or stream for res, stream in route_counts(k23).values()):
         raise AssertionError(f"phase 4 did not run K2/K3 on the resident route: {route_counts(k23)}")
 
-    # 4b. K5/K6 against their plain versions on small grids, two seeds:
-    # whole solves in float64, and in float32 at k <= 2; the float32 k = 4
-    # solves over their first outer iteration against the float64 plain
-    # version; then the adaptive rollback case in both
+    mark("4b K5/K6 small")
+    # 4b. K5/K6 on both routes against one run of their plain versions on
+    # small grids, two seeds: whole solves in float64, and in float32 at
+    # k <= 2; the float32 k = 4 solves over their first outer iteration
+    # against the float64 plain version; then the adaptive rollback case in
+    # both
     kernel_id = {"kskipcg": "K6", "kskipmrr": "K5", "adaptivekskipmrr": "K5 adaptive"}
+    failures = []
     for dt, tol in ((f64, 1e-8), (f32, 1e-5)):
         name = str(dt).removeprefix("torch.")
         for make, label in (
@@ -777,22 +887,24 @@ def main() -> int:
                              ("adaptivekskipmrr", 4)):
                     first = dt == f32 and k >= 4
                     maxiter = first_outer(m, k, 1) if first else A.shape[0]
-                    compare_kskip(f"{kernel_id[m]} {m} k={k} {label} {name} seed {seed}"
-                                  + (f", maxiter {maxiter} against float64" if first else ""),
-                                  kskip_call(m, k, A, b, tol, maxiter),
-                                  kskip_call(m, k, A, b, tol, maxiter, plain=True, plain64=first),
-                                  **KSKIP_SMALL_TOLS[name, k])
+                    want = kskip_call(m, k, A, b, tol, maxiter, plain=True, plain64=first)
+                    for route, (_, got) in kskip_routes(m, k, A, b, tol, maxiter).items():
+                        held(failures, compare_kskip, f"{kernel_id[m]} {route} {m} k={k} {label} {name} seed {seed}"
+                             + (f", maxiter {maxiter} against float64" if first else ""),
+                             got, want, **KSKIP_SMALL_TOLS[name, k])
         adv = advection(dev)
         A = type(adv)(adv.coef.to(dt), adv.stencil, adv.grid)
         for seed in (3, 4):
             b = torch.from_numpy(np.random.default_rng(seed).standard_normal(A.shape[0])).to(dev, dt)
-            got = kskip_call("adaptivekskipmrr", 6, A, b, tol, 2000)
             want = kskip_call("adaptivekskipmrr", 6, A, b, tol, 2000, plain=True)
-            compare_kskip(f"K5 adaptive rollback, advection 16x16 k=6 {name} seed {seed}", got, want,
-                          **KSKIP_SMALL_TOLS[name, "rollback"])
-            if not (int(got[7]) < 6 and int(want[7]) < 6):
-                raise AssertionError(f"the advection case did not roll back ({name}, seed {seed})")
+            for route, (_, got) in kskip_routes("adaptivekskipmrr", 6, A, b, tol, 2000).items():
+                held(failures, compare_kskip, f"K5 adaptive {route} rollback, advection 16x16 k=6 {name} seed {seed}",
+                     got, want, **KSKIP_SMALL_TOLS[name, "rollback"])
+                if not (int(got[7]) < 6 and int(want[7]) < 6):
+                    failures.append(f"the advection case did not roll back ({route}, {name}, seed {seed})")
+    raise_failures("phase 4b", failures)
 
+    mark("5 main path")
     # 5. the main path through solve(), counters from this run only
     b_np = np.random.default_rng(0).standard_normal(NX * NX)
     runs = [("mrr", f64), ("cg", f64), ("mrr", f32), ("cg", f32)]
@@ -836,6 +948,7 @@ def main() -> int:
             if not (info["converged"] and true_res < TOL):
                 raise AssertionError(f"{m} f64 did not converge to the true residual (true {true_res:.3e})")
 
+    mark("5b k-skip path")
     # 5b. the k-skip path through solve(), counters from this run only
     counted_k = (fused_kskip.fused_kskipcg_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
     reset(counted_k)
@@ -843,7 +956,11 @@ def main() -> int:
     for dt in (f64, f32):
         for m, k in KSKIP_RUNS.items():
             kres[m, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)
-    klaunches = check_launched("k-skip path", counted_k)
+    check_launched("k-skip path", counted_k)
+    kroutes = route_counts(counted_k)
+    phase(f"k-skip path K5/K6 launches by route (resident, streaming): {kroutes}")
+    if any(res < 1 or stream for res, stream in kroutes.values()):
+        raise AssertionError(f"the k-skip path did not run K5/K6 on the resident route alone: {kroutes}")
     # the eager loops on the card: an independent second route, float64; in
     # float32 printed only, also with float64 inner products
     for m, k in KSKIP_RUNS.items():
@@ -875,6 +992,7 @@ def main() -> int:
         if base == "adaptivekskipmrr" and info["final_k"] != KSKIP_RUNS[base]:
             raise AssertionError(f"{m} f64 ended at k {info['final_k']}, the JAX package at 8")
 
+    mark("6 K2/K3 timed")
     # 6. K2/K3 against their plain versions at the main-path shape, timed:
     # median of 3 fresh b
     ms, k23_err, k23_bound = {}, {}, {}
@@ -930,50 +1048,82 @@ def main() -> int:
         if not err <= (1e-12 if dt == f64 else 1e-5):
             raise AssertionError(f"conv2d and K1 disagree on the same stencil ({dt})")
 
-    # 6b. K5/K6 against their plain versions at the main-path shape on
-    # SEEDS, the kernel timed as the median over them, the plain version too;
-    # static k-skip MrR k=8 stands beside adaptive k=8 as a witness that the
-    # gap comes from k.  Then the whole float32 solves that are not held
-    # (see KSKIP_FULL), printed side by side.
-    kms, kerr, kouter = {}, {}, {}
+    mark("6b K5/K6 timed")
+    # 6b. K5/K6 against one run of their plain versions at the main-path
+    # shape: the resident route on SEEDS, timed as the median over them,
+    # the plain version too, and the streaming route on SEEDS[0]; static
+    # k-skip MrR k=8 stands beside adaptive k=8 as a witness that the gap
+    # comes from k.  Then the whole float32 solves that are not held (see
+    # KSKIP_FULL), printed side by side, and the device time of each
+    # route's kernel.
+    kms, kerr, kouter, failures = {}, {}, {}, []
     for (m, k, name), tols in KSKIP_FULL.items():
         dt = getattr(torch, name)
         first = dt == f32 and k >= 4
         maxiter = first_outer(m, k, 1) if first else MAXITER
-        t_k, t_p, errs = [], [], []
+        t_k, t_p, errs = {r: [] for r in KSKIP_ROUTES}, [], {r: [] for r in KSKIP_ROUTES}
         for seed in SEEDS:
             b = torch.from_numpy(np.random.default_rng(seed).standard_normal(NX * NX)).to(dev, dt)
-            tk, got = cuda_ms(lambda: kskip_call(m, k, ops[dt], b, TOL, maxiter))
+            got = {}
+            seed_routes = KSKIP_ROUTES if seed == SEEDS[0] else ("resident",)
+            for route, (tk, out) in kskip_routes(m, k, ops[dt], b, TOL, maxiter, seed_routes).items():
+                t_k[route].append(tk)
+                got[route] = out
             tp, want = cuda_ms(lambda: kskip_call(m, k, ops[dt], b, TOL, maxiter, plain=True, plain64=first))
-            t_k.append(tk)
             t_p.append(tp)
-            kouter.setdefault((m, k, name), []).append(int(got[6]))
-            errs.append(compare_kskip(f"{kernel_id[m]} {m} k={k} laplace2d({NX}, constant) {name} seed {seed}"
-                                      + (f", maxiter {maxiter} against float64" if first else ""),
-                                      got, want, **tols))
-        kms[m, k, name] = (statistics.median(t_k), statistics.median(t_p))
-        kerr[m, k, name] = max(errs)
-        blocks = fused_kskip.workspace(m.removeprefix("adaptive"), dt, NX * NX, max(k, 1))[0]
-        phase(f"time-to-solution {m} k={k} {name} N={NX * NX}"
-              + (f" maxiter {maxiter}" if first else "") + f": kernel {kms[m, k, name][0]:.3f} ms, "
-              f"plain {kms[m, k, name][1]:.3f} ms (median over seeds {SEEDS}, CUDA events); "
-              f"grid {blocks} blocks of 256 threads")
+            kouter.setdefault((m, k, name), []).append(int(got["resident"][6]))
+            for route in seed_routes:
+                err = held(failures, compare_kskip,
+                           f"{kernel_id[m]} {route} {m} k={k} laplace2d({NX}, constant) {name} seed {seed}"
+                           + (f", maxiter {maxiter} against float64" if first else ""), got[route], want, **tols)
+                if err is not None:
+                    errs[route].append(err)
+        for route in KSKIP_ROUTES:
+            kms[m, k, name, route] = statistics.median(t_k[route])
+            kerr[m, k, name, route] = max(errs[route], default=float("nan"))
+        kms[m, k, name, "plain"] = statistics.median(t_p)
+        p = fused_kskip.device_plan(m.removeprefix("adaptive"), ops[dt].grid, ops[dt].stencil, dt, max(k, 1))
+        fused.ROUTE = "streaming"
+        try:
+            blocks = fused_kskip.device_plan(m.removeprefix("adaptive"), ops[dt].grid, ops[dt].stencil, dt,
+                                             max(k, 1)).blocks
+        finally:
+            fused.ROUTE = None
+        bnd = bound(kskip_flops(m, k, ops[dt].nnz, NX * NX, statistics.median(kouter[m, k, name])),
+                    2 * NX * NX * dt.itemsize, name)
+        phase(f"time-to-solution {m} k={k} {name} N={NX * NX}" + (f" maxiter {maxiter}" if first else "")
+              + ": " + ", ".join(f"{r} {kms[m, k, name, r]:.3f} ms" for r in (*KSKIP_ROUTES, "plain"))
+              + f" (resident and plain: median over seeds {SEEDS}, streaming: seed {SEEDS[0]}; CUDA events; "
+              f"outer iterations {kouter[m, k, name]}); bound {bnd[0]:.3f} ms ({bnd[1]}); plan: {p.route}, "
+              f"{p.blocks} bands of <= {p.rows} rows, {p.ppt} points a thread of {p.threads}, {p.smem} bytes of "
+              f"shared memory a block; streaming grid {blocks} blocks of 256 threads")
+    raise_failures("phase 6b", failures)
     for m, k in (("kskipcg", 4), ("kskipmrr", 4), ("adaptivekskipmrr", 8)):
         for seed in SEEDS:
             b = torch.from_numpy(np.random.default_rng(seed).standard_normal(NX * NX)).to(dev, f32)
-            (_, t, _, _, i, c, idx, f), (_, tr, _, _, ir, cr, idr, fr) = (
-                kskip_call(m, k, ops[f32], b, TOL, MAXITER), kskip_call(m, k, ops[f32], b, TOL, MAXITER, plain=True))
+            runs = kskip_routes(m, k, ops[f32], b, TOL, MAXITER)
             last = fused_kskip.trace_length(MAXITER) - 1
-            phase(f"  float32 whole solve, not held: {m} k={k} seed {seed}: kernel {int(i)} iterations, "
-                  f"conv {bool(c)}, recurred res {float(t[min(int(idx), last)]):.6e}"
-                  + ("" if f is None else f", final k {int(f)}") + f"; plain {int(ir)}, conv {bool(cr)}, "
-                  f"recurred res {float(tr[min(int(idr), last)]):.6e}" + ("" if fr is None else f", final k {int(fr)}"))
+            texts = []
+            for r, (ms_, (_, t, _, _, i, c, idx, f)) in runs.items():
+                bnd = bound(kskip_flops(m, k, ops[f32].nnz, NX * NX, int(idx)), 2 * NX * NX * 4, "float32")
+                texts.append(f"{r} {ms_:.3f} ms, {int(i)} iterations, {int(idx)} outer, conv {bool(c)}, recurred "
+                             f"res {float(t[min(int(idx), last)]):.6e}" + ("" if f is None else f", final k {int(f)}")
+                             + f", bound {bnd[0]:.3f} ms")
+            phase(f"  float32 whole solve, not held: {m} k={k} seed {seed} (CUDA events; bound from the outer "
+                  f"iterations): " + "; ".join(texts))
     b64 = torch.from_numpy(np.random.default_rng(SEEDS[-1]).standard_normal(NX * NX)).to(dev)
+    kernel_names = {"resident": "_resident_kernel", "streaming": "_fused_kernel"}
     for m, k in KSKIP_RUNS.items():
-        us = device_us(lambda: kskip_call(m, k, ops[f64], b64, TOL, MAXITER),
-                       "kskipcg_fused_kernel" if m == "kskipcg" else "kskipmrr_fused_kernel", 1)
-        phase(f"device time {m} k={k} float64 (torch.profiler, seed {SEEDS[-1]}): "
-              f"{'not measured' if us is None else f'{us:.3f} us'}")
+        us = {}
+        for route in KSKIP_ROUTES if m in ("kskipcg", "kskipmrr") else ("resident",):
+            fused.ROUTE = route
+            try:
+                us[route] = device_us(lambda: kskip_call(m, k, ops[f64], b64, TOL, MAXITER),
+                                      m.removeprefix("adaptive") + kernel_names[route], 3)
+            finally:
+                fused.ROUTE = None
+        phase(f"device time {m} k={k} float64 (torch.profiler, mean of 3 solves, seed {SEEDS[-1]}): "
+              + ", ".join(f"{r} {us_text(v)}" for r, v in us.items()))
 
     # kernel time alone, from the profiler: a K1 call through the wrapper
     # costs host time too, and K2/K3 add the wrapper's few small launches
@@ -996,18 +1146,24 @@ def main() -> int:
             f"{k} {'not measured' if v is None else f'{v:.3f} us'}" for k, v in us.items())
             + "; grids: " + ", ".join(f"{m} {p.route} {p.blocks} x {p.threads}" for m, p in plans.items()))
 
+    mark("6c K2/K3 streaming")
     stream = streaming(dev, fused)
+    mark("6d k-skip path streaming")
+    kstream = kskip_streaming(ops[f64], b_np, A_csr, fused, fused_kskip)
+    mark("7 fidelity")
     fidelity(ops, b_np, A_csr, fused, stencil)
+    mark("8-9 irregular and batched")
     hyb = irregular_system(dev)
     batched(ops, hyb, dev, fused)
     irregular(hyb, dev)
+    mark("10 row 4b")
     row4b(dev)
+    mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer
     # iteration counts over SEEDS)
-    k5_bound, k6_bound = (
-        bound(kskip_flops(m, 4, ops[f64].nnz, NX * NX, statistics.median(kouter[m, 4, "float64"])),
-              2 * NX * NX * 8, "float64") for m in ("kskipmrr", "kskipcg"))
+    kbound = {m: bound(kskip_flops(m, 4, ops[f64].nnz, NX * NX, statistics.median(kouter[m, 4, "float64"])),
+                       2 * NX * NX * 8, "float64") for m in ("kskipmrr", "kskipcg")}
     k1_bound = bound(2 * ops[f64].nnz, 2 * NX * NX * 8, "float64")
 
     def entry(name, source, replaces, launches, err, ms_, plain_ms, bnd, library_ms=None):
@@ -1029,15 +1185,16 @@ def main() -> int:
               k23_bound["cg", f64]),
         entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259", stream["cg"][0],
               stream["cg"][1], stream["cg"][2], stream["cg"][3], stream["cg"][4]),
-        entry("fused_kskipmrr_solve_2d", "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
-              "krylov_tpu/kernels/fused_kskip.py:528", klaunches["fused_kskipmrr_solve_2d"],
-              max(kerr["kskipmrr", 4, "float64"], kerr["adaptivekskipmrr", 8, "float64"]),
-              kms["kskipmrr", 4, "float64"][0], kms["kskipmrr", 4, "float64"][1], k5_bound),
-        entry("fused_kskipcg_solve_2d", "krylov_tpu_torch/kernels/csrc/fused_kskip.cu",
-              "krylov_tpu/kernels/fused_kskip.py:629", klaunches["fused_kskipcg_solve_2d"],
-              kerr["kskipcg", 4, "float64"], kms["kskipcg", 4, "float64"][0], kms["kskipcg", 4, "float64"][1],
-              k6_bound),
     ]
+    kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
+                 "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
+    for m, fn, line, witness in (("kskipmrr", "fused_kskipmrr_solve_2d", 528, ("adaptivekskipmrr", 8)),
+                                 ("kskipcg", "fused_kskipcg_solve_2d", 629, ("kskipcg", 4))):
+        for route in KSKIP_ROUTES:
+            launches = kroutes[fn][0] if route == "resident" else kstream[fn]
+            err = max(kerr[m, 4, "float64", route], kerr[(*witness, "float64", route)])
+            kernels.append(entry(f"{fn} {route}", kskip_src[route], f"krylov_tpu/kernels/fused_kskip.py:{line}",
+                                 launches, err, kms[m, 4, "float64", route], kms[m, 4, "float64", "plain"], kbound[m]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,6 @@
-"""Build and load the CUDA kernels: one ``nvcc -c`` per source, all started
-together, then one link into a shared library with a plain C interface,
-loaded through ``ctypes``.  On an 8-core H100 host that takes about 17 s,
-against 27 s for one ``nvcc`` over all sources.
+"""Build and load the CUDA kernels: one ``nvcc -c`` per source (a source of
+``PARTS`` once for each of its parts), all started together, then one link
+into a shared library with a plain C interface, loaded through ``ctypes``.
 
 The library is built at first use into ``kernels/_build/``, named by a hash
 of the sources and the flags, so a changed source builds anew and an
@@ -22,8 +21,12 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu")
-HEADERS = ("stencil.cuh", "reduce.cuh")
+SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu", "fused_kskip_resident.cu")
+HEADERS = ("stencil.cuh", "reduce.cuh", "resident.cuh")
+# sources compiled once for each of their parts (-DKSKIP_PART=p), each
+# part holding some of the kernel instances, so that no one nvcc holds the
+# build up
+PARTS = {"fused_kskip_resident.cu": 4}
 MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
 # compile flags of every source; the link adds -shared
 FLAGS = (
@@ -53,6 +56,7 @@ def _digest() -> str:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -73,8 +77,10 @@ def _run(cmds) -> None:
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
-        _run([nvcc(), *FLAGS, "-c", "-o", o, str(_CSRC / s)] for s, o in zip(SOURCES, objs))
+        units = [(s, [], f"{Path(s).stem}.o") for s in SOURCES if s not in PARTS]
+        units += [(s, [f"-DKSKIP_PART={p}"], f"{Path(s).stem}_{p}.o") for s, n in PARTS.items() for p in range(n)]
+        objs = [str(Path(tmp) / o) for _, _, o in units]
+        _run([nvcc(), *FLAGS, *defs, "-c", "-o", o, str(_CSRC / s)] for (s, defs, _), o in zip(units, objs))
         lib = str(Path(tmp) / "lib.so")
         _run([[nvcc(), *FLAGS[:2], "-shared", "-o", lib, *objs]])
         os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
@@ -102,6 +108,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.krylov_kskip_workspace.restype = i
     lib.krylov_kskip_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, *geom, i, i, p]
     lib.krylov_kskip_solve.restype = i
+    lib.krylov_kskip_resident_solve.argtypes = [i] * 10 + [p] * 10 + [*geom, i, i, p]
+    lib.krylov_kskip_resident_solve.restype = i
+    lib.krylov_kskip_probe.argtypes = [i] * 7 + [p, p, p]
+    lib.krylov_kskip_probe.restype = i
     lib.krylov_error_string.argtypes = [i]
     lib.krylov_error_string.restype = ctypes.c_char_p
     return lib

@@ -44,8 +44,9 @@ TRACE_CAP = 65536
 # cap on the cooperative grid of K2/K3/K5/K6, read at call time; 0 leaves
 # each route at its plan (set by diagnostics/grid_sweep.py)
 MAX_BLOCKS = 0
-# "resident" or "streaming" forces K2/K3's route, read at call time; None
-# takes the plan's (a forced resident route raises where it does not fit)
+# "resident" or "streaming" forces the route of K2/K3 and K5/K6, read at
+# call time; None takes the plan's (a forced resident route raises where it
+# does not fit)
 ROUTE: Optional[str] = None
 
 RESIDENT_THREADS = 512  # threads a resident block (kResThreads in fused_resident.cu)
@@ -87,26 +88,37 @@ def band_rows(g0: int, blocks: int):
     return [(b * base + min(b, extra), base + (b < extra)) for b in range(blocks)]
 
 
-def plan(method: str, grid: Tuple[int, int], stencil, dtype: torch.dtype, sms: int,
-         max_blocks: int = 0, route: Optional[str] = None) -> Plan:
-    """The route and launch shape of a K2 (``"mrr"``) or K3 (``"cg"``)
-    solve on the collapsed ``(g0, g1)`` grid of a card with ``sms`` SMs.
-
-    Resident: one band of contiguous rows a block, at most one block an SM
-    and at least ``h`` rows a band (so halos come from the two neighbours
-    alone); it fits when a band's points fit ``RESIDENT_THREADS`` threads
-    of at most 8 points each and its shared memory (the mirror of band and
-    ``2 h`` halo rows, and x; MrR also a halo copy of y and z) fits
-    ``RESIDENT_SMEM``.  Otherwise
-    streaming: ``STREAM_BLOCKS_PER_SM`` blocks an SM, no more than the
-    points need.  ``max_blocks`` caps either grid; ``route`` forces one."""
-    if route not in (None, "resident", "streaming"):
-        raise ValueError(f"route must be None, 'resident' or 'streaming', got {route!r}")
+def resident_bands(grid: Tuple[int, int], stencil, sms: int, max_blocks: int = 0) -> Tuple[int, int, int, int]:
+    """``(bands, rows, ppt, h)`` of the resident route of K2/K3/K5/K6 on the
+    collapsed ``(g0, g1)`` grid: one band of contiguous rows a block, at
+    most one block an SM (and ``max_blocks``, if set) and at least
+    ``h = max |d0|`` rows a band, so halos come from the two neighbours
+    alone; ``rows`` the most rows a band holds and ``ppt`` the fewest
+    points a thread of ``RESIDENT_THREADS`` that hold them (0 if 8 do
+    not)."""
     g0, g1 = grid
     h = max(abs(d[0]) for d in stencil)
     bands = max(1, min(sms, RESIDENT_MAX_BLOCKS, g0 // max(h, 1), max_blocks or sms))
     rows = -(-g0 // bands)
     ppt = next((p for p in RESIDENT_PPT if p * RESIDENT_THREADS >= rows * g1), 0)
+    return bands, rows, ppt, h
+
+
+def plan(method: str, grid: Tuple[int, int], stencil, dtype: torch.dtype, sms: int,
+         max_blocks: int = 0, route: Optional[str] = None) -> Plan:
+    """The route and launch shape of a K2 (``"mrr"``) or K3 (``"cg"``)
+    solve on the collapsed ``(g0, g1)`` grid of a card with ``sms`` SMs.
+
+    Resident: the bands of :func:`resident_bands`; it fits when a band's
+    points fit ``RESIDENT_THREADS`` threads of at most 8 points each and
+    its shared memory (the mirror of band and ``2 h`` halo rows, and x;
+    MrR also a halo copy of y and z) fits ``RESIDENT_SMEM``.  Otherwise
+    streaming: ``STREAM_BLOCKS_PER_SM`` blocks an SM, no more than the
+    points need.  ``max_blocks`` caps either grid; ``route`` forces one."""
+    if route not in (None, "resident", "streaming"):
+        raise ValueError(f"route must be None, 'resident' or 'streaming', got {route!r}")
+    g0, g1 = grid
+    bands, rows, ppt, h = resident_bands(grid, stencil, sms, max_blocks)
     # the mirror (band and 2 h halo rows) and x; MrR also y's halo and z
     smem = ((rows + 2 * h) * g1 + rows * g1 + ((2 * h + rows) * g1 if method == "mrr" else 0)) * dtype.itemsize
     fits = ppt > 0 and smem <= RESIDENT_SMEM

@@ -3,11 +3,26 @@
 
 The counterparts of :func:`krylov_tpu.kernels.fused_kskip.fused_kskipmrr_solve_2d`
 and :func:`~krylov_tpu.kernels.fused_kskip.fused_kskipcg_solve_2d`, with
-their signatures and return tuples.  On a CUDA tensor the wrappers launch the
-persistent cooperative kernels of ``csrc/fused_kskip.cu``; on a CPU tensor
-they run the plain PyTorch versions beside them, which are the eager loops
-of :mod:`krylov_tpu_torch.solvers` on the stencil operator.  Both solve from
-x0 = 0 (the caller shifts for x0).  ``k`` is a runtime value in ``[0, k_max]``.
+their signatures and return tuples.  On a CUDA tensor the wrappers launch one
+of two routes, as :func:`plan` decides from the grid, the stencil, the
+dtype, ``k_max`` and the card's SM count:
+
+- *resident* (``csrc/fused_kskip_resident.cu``): one block an SM at most,
+  each owning a band of rows whose state and Krylov bases stay in registers
+  and shared memory; neighbour-only halo exchanges and one grid sum an
+  outer iteration;
+- *streaming* (``csrc/fused_kskip.cu``): a grid-stride cooperative grid
+  whose vectors live in device memory, for systems whose bands do not fit.
+
+``kernels.fused.ROUTE`` forces a route and ``kernels.fused.MAX_BLOCKS``
+caps the grid, as for K2/K3.  A launch or build failure on either route
+raises; neither route gives way to the other or to the plain version.  On
+a CPU tensor the wrappers run the plain PyTorch versions beside them, which
+are the eager loops of :mod:`krylov_tpu_torch.solvers` on the stencil
+operator.  Both solve from x0 = 0 (the caller shifts for x0).  ``k`` is a
+runtime value in ``[0, k_max]``.  Each wrapper counts its launches in
+``launches``, and by route in ``launches_resident`` and
+``launches_streaming``.
 
 Traces have ``min(maxiter, TRACE_CAP) + 2`` slots, indexed by the outer
 iteration; a solve past the cap keeps iterating and records in the last
@@ -19,8 +34,9 @@ entry, the static one only ``ktrace[0..1] = k``; the rest stays 0.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from types import SimpleNamespace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -70,34 +86,112 @@ def workspace(method: str, dtype: torch.dtype, n: int, k_max: int) -> Tuple[int,
     return _workspace[key]
 
 
+def resident_values(method: str, rows: int, halo: int, g1: int, k_max: int) -> int:
+    """Values of dynamic shared memory a resident K5/K6 block takes: two
+    mirrors of ``rows + 2 halo`` rows (the stencils' inputs), the band-only
+    arrays (K6: x; K5: x, z and pre_x), the per-warp and block bundle sums
+    (``(RESIDENT_THREADS / 32 + 1)(6 k_max + 6)``) and the ``2 (k_max + 1)``
+    step coefficients (the layout of ``csrc/fused_kskip_resident.cu``)."""
+    band_arrays = 1 if method == "kskipcg" else 3
+    m = 6 * k_max + 6
+    return (2 * (rows + 2 * halo) * g1 + band_arrays * rows * g1
+            + (fused.RESIDENT_THREADS // 32 + 1) * m + 2 * (k_max + 1))
+
+
+def plan(method: str, grid: Tuple[int, int], stencil, dtype: torch.dtype, sms: int, k_max: int,
+         max_blocks: int = 0, route: Optional[str] = None) -> fused.Plan:
+    """The route and launch shape of a K5 (``"kskipmrr"``) or K6
+    (``"kskipcg"``) solve with ``k <= k_max`` on the collapsed ``(g0, g1)``
+    grid of a card with ``sms`` SMs.
+
+    Resident: the bands of :func:`krylov_tpu_torch.kernels.fused.resident_bands`
+    (one a block, at most one block an SM, at least ``h`` rows each, at
+    most 8 points a thread of ``RESIDENT_THREADS``), fitting when
+    :func:`resident_values` of them fit ``RESIDENT_SMEM``.  Otherwise
+    streaming, whose plan carries no grid (``blocks`` 0): the C library
+    sizes it at launch by what the card holds at once, at most
+    ``fused.MAX_BLOCKS`` (:func:`workspace`; :func:`device_plan` fills it
+    in).  ``max_blocks`` caps the resident grid; ``route`` forces one (a
+    resident route that does not fit raises)."""
+    if route not in (None, "resident", "streaming"):
+        raise ValueError(f"route must be None, 'resident' or 'streaming', got {route!r}")
+    if method not in _METHOD_CODE:
+        raise ValueError(f"method must be one of {tuple(_METHOD_CODE)}, got {method!r}")
+    bands, rows, ppt, h = fused.resident_bands(grid, stencil, sms, max_blocks)
+    smem = resident_values(method, rows, h, grid[1], k_max) * dtype.itemsize
+    fits = ppt > 0 and smem <= fused.RESIDENT_SMEM
+    if route == "resident" and not fits:
+        raise ValueError(f"the resident route does not fit grid {grid} in {dtype} at k_max {k_max} ({bands} bands "
+                         f"of {rows} rows, {smem} bytes of shared memory a block)")
+    if route == "resident" or (route is None and fits):
+        return fused.Plan("resident", bands, fused.RESIDENT_THREADS, rows, ppt, h, smem)
+    return fused.Plan("streaming", 0, fused.STREAM_THREADS, 0, 0, h, 0)
+
+
+def device_plan(method: str, grid, stencil, dtype: torch.dtype, k_max: int, device=None) -> fused.Plan:
+    """:func:`plan` on a CUDA device (the current one by default), with
+    ``fused.MAX_BLOCKS`` and ``fused.ROUTE``; a streaming plan carries the
+    grid :func:`workspace` sizes on the current device, which its launch
+    takes."""
+    sms = torch.cuda.get_device_properties(device or torch.cuda.current_device()).multi_processor_count
+    p = plan(method, grid, stencil, dtype, sms, k_max, fused.MAX_BLOCKS, fused.ROUTE)
+    if p.route == "streaming":
+        p = dataclasses.replace(p, blocks=workspace(method, dtype, grid[0] * grid[1], k_max)[0])
+    return p
+
+
+def resident_buffers(p: fused.Plan, grid, k_max: int) -> Tuple[int, int]:
+    """16-byte words of the resident route's scratch, both zero at launch:
+    the neighbour exchange (2 sets of 2 vectors of ``2 h g1`` words a band)
+    and the sums (2 sets of 3 partials a band and 2 of 3 totals for the
+    small sums, then 2 sets of ``6 k_max + 6`` a band and 2 of totals for
+    the bundle)."""
+    m = 6 * k_max + 6
+    return max(1, p.blocks * 8 * p.halo * grid[1]), 6 * p.blocks + 6 + 2 * m * (p.blocks + 1)
+
+
 def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adaptive, sub):
+    """Launch the route of the plan; returns ``((x, trace, nosl, ktrace,
+    stats), route)``."""
     name = f"fused_{method}_solve_2d"
     require_cuda(name, coef, b, stencil, grid)
     lib = _build.library()
     dt, dev = b.dtype, b.device
     trace_len = trace_length(maxiter)
     with torch.cuda.device(dev):
-        blocks, work_elems, partial_elems, smem = workspace(method, dt, b.numel(), k_max)
+        p = device_plan(method, grid, stencil, dt, k_max, dev)
         x = torch.empty_like(b)
         trace = torch.zeros(trace_len, dtype=dt, device=dev)
         nosl = torch.zeros(trace_len, dtype=torch.int32, device=dev)
         ktrace = torch.zeros(trace_len, dtype=torch.int32, device=dev)
         stats = torch.zeros(4, dtype=torch.int32, device=dev)
-        work = torch.empty(work_elems, dtype=dt, device=dev)
-        partials = torch.empty(partial_elems, dtype=dt, device=dev)
         scal = torch.stack([
             torch.as_tensor(tol, dtype=dt, device=dev),
             torch.as_tensor(b_norm, dtype=dt, device=dev),
         ])
-        err = lib.krylov_kskip_solve(
-            _METHOD_CODE[method], b.element_size(), blocks, smem, k, k_max, int(adaptive),
-            coef.data_ptr(), b.data_ptr(), scal.data_ptr(), x.data_ptr(), trace.data_ptr(),
-            nosl.data_ptr(), ktrace.data_ptr(), stats.data_ptr(), work.data_ptr(), partials.data_ptr(),
-            *geometry(stencil, grid, sub, coef.ndim == 1), maxiter, trace_len,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, name)
-    return x, trace, nosl, ktrace, stats
+        geom = geometry(stencil, grid, sub, coef.ndim == 1)
+        outs = (x.data_ptr(), trace.data_ptr(), nosl.data_ptr(), ktrace.data_ptr(), stats.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if p.route == "resident":
+            xbuf_words, partial_words = resident_buffers(p, grid, k_max)
+            xbuf = torch.zeros(2 * xbuf_words, dtype=torch.int64, device=dev)
+            partials = torch.zeros(2 * partial_words, dtype=torch.int64, device=dev)
+            err = lib.krylov_kskip_resident_solve(
+                _METHOD_CODE[method], b.element_size(), p.blocks, p.threads, p.ppt, p.halo, p.smem, k, k_max,
+                int(adaptive), coef.data_ptr(), b.data_ptr(), scal.data_ptr(), *outs,
+                xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, stream,
+            )
+        else:
+            _, work_elems, partial_elems, smem = workspace(method, dt, b.numel(), k_max)
+            work = torch.empty(work_elems, dtype=dt, device=dev)
+            partials = torch.empty(partial_elems, dtype=dt, device=dev)
+            err = lib.krylov_kskip_solve(
+                _METHOD_CODE[method], b.element_size(), p.blocks, smem, k, k_max, int(adaptive),
+                coef.data_ptr(), b.data_ptr(), scal.data_ptr(), *outs, work.data_ptr(), partials.data_ptr(),
+                *geom, maxiter, trace_len, stream,
+            )
+    _build.check(err, f"{name} ({p.route} route)")
+    return (x, trace, nosl, ktrace, stats), p.route
 
 
 def _plain(loop, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, sub):
@@ -172,10 +266,10 @@ def fused_kskipcg_solve_2d(
         return fused_kskipcg_solve_2d_reference(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max, sub=sub
         )
-    x, trace, nosl, _, stats = _launch(
+    (x, trace, nosl, _, stats), route = _launch(
         "kskipcg", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, False, sub
     )
-    fused_kskipcg_solve_2d.launches += 1
+    fused._count(fused_kskipcg_solve_2d, route)
     return x, trace, nosl, stats[0], stats[1].bool(), stats[2]
 
 
@@ -191,12 +285,12 @@ def fused_kskipmrr_solve_2d(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max,
             adaptive=adaptive, sub=sub,
         )
-    x, trace, nosl, ktrace, stats = _launch(
+    (x, trace, nosl, ktrace, stats), route = _launch(
         "kskipmrr", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, adaptive, sub
     )
-    fused_kskipmrr_solve_2d.launches += 1
+    fused._count(fused_kskipmrr_solve_2d, route)
     return x, trace, nosl, ktrace, stats[0], stats[1].bool(), stats[2], stats[3]
 
 
-fused_kskipcg_solve_2d.launches = 0
-fused_kskipmrr_solve_2d.launches = 0
+for _fn in (fused_kskipcg_solve_2d, fused_kskipmrr_solve_2d):
+    _fn.launches = _fn.launches_resident = _fn.launches_streaming = 0

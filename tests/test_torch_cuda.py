@@ -10,7 +10,7 @@ multiply-adds, rtol 1e-12 (f64) / 1e-5 (f32) against the largest entry.
 The fused solves (either route of K2/K3) sum inner products in another
 order (per-block partials): equal iteration counts, traces rtol 1e-9 (atol
 1e-14), x rtol 1e-8 (atol 1e-12), in float64; float32 as ROUTE_TOLS
-states.  The fused k-skip solves (K5/K6) add the k-step
+states.  The fused k-skip solves (either route of K5/K6) add the k-step
 scalar recurrences, which amplify that rounding: equal iteration, outer,
 nosl, ktrace and final_k values, traces rtol 1e-5, x rtol 1e-6 (atol
 1e-9), the tolerances of tests/test_kernels.py for the same kernels, in
@@ -33,8 +33,9 @@ OPERATORS = {
 # float32 K5/K6 by k: whole solves at k <= 2 against the float32 plain
 # version; at k = 4 the first outer iteration against the float64 plain
 # version on the same values, as the float32 k = 4 recurrences keep no
-# reproducible trajectory past it.  The limits of chip_smoke.py, 10x above
-# the largest readings on an H100 (trace relative, x relative to max |x|).
+# reproducible trajectory past it.  Limits about 10x above the streaming
+# kernels' largest readings on an H100 in chip_smoke.py (trace relative, x
+# relative to max |x|); both routes pass them here.
 F32_TOLS = {1: (6.9e-4, 1.5e-5), 2: (4.3e-2, 1.4e-4), 4: (0.23, 0.23)}
 KERNEL = {"cg": fused.fused_cg_solve_2d, "mrr": fused.fused_mrr_solve_2d}
 PLAIN = {"cg": fused.fused_cg_solve_2d_reference, "mrr": fused.fused_mrr_solve_2d_reference}
@@ -208,23 +209,32 @@ def _advection(device, g=(16, 16), eps=0.5):
     return StencilMatrix(torch.from_numpy(coef).to(device), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), g)
 
 
-def _kskip_pair(A, b, method, k, adaptive, tol, maxiter):
-    """The K5/K6 kernel and its plain version on the same inputs, both in
-    K5's output layout (x, trace, nosl, ktrace, iters, conv, index, final_k)."""
+def _kskip_pair(A, b, method, k, adaptive, tol, maxiter, route=None):
+    """The K5/K6 kernel (on ``route``, forced through fused.ROUTE, when
+    given: its plan must take it and its counter must move) and its plain
+    version on the same inputs, both in K5's output layout (x, trace, nosl,
+    ktrace, iters, conv, index, final_k)."""
     coef2, stencil2, grid2, sub = A.collapse_to_2d()
     kw = dict(stencil=stencil2, grid=grid2, maxiter=maxiter, k_max=max(k, 1), sub=sub)
     b_norm = torch.linalg.vector_norm(b)
+    fn = fused_kskip.fused_kskipcg_solve_2d if method == "kskipcg" else fused_kskip.fused_kskipmrr_solve_2d
+    previous, fused.ROUTE = fused.ROUTE, route
+    try:
+        p = fused_kskip.device_plan(method, grid2, stencil2, b.dtype, kw["k_max"])
+        assert route is None or p.route == route
+        before, before_route = fn.launches, getattr(fn, f"launches_{p.route}")
+        if method == "kskipcg":
+            x, t, n, i, c, idx = fn(coef2, b, tol, b_norm, k, **kw)
+            got = (x, t, n, None, i, c, idx, None)
+        else:
+            got = fn(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
+    finally:
+        fused.ROUTE = previous
+    assert fn.launches == before + 1 and getattr(fn, f"launches_{p.route}") == before_route + 1
     if method == "kskipcg":
-        before = fused_kskip.fused_kskipcg_solve_2d.launches
-        x, t, n, i, c, idx = fused_kskip.fused_kskipcg_solve_2d(coef2, b, tol, b_norm, k, **kw)
-        assert fused_kskip.fused_kskipcg_solve_2d.launches == before + 1
         xr, tr, nr, ir, cr, idr = fused_kskip.fused_kskipcg_solve_2d_reference(coef2, b, tol, b_norm, k, **kw)
-        return (x, t, n, None, i, c, idx, None), (xr, tr, nr, None, ir, cr, idr, None)
-    before = fused_kskip.fused_kskipmrr_solve_2d.launches
-    got = fused_kskip.fused_kskipmrr_solve_2d(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
-    assert fused_kskip.fused_kskipmrr_solve_2d.launches == before + 1
-    want = fused_kskip.fused_kskipmrr_solve_2d_reference(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
-    return got, want
+        return got, (xr, tr, nr, None, ir, cr, idr, None)
+    return got, fused_kskip.fused_kskipmrr_solve_2d_reference(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
 
 
 def _check_kskip(got, want, trace_rtol=1e-5, x_rtol=1e-6, x_atol=1e-9):
@@ -240,26 +250,31 @@ def _check_kskip(got, want, trace_rtol=1e-5, x_rtol=1e-6, x_atol=1e-9):
     return int(f) if f is not None else None, bool(c)
 
 
+KSKIP_ROUTES = ["resident", "streaming"]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", KSKIP_ROUTES)
 @pytest.mark.parametrize("name", sorted(OPERATORS))
 @pytest.mark.parametrize(
     "method, k, adaptive",
     [("kskipcg", 0, False), ("kskipcg", 4, False), ("kskipmrr", 2, False), ("kskipmrr", 4, True)],
 )
-def test_fused_kskip_kernel_matches_plain(cuda, method, k, adaptive, name):
+def test_fused_kskip_kernel_matches_plain(cuda, method, k, adaptive, name, route):
     A = OPERATORS[name](device=cuda)
     b = _rhs(A.shape[0], 6, cuda)
-    _, conv = _check_kskip(*_kskip_pair(A, b, method, k, adaptive, 1e-8, A.shape[0]))
+    _, conv = _check_kskip(*_kskip_pair(A, b, method, k, adaptive, 1e-8, A.shape[0], route))
     assert conv
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", KSKIP_ROUTES)
 @pytest.mark.parametrize("name", sorted(OPERATORS))
 @pytest.mark.parametrize(
     "method, k",
     [("kskipcg", 1), ("kskipcg", 4), ("kskipmrr", 2), ("kskipmrr", 4), ("adaptivekskipmrr", 4)],
 )
-def test_fused_kskip_kernel_matches_plain_f32(cuda, method, k, name):
+def test_fused_kskip_kernel_matches_plain_f32(cuda, method, k, name, route):
     """The float32 builds of K5/K6 at tol 1e-5."""
     A = OPERATORS[name](dtype=torch.float32, device=cuda)
     b = _rhs(A.shape[0], 6, cuda, torch.float32)
@@ -269,8 +284,8 @@ def test_fused_kskip_kernel_matches_plain_f32(cuda, method, k, name):
         maxiter = (k + 1) + (method != "kskipcg")
         A_ref, b_ref = StencilMatrix(A.coef.double(), A.stencil, A.grid), b.double()
     adaptive, m = method.startswith("adaptive"), method.removeprefix("adaptive")
-    got, _ = _kskip_pair(A, b, m, k, adaptive, 1e-5, maxiter)
-    _, want = _kskip_pair(A_ref, b_ref, m, k, adaptive, 1e-5, maxiter)
+    got, _ = _kskip_pair(A, b, m, k, adaptive, 1e-5, maxiter, route)
+    _, want = _kskip_pair(A_ref, b_ref, m, k, adaptive, 1e-5, maxiter, route)
     (x, t, n, kt, i, c, idx, f), (xr, tr, nr, ktr, ir, cr, idr, fr) = got, want
     assert (int(i), bool(c), int(idx)) == (int(ir), bool(cr), int(idr)) and bool(c) == (k < 4)
     m_ = int(idx) + 1
@@ -281,21 +296,23 @@ def test_fused_kskip_kernel_matches_plain_f32(cuda, method, k, name):
 
 
 @pytest.mark.cuda
-def test_fused_kskip_rollback_matches_plain(cuda):
+@pytest.mark.parametrize("route", KSKIP_ROUTES)
+def test_fused_kskip_rollback_matches_plain(cuda, route):
     """The adaptive kernel rolls back on the advection stencil (k drops
     below 6) exactly where its plain version does."""
     A = _advection(cuda)
     b = _rhs(A.shape[0], 3, cuda)
-    final_k, conv = _check_kskip(*_kskip_pair(A, b, "kskipmrr", 6, True, 1e-8, 2000))
+    final_k, conv = _check_kskip(*_kskip_pair(A, b, "kskipmrr", 6, True, 1e-8, 2000, route))
     assert final_k < 6 and conv
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", KSKIP_ROUTES)
 @pytest.mark.parametrize("method, adaptive", [("kskipcg", False), ("kskipmrr", True)])
-def test_fused_kskip_kernel_maxiter_divergence(cuda, method, adaptive):
+def test_fused_kskip_kernel_maxiter_divergence(cuda, method, adaptive, route):
     A = fixtures.laplace2d(16, device=cuda)
     b = _rhs(A.shape[0], 1, cuda)
-    _, conv = _check_kskip(*_kskip_pair(A, b, method, 2, adaptive, 1e-14, 9))
+    _, conv = _check_kskip(*_kskip_pair(A, b, method, 2, adaptive, 1e-14, 9, route))
     assert not conv
 
 
@@ -316,12 +333,28 @@ def test_fused_kskip_workspace_sizes(cuda, method, vectors):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", ["kskipcg", "kskipmrr"])
+def test_kskip_streaming_plan_is_the_launched_grid(cuda, method, monkeypatch):
+    """A streaming K5/K6 plan carries the grid workspace() sizes, the one
+    its launch takes, and fused.MAX_BLOCKS caps it; the solve on the capped
+    grid matches the plain version."""
+    A = fixtures.laplace2d(64, constant=True, device=cuda)
+    monkeypatch.setattr(fused, "ROUTE", "streaming")
+    p = fused_kskip.device_plan(method, A.grid, A.stencil, torch.float64, 2)
+    assert p.route == "streaming" and p.blocks == fused_kskip.workspace(method, torch.float64, A.shape[0], 2)[0] > 3
+    monkeypatch.setattr(fused, "MAX_BLOCKS", 3)
+    assert fused_kskip.device_plan(method, A.grid, A.stencil, torch.float64, 2).blocks == 3
+    _, conv = _check_kskip(*_kskip_pair(A, _rhs(A.shape[0], 6, cuda), method, 2, False, 1e-8, A.shape[0], "streaming"))
+    assert conv
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["cg", "kskipcg"])
 def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
-    """fused.MAX_BLOCKS caps the cooperative grid of K2/K3 (on the route
-    the plan takes, here the resident one: fewer, taller bands) and of
-    K5/K6, and sizes the scratch by the capped grid; the solve is the same
-    up to the order of the sums."""
+    """fused.MAX_BLOCKS caps the cooperative grid of K2/K3 and of K5/K6 (on
+    the route the plan takes, here the resident one: fewer, taller bands)
+    and sizes the scratch by the capped grid; the solve is the same up to
+    the order of the sums."""
     A = fixtures.laplace2d(64, constant=True, device=cuda)
     b = _rhs(A.shape[0], 6, cuda)
     n, b_norm = A.shape[0], torch.linalg.vector_norm(b)
@@ -334,13 +367,15 @@ def test_max_blocks_caps_the_grid(cuda, method, monkeypatch):
             assert p.route == "resident"
             return (p.blocks, *fused.resident_buffers(p, A.grid)), x, iters
         x, _, _, iters, _, _ = fused_kskip.fused_kskipcg_solve_2d(A.coef, b, 1e-8, b_norm, 2, k_max=2, **kw)
-        return fused_kskip.workspace("kskipcg", torch.float64, n, 2), x, iters
+        p = fused_kskip.device_plan("kskipcg", A.grid, A.stencil, torch.float64, 2)
+        assert p.route == "resident"
+        return (p.blocks, *fused_kskip.resident_buffers(p, A.grid, 2)), x, iters
 
     full, x_full, iters_full = run()
     monkeypatch.setattr(fused, "MAX_BLOCKS", 3)
     capped, x, iters = run()
     assert full[0] > 3 and capped[0] == 3
-    assert capped[2] == (6 * 3 + 6 if method == "cg" else (18 + 3) * 3 + 18)
+    assert capped[2] == (6 * 3 + 6 if method == "cg" else 6 * 3 + 6 + 2 * 18 * (3 + 1))
     assert int(iters) == int(iters_full)
     torch.testing.assert_close(x, x_full, rtol=1e-6, atol=1e-9)
 
@@ -360,6 +395,10 @@ def test_kskip_solve_on_cuda_matches_cpu(cuda, method):
     np.testing.assert_array_equal(info_g["nosl"], info_c["nosl"])
     np.testing.assert_allclose(info_g["residual"], info_c["residual"], rtol=1e-5)
     np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-6, atol=1e-9)
+    r = fused_kskip.device_plan(method.removeprefix("adaptive"), (32, 32), fixtures.laplace2d(4, device=cuda).stencil,
+                                torch.float64, 3)
+    assert r.route == "resident" and fused_kskip.resident_buffers(r, (32, 32), 3) == (
+        r.blocks * 8 * 32, 6 * r.blocks + 6 + 2 * 24 * (r.blocks + 1))
 
 
 IRREGULAR = {
@@ -391,15 +430,17 @@ def test_batched_irregular_matvec_on_cuda_matches_cpu(cuda, name, dtype, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("method", ["cg", "mrr", "kskipmrr"])
+@pytest.mark.parametrize("method", ["cg", "mrr", "kskipcg", "kskipmrr", "adaptivekskipmrr"])
 def test_solve_batched_fused_members_equal_solo_on_cuda(cuda, method):
     """Each member of a fused batch is the solo fused solve of its b: the
-    same kernel launch on the same values."""
+    same kernel launch on the same values, on the resident route."""
     A = fixtures.laplace2d(32, constant=True, device=cuda)
     B = torch.from_numpy(np.random.default_rng(9).standard_normal((3, A.shape[0]))).to(cuda)
-    before = KERNEL.get(method, fused_kskip.fused_kskipmrr_solve_2d).launches
+    fn = {**KERNEL, "kskipcg": fused_kskip.fused_kskipcg_solve_2d, "kskipmrr": fused_kskip.fused_kskipmrr_solve_2d,
+          "adaptivekskipmrr": fused_kskip.fused_kskipmrr_solve_2d}[method]
+    before = fn.launches_resident
     res = krylov_tpu_torch.solve_batched(A, B, method=method, k=2, tol=1e-8)
-    assert KERNEL.get(method, fused_kskip.fused_kskipmrr_solve_2d).launches == before + 3
+    assert fn.launches_resident == before + 3
     for j in range(3):
         solo = krylov_tpu_torch.solve_device(A, B[j], method=method, k=2, tol=1e-8)
         assert int(res.iterations[j]) == int(solo.iterations) and bool(res.converged[j])
