@@ -21,9 +21,13 @@ times them with CUDA events.  Then it drives the paths that reuse the
 kernels: ``restarts=``/``refine=`` on the same system, ``solve_batched`` of
 8 right-hand sides (fused MrR; eager CG on a HYB operator), the HYB
 operator of ``powerlaw_spd(2**20)`` (matvec against scipy, CG against
-numpy, Matrix Market IO), and the ill-conditioned row-4b system of
-RESULTS.md, printed only.  It prints a JSON line of the kernels and last a
-JSON line with the device.
+numpy, Matrix Market IO), the ill-conditioned row-4b system of
+RESULTS.md, printed only (CG, the k-skip family, Jacobi-preconditioned CG
+and the Chebyshev CA solvers); last, the preconditioned, pipelined and CA
+solves of the main-path system on the eager loops, whose every SpMV is K1,
+float64 held to the JAX package's counts and K1 timed on that path beside
+the same loop over K1's plain version.  It prints a JSON line of the
+kernels and last a JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
 no CUDA device it exits 1 before printing a result.
@@ -98,6 +102,20 @@ KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS (streaming: 
 # it gave 1460, 3001 (not converged) and 1083 (final k 3), not held here.
 KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
 KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
+# Phase 11, the preconditioned, pipelined and CA solves on the eager loops:
+# (method, preconditioner, k) and, in float64, (iterations, outer
+# iterations = len(residual) - 1) of krylov_tpu.solve (the JAX package) on
+# the CPU with x64 on the same laplace2d(NX, constant=True), b, tol and
+# maxiter, with M = None, krylov_tpu.precond.jacobi(A) or
+# krylov_tpu.precond.chebyshev(A, degree=6) (bounds "auto": Lanczos,
+# [0.04192096913891128, 8.354414605129453]) and, for cacg/camrr, s = k and
+# the bounds of krylov_tpu.precond.lanczos_bounds(A).  Jacobi on the
+# constant-diagonal Laplacian scales by 1/4 and keeps CG's count.
+PRECOND_RUNS = [("pcg", "none", 0), ("pcg", "jacobi", 0), ("pcg", "chebyshev6", 0),
+                ("chronopoulos_gear", "jacobi", 0), ("gropp", "jacobi", 0), ("pipelined_cg", "jacobi", 0),
+                ("cacg", "none", 4), ("cacg", "none", 8), ("camrr", "none", 4), ("camrr", "none", 8)]
+PRECOND_F64 = dict(zip(PRECOND_RUNS, [(1053, 1053), (1053, 1053), (190, 190), (1053, 1053), (1053, 1053),
+                                      (1053, 1053), (1056, 264), (1056, 132), (937, 235), (937, 118)]))
 SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
 KSKIP_ROUTES = ("resident", "streaming")  # K5/K6's routes, each held against the same plain run
 T0 = time.perf_counter()
@@ -404,6 +422,21 @@ def device_us(fn, kernel: str, reps: int):
             if kernel in evt.key and total and evt.count:
                 return total / evt.count
     return None
+
+
+def host_us(fn, reps: int = 1000) -> float:
+    """Microseconds of host time a call of ``fn`` (enqueue only: the card
+    keeps up with the queue), over ``reps`` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def us_text(us) -> str:
@@ -752,13 +785,16 @@ def irregular(hyb, dev) -> None:
 
 def row4b(dev) -> None:
     """10. The ill-conditioned power-law companion (row 4b of RESULTS.md),
-    printed, not held: float32 vectors, tol 1e-4, MAXITER, CG and the
-    monomial k-skip family with float64 scalars, each with its converged
-    flag, count, host float64 true residual and time."""
+    printed, not held: float32 vectors, tol 1e-4, MAXITER, CG, the
+    monomial k-skip family with float64 scalars, and the other runs of the
+    row: CG preconditioned by Jacobi, CA-CG (s = 8, maxiter 1500) and
+    CA-MrR (s = 8, maxiter 4800) with float64 scalars, each with its
+    converged flag, count, host float64 true residual and time."""
     import numpy as np
     import torch
 
     import krylov_tpu_torch
+    from krylov_tpu_torch import precond
     from krylov_tpu_torch.sparse import as_operator, fixtures
 
     tol = 1e-4
@@ -774,20 +810,104 @@ def row4b(dev) -> None:
     ref_iters, ref_hist = torch_cg(P64, torch.from_numpy(b_np).to(dev, torch.float64), tol, MAXITER)
     phase(f"  float64 CG on the same CSR (torch sparse SpMV): {ref_iters} iterations, residual {ref_hist[-1]:.6e}, "
           f"{time.perf_counter() - t0:.2f} s")
+    f64 = dict(scalar_dtype=torch.float64)
     runs = [
         ("cg", 0, {}),
-        ("kskipmrr", 4, dict(scalar_dtype=torch.float64)),
-        ("adaptivekskipmrr", 8, dict(scalar_dtype=torch.float64)),
-        ("adaptivekskipmrr", 8, dict(scalar_dtype=torch.float64, basis_norm=True)),
+        ("kskipmrr", 4, f64),
+        ("adaptivekskipmrr", 8, f64),
+        ("adaptivekskipmrr", 8, dict(f64, basis_norm=True)),
+        # the other runs of the row (benchmarks/baseline_configs.py:619-637)
+        ("pcg", 0, dict(M=precond.jacobi(A))),
+        ("cacg", 8, dict(f64, maxiter=1500)),
+        ("camrr", 8, dict(f64, maxiter=4800)),
     ]
     for m, k, kw in runs:
-        x, info = krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=tol, maxiter=MAXITER, **kw)
+        x, info = krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=tol, **{"maxiter": MAXITER, **kw})
         res = true_rel(P, b_np, x)
         extra = "" if "final_k" not in info else f", final k {info['final_k']}"
         phase(f"  row 4b {m} k={k}{' basis_norm' if kw.get('basis_norm') else ''}"
-              f"{' f64 scalars' if kw else ''}: converged {info['converged']}, iters {info['iterations']}, "
-              f"recurred res {info['residual'][-1]:.6e}, host f64 true res {res:.6e}{extra}, "
-              f"solve() time {info['time']:.3f} s")
+              f"{' f64 scalars' if 'scalar_dtype' in kw else ''}{' M=jacobi' if 'M' in kw else ''}"
+              f"{' maxiter ' + str(kw['maxiter']) if 'maxiter' in kw else ''}: converged {info['converged']}, "
+              f"iters {info['iterations']}, recurred res {info['residual'][-1]:.6e}, host f64 true res "
+              f"{res:.6e}{extra}, solve() time {info['time']:.3f} s")
+
+
+class PlainChainOperator:
+    """A diagnostic for this script only, used nowhere in the port: the
+    main-path stencil with K1's plain version (the chain of shifted windows,
+    some 16 torch launches a product) as its matvec, so an eager loop can
+    be timed over it beside the same loop over K1."""
+
+    def __init__(self, A):
+        self.A = A
+
+    def matvec(self, x):
+        from krylov_tpu_torch.kernels import stencil
+
+        return stencil.stencil_matvec_2d_reference(self.A.coef, x, stencil=self.A.stencil, grid=self.A.grid)
+
+
+def preconditioned(ops, b_np, A_csr, stencil) -> int:
+    """11. The preconditioned, pipelined and CA solves of PRECOND_RUNS on
+    the main-path system through solve(), on the eager loops, in float64
+    (held: the JAX package's counts, PRECOND_F64, and the host float64 true
+    residual below tol) and float32 (printed).  K1's counter is set to 0
+    before each solve and read after it: every solve must launch K1 at
+    least once an iteration.  Then eager preconditioned CG (M = None,
+    float64) is timed through K1 against the same loop over K1's plain
+    version (PlainChainOperator), in turns.  Returns the K1 launches of the
+    phase's solves."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import precond
+    from krylov_tpu_torch.context import Context
+    from krylov_tpu_torch.solvers import pcg_kernel
+
+    f64 = torch.float64
+    total, failures = 0, []
+    for dt in (f64, torch.float32):
+        A = ops[dt]
+        t0 = time.perf_counter()
+        Ms = {"none": None, "jacobi": precond.jacobi(A), "chebyshev6": precond.chebyshev(A, degree=6)}
+        phase(f"preconditioners {dt}: jacobi, chebyshev(degree 6) on [{Ms['chebyshev6'].lmin:.9g}, "
+              f"{Ms['chebyshev6'].lmax:.9g}], set-up {time.perf_counter() - t0:.2f} s")
+        for run in PRECOND_RUNS:
+            m, p, k = run
+            stencil.stencil_matvec_2d.launches = 0
+            x, info = krylov_tpu_torch.solve(A, b_np, method=m, M=Ms[p], k=k, tol=TOL, maxiter=MAXITER)
+            launches = stencil.stencil_matvec_2d.launches
+            total += launches
+            outer = len(info["residual"]) - 1
+            true_res = true_rel(A_csr, b_np, x)
+            phase(f"solve {m} M={p}{f' k={k}' if k else ''} {dt}: iters {info['iterations']}, outer {outer}, "
+                  f"converged {info['converged']}, recurred res {info['residual'][-1]:.6e}, host f64 true res "
+                  f"{true_res:.6e}, K1 launches {launches}, solve() wall {info['time'] * 1e3:.3f} ms "
+                  f"({info['time'] * 1e3 / max(info['iterations'], 1):.4f} ms an iteration)")
+            if launches < info["iterations"]:
+                failures.append(f"{m} M={p} k={k} {dt}: {launches} K1 launches for {info['iterations']} iterations")
+            if dt == f64 and not ((info["iterations"], outer) == PRECOND_F64[run] and info["converged"]
+                                  and true_res < TOL):
+                failures.append(f"{m} M={p} k={k} f64: {info['iterations']} iterations, {outer} outer, true res "
+                                f"{true_res:.3e}; the JAX package gives {PRECOND_F64[run]}")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 11", failures)
+
+    A = ops[f64]
+    b = torch.from_numpy(b_np).to(A.device)
+    times = {"K1": [], "plain": []}
+    for label in ("K1", "plain", "plain", "K1"):
+        op = A if label == "K1" else PlainChainOperator(A)
+        ms, res = cuda_ms(lambda: pcg_kernel(op, b, torch.zeros_like(b), tol=TOL, maxiter=MAXITER, ctx=Context()))
+        times[label].append((ms, int(res.iterations)))
+    phase("eager pcg (M = None) float64 N={}: ".format(NX * NX) + "; ".join(
+        f"{label} " + ", ".join(f"{ms / it:.4f} ms an iteration ({it} iterations, {ms:.3f} ms)" for ms, it in v)
+        for label, v in times.items()) + " (CUDA events; runs in the order K1, plain, plain, K1)")
+    if len({it for v in times.values() for _, it in v}) != 1:
+        raise AssertionError(f"eager pcg through K1 and through its plain version took other counts: {times}")
+    return total
 
 
 def main() -> int:
@@ -821,12 +941,17 @@ def main() -> int:
     phase(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.nvcc()}, {' '.join(_build.FLAGS)})")
 
     mark("3 K1")
-    # 3. K1 against its plain version
+    # 3. K1 against its plain version, on the main-path grid in both forms,
+    # a collapsed 3-D grid, uneven grids whose rows do not divide into K1's
+    # segments, and (8, n) blocks in one launch, member by member
     k1_err = None
     for make, label in (
         (lambda dt: fixtures.laplace2d(NX, dtype=dt, device=dev), "laplace2d(500)"),
         (lambda dt: fixtures.laplace2d(NX, dtype=dt, constant=True, device=dev), "laplace2d(500, constant)"),
         (lambda dt: fixtures.laplace3d(64, dtype=dt, constant=True, device=dev), "laplace3d(64, constant)"),
+        (lambda dt: fixtures.laplace2d(NX + 3, NX - 7, dtype=dt, device=dev), "laplace2d(503, 493)"),
+        (lambda dt: fixtures.laplace2d(NX + 1, NX + 5, dtype=dt, constant=True, device=dev),
+         "laplace2d(501, 505, constant)"),
     ):
         for dt, rtol in ((f64, 1e-12), (f32, 1e-5)):
             A = make(dt)
@@ -840,6 +965,15 @@ def main() -> int:
                 raise AssertionError(f"K1 disagrees with its plain version on {label} {dt}")
             if label == "laplace2d(500, constant)" and dt == f64:
                 k1_err = float((y - y_ref).abs().max())
+            if label in ("laplace2d(500, constant)", "laplace2d(503, 493)"):
+                X = torch.from_numpy(np.random.default_rng(15).standard_normal((8, A.shape[0]))).to(dev, dt)
+                Y = stencil.stencil_matvec_2d(coef2, X, stencil=st2, grid=g2, sub=sub)
+                err = max(rel_err(Y[j], stencil.stencil_matvec_2d_reference(coef2, X[j], stencil=st2, grid=g2,
+                                                                            sub=sub)) for j in range(8))
+                phase(f"K1 {label} {dt}, (8, n) block in one launch: max rel err over the members {err:.3e} "
+                      f"(tol {rtol:g})")
+                if not err <= rtol:
+                    raise AssertionError(f"K1 on an (8, n) block disagrees with its plain version on {label} {dt}")
 
     mark("4 K2/K3 small")
     # 4. K2/K3 against their plain versions on small grids, float64, on the
@@ -918,7 +1052,7 @@ def main() -> int:
     x0_np = results["mrr", f32][0].double().cpu().numpy()
     results["mrr warm", f64] = krylov_tpu_torch.solve(ops[f64], b_np, method="mrr", x0=x0_np,
                                                       tol=TOL, maxiter=MAXITER)
-    launches = check_launched("main path", counted)
+    check_launched("main path", counted)
     routes = route_counts(counted[1:])
     phase(f"main path K2/K3 launches by route (resident, streaming): {routes}")
     if any(res < 1 or stream for res, stream in routes.values()):
@@ -1022,7 +1156,7 @@ def main() -> int:
                   f"plain {ms[m, dt][1]:.3f} ms (median of 3, CUDA events; "
                   f"{summary[m, dt]} iterations on seed 0); {p.route} route, {p.blocks} blocks of {p.threads} "
                   f"threads, {p.ppt} points a thread; bound {k23_bound[m, dt][0]:.3f} ms ({k23_bound[m, dt][1]})")
-    spmv = {}
+    spmv, conv = {}, {}
     for dt in (f64, f32):
         coef2, st2, g2, sub = ops[dt].collapse_to_2d()
         x = torch.from_numpy(np.random.default_rng(13).standard_normal(NX * NX)).to(dev, dt)
@@ -1030,20 +1164,20 @@ def main() -> int:
         stencil.stencil_matvec_2d(coef2, x, **kw)  # warm-up
         t_k = cuda_ms(lambda: stencil.stencil_matvec_2d(coef2, x, **kw), reps=200)[0]
         t_p = cuda_ms(lambda: stencil.stencil_matvec_2d_reference(coef2, x, **kw), reps=20)[0]
-        spmv[dt] = (t_k, t_p)
-        phase(f"K1 SpMV {dt} N={NX * NX}: kernel {t_k * 1e3:.3f} us ({ops[dt].nnz / (t_k * 1e-3) / 1e9:.3f} Gnnz/s), "
-              f"plain {t_p * 1e3:.3f} us ({ops[dt].nnz / (t_p * 1e-3) / 1e9:.3f} Gnnz/s)")
-    # K1's one-call yardstick, conv2d of the same stencil, and both device
-    # times from the profiler
-    conv = {}
-    for dt in (f64, f32):
-        coef2, st2, g2, sub = ops[dt].collapse_to_2d()
-        x = torch.from_numpy(np.random.default_rng(13).standard_normal(NX * NX)).to(dev, dt)
-        k1_us = kernels_us(lambda: stencil.stencil_matvec_2d(coef2, x, stencil=st2, grid=g2, sub=sub), 50)
+        host = {"stencil_matvec_2d": host_us(lambda: stencil.stencil_matvec_2d(coef2, x, **kw)),
+                "StencilMatrix.matvec": host_us(lambda: ops[dt].matvec(x)),
+                "a bare torch launch (x * 2.0)": host_us(lambda: x * 2.0)}
+        k1_us = device_us(lambda: stencil.stencil_matvec_2d(coef2, x, **kw), "stencil2d_kernel", 50)
+        # K1's one-call yardstick, conv2d of the same stencil
         conv[dt] = conv2d_yardstick(ops[dt], x)
         c_ms, c_us, err = conv[dt]
-        phase(f"K1 against conv2d {dt} N={NX * NX}: K1 {us_text(k1_us)} device, {spmv[dt][0] * 1e3:.3f} us a call; "
-              f"conv2d {us_text(c_us)} device, {c_ms * 1e3:.3f} us a call (CUDA events, cuDNN TF32 off); "
+        bnd = bound(2 * ops[dt].nnz, 2 * NX * NX * dt.itemsize, str(dt).removeprefix("torch."))
+        spmv[dt] = (t_k, t_p, k1_us)
+        phase(f"K1 SpMV {dt} N={NX * NX}: host " + ", ".join(f"{k} {v:.3f} us" for k, v in host.items())
+              + f" a call (host clock over 1000 calls); {t_k * 1e3:.3f} us a call (CUDA events over 200 calls, "
+              f"{ops[dt].nnz / (t_k * 1e-3) / 1e9:.3f} Gnnz/s); device {us_text(k1_us)} "
+              f"(torch.profiler); bound {bnd[0] * 1e3:.3f} us ({bnd[1]}); plain {t_p * 1e3:.3f} us a call; conv2d "
+              f"{us_text(c_us)} device, {c_ms * 1e3:.3f} us a call (CUDA events, cuDNN TF32 off), "
               f"max |y_conv - y_K1| / max |y_K1| {err:.3e}")
         if not err <= (1e-12 if dt == f64 else 1e-5):
             raise AssertionError(f"conv2d and K1 disagree on the same stencil ({dt})")
@@ -1158,6 +1292,8 @@ def main() -> int:
     irregular(hyb, dev)
     mark("10 row 4b")
     row4b(dev)
+    mark("11 preconditioned, pipelined and CA")
+    k1_launches = preconditioned(ops, b_np, A_csr, stencil)
     mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer
@@ -1173,8 +1309,10 @@ def main() -> int:
 
     res_src, str_src = "krylov_tpu_torch/kernels/csrc/fused_resident.cu", "krylov_tpu_torch/kernels/csrc/fused.cu"
     kernels = [
+        # K1's launches: those of phase 11, the eager path it carries (the
+        # fused main path of phase 5 launched it for the warm start alone)
         entry("stencil_matvec_2d", "krylov_tpu_torch/kernels/csrc/stencil.cu", "krylov_tpu/kernels/stencil.py:89",
-              launches["stencil_matvec_2d"], k1_err, spmv[f64][0], spmv[f64][1], k1_bound, conv[f64][0]),
+              k1_launches, k1_err, spmv[f64][0], spmv[f64][1], k1_bound, conv[f64][0]),
         entry("fused_mrr_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:344",
               routes["fused_mrr_solve_2d"][0], k23_err["mrr", f64], ms["mrr", f64][0], ms["mrr", f64][1],
               k23_bound["mrr", f64]),

@@ -1,16 +1,19 @@
 """SciPy-compatible front door: :func:`solve`, :func:`solve_device`,
 :func:`solve_batched` and the ``cg``/``mrr``/``kskipcg``/``kskipmrr``/
-``adaptivekskipmrr`` wrappers, with the signatures of :mod:`krylov_tpu.api`.
+``adaptivekskipmrr``/``pcg``/``chronopoulos_gear``/``gropp``/``pipelined_cg``
+wrappers, with the signatures of :mod:`krylov_tpu.api`.
 
 A solve runs on the device of the operator's tensors; ``b`` and ``x0`` are
 moved there.  A scipy or numpy operator lands on ``b``'s device when ``b``
 is a tensor, else on the default device of :mod:`krylov_tpu_torch.device`
 (the CUDA device unless the caller chose another).  2-D/3-D :class:`~krylov_tpu_torch.sparse.StencilMatrix`
 systems take the fused whole-solve kernels (:mod:`.kernels.fused`,
-:mod:`.kernels.fused_kskip`), other operators (and ``fused=False``,
-``basis_norm=True`` or a wider ``scalar_dtype``) the eager loops of
-:mod:`.solvers`.  ``restarts=`` appends device-side defect corrections to a
-solve, ``refine=`` host-float64 iterative refinement.
+:mod:`.kernels.fused_kskip`) for CG, MrR and the k-skip family; other
+methods, other operators, a preconditioner ``M``, ``fused=False``,
+``basis_norm=True`` or a wider ``scalar_dtype`` take the eager loops of
+:mod:`.solvers`, whose stencil SpMV on the card is K1.  ``restarts=``
+appends device-side defect corrections to a solve, ``refine=``
+host-float64 iterative refinement.
 """
 
 from __future__ import annotations
@@ -25,13 +28,20 @@ import torch
 from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.diagnostics import build_info, finish_banner, start_banner
 from krylov_tpu_torch.kernels import _build
+from krylov_tpu_torch.precond import lanczos_bounds
 from krylov_tpu_torch.solvers import (
     SolveResult,
     adaptivekskipmrr_kernel,
+    cacg_kernel,
+    camrr_kernel,
     cg_kernel,
+    chronopoulos_gear_kernel,
+    gropp_kernel,
     kskipcg_kernel,
     kskipmrr_kernel,
     mrr_kernel,
+    pcg_kernel,
+    pipelined_cg_kernel,
 )
 from krylov_tpu_torch.solvers._common import check_square
 from krylov_tpu_torch.sparse.convert import host64, host_matvec64
@@ -56,33 +66,46 @@ _KERNELS = {
     "kskipcg": kskipcg_kernel,
     "kskipmrr": kskipmrr_kernel,
     "adaptivekskipmrr": adaptivekskipmrr_kernel,
+    "cacg": cacg_kernel,
+    "camrr": camrr_kernel,
+    "pcg": pcg_kernel,
+    "chronopoulos_gear": chronopoulos_gear_kernel,
+    "gropp": gropp_kernel,
+    "pipelined_cg": pipelined_cg_kernel,
 }
 _KSKIP_METHODS = ("kskipcg", "kskipmrr", "adaptivekskipmrr")
+# Chebyshev-basis CA methods: the skip size through ``k`` (as s) and the
+# spectral bounds
+_CACG_METHODS = ("cacg", "camrr")
+_PRECONDITIONED_METHODS = ("pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
+_FUSED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
 
-_CA_PRECOND = "the Chebyshev CA, preconditioned and pipelined solvers (ROADMAP queue 1, item 9)"
-_UNPORTED_METHODS = {
-    m: _CA_PRECOND for m in ("cacg", "camrr", "pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
-}
 
-
-def _check_method(method: str) -> None:
-    if method in _UNPORTED_METHODS:
-        raise NotImplementedError(f"method {method!r} waits for the port of {_UNPORTED_METHODS[method]}")
+def _check_options(method: str, mesh=None, M=None, spectral_bounds=None) -> None:
+    """Raise on an unknown method, on ``mesh=`` (not ported yet, naming the
+    ROADMAP queue-1 item that brings it), and on ``M=`` or
+    ``spectral_bounds=`` given to a method that does not read them (the
+    JAX package drops them silently)."""
     if method not in _KERNELS:
         raise ValueError(f"unknown method {method!r}; available: {sorted(_METHOD_NAMES)}")
+    if mesh is not None:
+        raise NotImplementedError("mesh= waits for the distributed port (ROADMAP queue 1, item 11)")
+    if M is not None and method not in _PRECONDITIONED_METHODS:
+        raise ValueError(f"M= is read by {_PRECONDITIONED_METHODS} only, not by method {method!r}")
+    if spectral_bounds is not None and method not in _CACG_METHODS:
+        raise ValueError(f"spectral_bounds= is read by {_CACG_METHODS} only, not by method {method!r}")
 
 
-def _check_unported(chunk_iters=None, mesh=None, M=None, spectral_bounds=None) -> None:
-    """Raise for options this package does not take yet, naming the
-    ROADMAP queue-1 item that brings them."""
-    for name, given, item in (
-        ("chunk_iters", chunk_iters is not None, "chunked exact continuation (ROADMAP queue 1, item 10)"),
-        ("mesh", mesh is not None, "the distributed port (ROADMAP queue 1, item 11)"),
-        ("M", M is not None, "preconditioners (ROADMAP queue 1, item 9)"),
-        ("spectral_bounds", spectral_bounds is not None, "the Chebyshev CA solvers (ROADMAP queue 1, item 9)"),
-    ):
-        if given:
-            raise NotImplementedError(f"{name}= waits for the port of {item}")
+def _resolve_bounds(A, method: str, spectral_bounds):
+    """``(lmin, lmax)`` of the Chebyshev-basis methods (None for the
+    others): the given bounds as floats, else :func:`~krylov_tpu_torch.precond.lanczos_bounds`
+    of ``A`` (16 SpMVs on its device), as :func:`krylov_tpu.api._resolve_bounds`."""
+    if method not in _CACG_METHODS:
+        return None
+    if spectral_bounds is not None:
+        lo, hi = spectral_bounds
+        return float(lo), float(hi)
+    return lanczos_bounds(A)
 
 
 def _fused_eligible(A, method: str, M, scalar_dtype, fused) -> bool:
@@ -94,7 +117,7 @@ def _fused_eligible(A, method: str, M, scalar_dtype, fused) -> bool:
     if fused is False:
         return False
     ok = (
-        method in _KERNELS
+        method in _FUSED_METHODS
         and M is None
         and scalar_dtype in (None, A.dtype)
         and isinstance(A, StencilMatrix)
@@ -103,7 +126,7 @@ def _fused_eligible(A, method: str, M, scalar_dtype, fused) -> bool:
     if fused is True and not ok:
         raise ValueError(
             "fused=True requires a 2-D/3-D StencilMatrix system with method in "
-            f"{tuple(_KERNELS)} and no preconditioner"
+            f"{_FUSED_METHODS} and no preconditioner"
         )
     return ok
 
@@ -165,14 +188,6 @@ def _run_fused(A: StencilMatrix, b, x0, tol, method: str, maxiter: int, k: int) 
     )
 
 
-def _matvec(A, x):
-    """``A x`` through K1 for a 2-D/3-D stencil operator, the container's
-    own matvec otherwise."""
-    from krylov_tpu_torch.kernels.stencil import stencil_matvec
-
-    return stencil_matvec(A, x) if isinstance(A, StencilMatrix) else A.matvec(x)
-
-
 def _prepare(A, b, x0, maxiter):
     """``b`` and ``x0`` (None stays None) as contiguous tensors on ``A``'s
     device and dtype, and the default ``maxiter``."""
@@ -187,7 +202,11 @@ def _prepare(A, b, x0, maxiter):
     return b, x0, n if maxiter is None else maxiter
 
 
-def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm) -> SolveResult:
+def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M=None,
+              bounds=None) -> SolveResult:
+    """One solve: the fused kernels, or the eager loop of ``method`` with
+    the options it reads (``k``/``basis_norm``; ``s = max(k, 1)`` and the
+    resolved ``bounds``; ``M``)."""
     if use_fused:
         return _run_fused(A, b, x0, tol, method, maxiter, k)
     ctx = Context(scalar_dtype=scalar_dtype)
@@ -196,11 +215,15 @@ def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_
     kw = dict(tol=tol, maxiter=maxiter, ctx=ctx)
     if method in _KSKIP_METHODS:
         kw.update(k=k, basis_norm=basis_norm)
+    elif method in _CACG_METHODS:
+        kw.update(s=max(k, 1), lmin=bounds[0], lmax=bounds[1])
+    elif method in _PRECONDITIONED_METHODS:
+        kw["M"] = M
     return _KERNELS[method](A, b, x0, **kw)
 
 
 def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
-                restarts=0) -> SolveResult:
+                restarts=0, M=None, bounds=None) -> SolveResult:
     """One solve, then ``restarts`` device-side defect-correction passes
     (:func:`krylov_tpu.api._run_single`).
 
@@ -213,21 +236,22 @@ def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basi
     decides with ``lax.cond`` on the device, this reads ``true_rel >= tol``
     on the host once a pass.  The result then carries ``true_residual``,
     and ``converged`` is ``true_residual < tol``."""
-    result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+    result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M, bounds)
     if restarts == 0:
         return result
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
     b_norm = torch.linalg.vector_norm(b)
     x, iters = result.x, result.iterations
     for _ in range(restarts):
-        r = b - _matvec(A, x)
+        r = b - A.matvec(x)
         r_norm = torch.linalg.vector_norm(r)
         # tol on the original system is tol * b_norm / r_norm on the defect
         inner_tol = torch.clamp(0.2 * tol_t * b_norm / torch.clamp(r_norm, min=1e-30), 2e-7, 0.5).to(b.dtype)
         if bool(r_norm / b_norm >= tol_t):
-            res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm)
+            res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M,
+                             bounds)
             x, iters = x + res2.x, iters + res2.iterations
-    true_final = torch.linalg.vector_norm(b - _matvec(A, x)) / b_norm
+    true_final = torch.linalg.vector_norm(b - A.matvec(x)) / b_norm
     return dataclasses.replace(result, x=x, iterations=iters, converged=true_final < tol_t,
                                true_residual=true_final)
 
@@ -262,12 +286,13 @@ def solve_device(
     ``restarts``: device-side defect-correction passes appended to the
     solve (see :func:`_run_single`); the result then carries
     ``true_residual`` and ``converged`` reflects it."""
-    _check_method(method)
-    _check_unported(mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    _check_options(method, mesh, M, spectral_bounds)
     A, b, x0, maxiter, use_fused, basis_norm = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
-    return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, restarts)
+    bounds = _resolve_bounds(A, method, spectral_bounds)
+    return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, restarts, M,
+                       bounds)
 
 
 def solve(
@@ -290,7 +315,13 @@ def solve(
     and, when the fused path's trace ran past its capacity,
     ``residual_truncated``.  ``method`` is ``cg``, ``mrr``, ``kskipcg``,
     ``kskipmrr`` or ``adaptivekskipmrr`` (the k-skip methods take ``k``;
-    ``basis_norm=True`` normalises their Krylov chains on the eager loops).
+    ``basis_norm=True`` normalises their Krylov chains on the eager loops),
+    ``pcg``, ``chronopoulos_gear``, ``gropp`` or ``pipelined_cg`` (these take
+    the preconditioner ``M``, e.g. from :mod:`krylov_tpu_torch.precond`), or
+    ``cacg`` or ``camrr`` (s = ``max(k, 1)``; ``spectral_bounds=(lmin,
+    lmax)``, else :func:`~krylov_tpu_torch.precond.lanczos_bounds` of ``A``,
+    resolved once before the timed solve).  ``M=`` or ``spectral_bounds=``
+    given to a method that does not read them raises ``ValueError``.
 
     ``restarts=m`` appends ``m`` device-side defect corrections in working
     precision (:func:`_run_single`); ``info`` then holds ``true_residual``.
@@ -304,28 +335,34 @@ def solve(
     the corrections (the residuals rescaled to the original system), and
     ``converged`` is ``true_residual < tol``.  The returned ``x`` is then a
     float64 tensor on the operator's device, where the JAX package returns
-    a float64 numpy array.  The other options of the JAX package raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them.
+    a float64 numpy array.  ``chunk_iters`` at or above the effective
+    ``maxiter`` runs one plain solve, as in the JAX package; below it, and
+    ``mesh=``, raise ``NotImplementedError`` naming the ROADMAP item that
+    ports them.
     """
-    _check_method(method)
-    _check_unported(chunk_iters=chunk_iters, mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    _check_options(method, mesh, M, spectral_bounds)
     b_in = b
     A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
+    if chunk_iters is not None and chunk_iters < maxiter_eff:
+        raise NotImplementedError(
+            "chunk_iters= below maxiter waits for the port of chunked exact continuation (ROADMAP queue 1, item 10)"
+        )
     if verbose:
         start_banner(_METHOD_NAMES[method], k if method in _KSKIP_METHODS else None)
 
     on_cuda = A.device.type == "cuda"
     compile_time = None
+    if on_cuda and _build.build_seconds is None and (use_fused or isinstance(A, StencilMatrix)):
+        _build.library()  # the fused kernels, or K1 for the eager loops
+        compile_time = _build.build_seconds
+    bounds = _resolve_bounds(A, method, spectral_bounds)  # set-up, before the timed solve
     if on_cuda:
-        if use_fused and _build.build_seconds is None:
-            _build.library()
-            compile_time = _build.build_seconds
         torch.cuda.synchronize(A.device)
     t0 = time.perf_counter()
     result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
-                         restarts)
+                         restarts, M, bounds)
     if on_cuda:
         torch.cuda.synchronize(A.device)
     elapsed = time.perf_counter() - t0
@@ -337,7 +374,7 @@ def solve(
     if refine:
         x = _refine(A, b_in, x, info, refine, tol, dict(
             method=method, maxiter=maxiter, k=k, M=M, mesh=mesh, scalar_dtype=scalar_dtype, fused=fused,
-            chunk_iters=chunk_iters, basis_norm=basis_norm, spectral_bounds=spectral_bounds,
+            chunk_iters=chunk_iters, basis_norm=basis_norm, spectral_bounds=bounds,
         ))
     if verbose:
         finish_banner(info["time"], info["converged"], info["iterations"], info["residual"][-1],
@@ -399,9 +436,10 @@ def solve_batched(
     on one stream with no host sync in between (the JAX package's
     ``lax.map``).  On the eager route CG and MrR run the whole batch as one
     loop over ``(batch, N)`` blocks, each member freezing on its own (the
-    JAX package's ``vmap``); the k-skip methods run member by member."""
-    _check_method(method)
-    _check_unported(mesh=mesh, M=M, spectral_bounds=spectral_bounds)
+    JAX package's ``vmap``), through one K1 launch an SpMV on a stencil
+    operator on the card; the other methods run member by member, with the
+    spectral bounds of ``cacg``/``camrr`` resolved once."""
+    _check_options(method, mesh, M, spectral_bounds)
     A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
     B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
     if B.ndim != 2 or B.shape[1] != A.shape[0]:
@@ -419,9 +457,10 @@ def solve_batched(
     if not use_fused and method in ("cg", "mrr"):
         X0 = torch.zeros_like(B) if X0 is None else X0
         return _KERNELS[method](A, B, X0, tol=tol, maxiter=maxiter, ctx=Context(scalar_dtype=scalar_dtype))
+    bounds = _resolve_bounds(A, method, spectral_bounds)
     members = [
         _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, use_fused,
-                  basis_norm)
+                  basis_norm, M, bounds)
         for j in range(B.shape[0])
     ]
     return SolveResult(**{
@@ -445,3 +484,7 @@ mrr = _scipy_style("mrr")
 kskipcg = _scipy_style("kskipcg")
 kskipmrr = _scipy_style("kskipmrr")
 adaptivekskipmrr = _scipy_style("adaptivekskipmrr")
+pcg = _scipy_style("pcg")
+chronopoulos_gear = _scipy_style("chronopoulos_gear")
+gropp = _scipy_style("gropp")
+pipelined_cg = _scipy_style("pipelined_cg")

@@ -45,13 +45,34 @@ class Context:
     def gram(self, B: torch.Tensor) -> torch.Tensor:
         """(m, m) inner products of the rows of ``B``."""
         Bw = self._wide(B)
-        return Bw @ Bw.T
+        return self._rows_dot(Bw, Bw)
 
     def cross_gram(self, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
         """(m_u, m_v) inner products between rows of ``U`` and rows of ``V``."""
-        return self._wide(U) @ self._wide(V).T
+        return self._rows_dot(self._wide(U), self._wide(V))
+
+    @staticmethod
+    def _rows_dot(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+        """``U @ V.T``, one matrix product.  On the card a float32 product
+        follows ``torch.backends.cuda.matmul.allow_tf32``; the JAX package
+        pins ``Precision.HIGHEST``, so the flag is held off for the call
+        and restored after."""
+        if not (U.is_cuda and U.dtype == torch.float32):
+            return U @ V.T
+        flags = torch.backends.cuda.matmul
+        previous = flags.allow_tf32
+        flags.allow_tf32 = False
+        try:
+            return U @ V.T
+        finally:
+            flags.allow_tf32 = previous
 
     def matvec(self, A, x: torch.Tensor) -> torch.Tensor:
+        """Apply the operator; one that needs the context
+        (``needs_ctx = True``, e.g. :class:`~krylov_tpu_torch.precond.ChebyshevPreconditioner`)
+        gets it."""
+        if getattr(A, "needs_ctx", False):
+            return A.matvec(x, self)
         return A.matvec(x)
 
 

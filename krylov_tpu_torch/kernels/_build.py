@@ -89,7 +89,7 @@ def _compile(out: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     geom = [i, i, i, i, i, p]  # ns, g0, g1, g2, is_const, disp
-    lib.krylov_stencil2d.argtypes = [i, p, p, p, *geom, p]
+    lib.krylov_stencil2d.argtypes = [i, p, p, p, i, p, p]  # dtype, coef, x, y, batch, params, stream
     lib.krylov_stencil2d.restype = i
     lib.krylov_fused_workspace.argtypes = [
         i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),

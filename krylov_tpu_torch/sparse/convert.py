@@ -273,10 +273,19 @@ _FROM_JAX = {cls.__name__: cls for cls in (StencilMatrix, DiaMatrix, EllMatrix, 
 
 def from_jax_operator(A, device=None, dtype=None):
     """Convert a ``krylov_tpu`` container (``StencilMatrix``, ``DiaMatrix``,
-    ``EllMatrix``, ``HybMatrix`` or ``DenseMatrix``) into this package's.
+    ``EllMatrix``, ``HybMatrix`` or ``DenseMatrix``) into this package's;
+    a ``krylov_tpu.precond.ChebyshevPreconditioner`` becomes
+    :class:`krylov_tpu_torch.precond.ChebyshevPreconditioner` with its
+    operator converted and its ``lmin``, ``lmax`` and ``degree`` kept (a
+    Jacobi preconditioner is a ``DiaMatrix`` already).
 
     ``dtype`` (torch or numpy) casts the floating-point leaves and defaults
     to their own dtype; index leaves keep theirs."""
+    if type(A).__name__ == "ChebyshevPreconditioner":
+        from krylov_tpu_torch.precond import ChebyshevPreconditioner
+
+        return ChebyshevPreconditioner(A=from_jax_operator(A.A, device, dtype), lmin=float(A.lmin),
+                                       lmax=float(A.lmax), degree=int(A.degree))
     cls = _FROM_JAX.get(type(A).__name__)
     if cls is None:
         raise TypeError(f"from_jax_operator takes a krylov_tpu container ({', '.join(_FROM_JAX)}), "

@@ -211,6 +211,15 @@ class StencilMatrix:
         ]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``A x`` for ``x`` of shape ``(n,)`` or ``(batch, n)``: on a CUDA
+        tensor of a 2-D/3-D grid through K1
+        (:func:`krylov_tpu_torch.kernels.stencil.stencil_matvec`, one launch
+        for the block), else as the chain of shifted windows of the
+        zero-padded grid."""
+        if x.is_cuda and len(self.grid) in (2, 3):
+            from krylov_tpu_torch.kernels.stencil import stencil_matvec
+
+            return stencil_matvec(self, x.contiguous())
         xg = x.reshape(x.shape[:-1] + self.grid)
         pads = self._pads()
         y = torch.zeros_like(xg)

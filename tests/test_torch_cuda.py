@@ -477,3 +477,145 @@ def test_restarts_and_refine_on_cuda(cuda):
         true = np.linalg.norm(b - A64(A, xx)) / np.linalg.norm(b)
         assert true < tol
     assert bool(res.converged) and info["converged"] and info["true_residual"] < 1e-7
+
+
+# K1 as the eager loops' SpMV: the redesigned kernel (one interior test a
+# point, the constant form's weights as arguments, a grid sized to the SMs)
+# against its plain version on grids that meet the boundary in every way:
+# uneven rows, the collapsed 3-D constant form with its sub mask, the
+# grid-coefficient form (2-D and 3-D), few rows, and one row
+K1_CASES = {
+    "uneven": lambda **kw: fixtures.laplace2d(37, 29, constant=True, **kw),
+    "3d-const sub": lambda **kw: fixtures.laplace3d(9, 7, 6, constant=True, **kw),
+    "3d grid coefficients": lambda **kw: fixtures.laplace3d(7, 6, 5, **kw),
+    "grid coefficients": lambda **kw: fixtures.laplace2d(33, 19, **kw),
+    "few rows": lambda **kw: fixtures.laplace2d(50, 3, constant=True, **kw),
+    "one row": lambda **kw: fixtures.laplace2d(11, 1, constant=True, **kw),
+}
+K1_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # phase 3 of chip_smoke.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(K1_CASES))
+def test_k1_matches_plain(cuda, name, dtype):
+    """K1 against its plain version (max error against the largest entry),
+    one vector and a (8, n) block in one launch, member by member."""
+    A = K1_CASES[name](dtype=dtype, device=cuda)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    kw = dict(stencil=stencil2, grid=grid2, sub=sub)
+    X = torch.from_numpy(np.random.default_rng(31).standard_normal((8, A.shape[0]))).to(cuda, dtype)
+    before = stencil.stencil_matvec_2d.launches
+    Y = stencil.stencil_matvec_2d(coef2, X, **kw)
+    y = stencil.stencil_matvec_2d(coef2, X[3], **kw)
+    assert stencil.stencil_matvec_2d.launches == before + 2 and Y.shape == X.shape
+    for j in range(8):
+        ref = stencil.stencil_matvec_2d_reference(coef2, X[j], **kw)
+        torch.testing.assert_close(Y[j], ref, rtol=0, atol=K1_RTOL[dtype] * float(ref.abs().max()))
+    assert torch.equal(Y[3], y)
+
+
+@pytest.mark.cuda
+def test_k1_refuses_what_it_does_not_take(cuda):
+    """A CUDA tensor launches K1 or raises: no fall back on the plain chain."""
+    A = fixtures.laplace2d(8, constant=True, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        stencil.stencil_matvec_2d(A.coef, torch.zeros(64, dtype=torch.float32, device=cuda), stencil=A.stencil,
+                                  grid=A.grid)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil.stencil_matvec_2d(A.coef, torch.zeros(64, 2, dtype=torch.float64, device=cuda)[:, 0],
+                                  stencil=A.stencil, grid=A.grid)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fixtures.laplace2d(8, constant=True, device="cpu").matvec(torch.zeros(64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_k1_weights_follow_in_place_changes(cuda):
+    """The constant form's weights are read once per tensor and version:
+    scaling the weights in place changes the product."""
+    A = fixtures.laplace2d(16, constant=True, device=cuda)
+    x = _rhs(A.shape[0], 3, cuda)
+    y = A.matvec(x)
+    A.coef.mul_(2.0)
+    torch.testing.assert_close(A.matvec(x), 2 * y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["2d", "3d-const"])
+def test_stencil_matvec_on_cuda_launches_k1(cuda, name):
+    """StencilMatrix.matvec on a CUDA tensor is one K1 launch, for a vector
+    and for a (batch, n) block, equal to the plain chain on the CPU; a 1-D
+    grid keeps the chain."""
+    A = OPERATORS[name](device=cuda)
+    X = torch.from_numpy(np.random.default_rng(32).standard_normal((3, A.shape[0])))
+    before = stencil.stencil_matvec_2d.launches
+    y, Y = A.matvec(X[0].to(cuda)), A.matvec(X.to(cuda))
+    assert stencil.stencil_matvec_2d.launches == before + 2
+    A_cpu = to_device(A, "cpu")
+    for got, x in ((y, X[0]), (Y, X)):
+        ref = A_cpu.matvec(x)
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-12 * float(ref.abs().max()))
+    line = StencilMatrix(torch.tensor([-1.0, 2.0, -1.0], device=cuda), ((-1,), (0,), (1,)), (40,))
+    before = stencil.stencil_matvec_2d.launches
+    line.matvec(torch.ones(40, dtype=torch.float64, device=cuda))
+    assert stencil.stencil_matvec_2d.launches == before
+
+
+NEW_METHODS = [(m, p) for m in ("pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
+               for p in ("none", "jacobi", "chebyshev")] + [("cacg", "none"), ("camrr", "none")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, precond", NEW_METHODS)
+def test_new_methods_on_cuda_match_cpu(cuda, method, precond):
+    """The preconditioned, pipelined and CA solves through solve() on the
+    card (K1 for every SpMV) against the same solves on the CPU, float64:
+    equal counts, residual histories rtol 1e-6 (the CA recurrences amplify
+    rounding), x rtol 1e-6."""
+    from krylov_tpu_torch import precond as pc
+
+    kw = dict(method=method, tol=1e-8, maxiter=2000)
+    if method in ("cacg", "camrr"):
+        kw.update(k=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        A = fixtures.laplace2d(32, constant=True, device=dev)
+        if precond == "jacobi":
+            kw["M"] = pc.jacobi(A)
+        elif precond == "chebyshev":
+            kw["M"] = pc.chebyshev(A, degree=4, lmin=0.05, lmax=8.0)
+        before = stencil.stencil_matvec_2d.launches
+        out[dev] = krylov_tpu_torch.solve(A, np.random.default_rng(33).standard_normal(A.shape[0]), **kw)
+        if dev != "cpu":
+            assert stencil.stencil_matvec_2d.launches - before >= out[dev][1]["iterations"]
+    (x_c, info_c), (x_g, info_g) = out["cpu"], out[cuda]
+    assert info_g["converged"] and info_g["iterations"] == info_c["iterations"]
+    np.testing.assert_array_equal(info_g["nosl"], info_c["nosl"])
+    np.testing.assert_allclose(info_g["residual"], info_c["residual"], rtol=1e-6, atol=1e-14)
+    np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cacg", "camrr"])
+def test_float32_ca_solves_ignore_allow_tf32(cuda, method):
+    """The Gram, the s-step products and the recovery combinations of a
+    float32 CA solve, and the projections of lanczos_bounds, give the same
+    bits with TF32 matrix products allowed as without."""
+    from krylov_tpu_torch import precond as pc
+    from krylov_tpu_torch.context import Context
+
+    A = fixtures.laplace2d(48, dtype=torch.float32, constant=True, device=cuda)
+    b = np.random.default_rng(34).standard_normal(A.shape[0]).astype(np.float32)
+    V = torch.from_numpy(np.random.default_rng(35).standard_normal((9, A.shape[0]))).to(cuda, torch.float32)
+    runs = []
+    previous = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            x, info = krylov_tpu_torch.solve(A, b, method=method, k=8, tol=1e-5, maxiter=600)
+            runs.append((x, info["iterations"], pc.lanczos_bounds(A), Context().gram(V)))
+            assert torch.backends.cuda.matmul.allow_tf32 == flag  # the Gram restores the flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    (x0, i0, b0, g0), (x1, i1, b1, g1) = runs
+    assert i0 == i1 and b0 == b1 and torch.equal(x0, x1) and torch.equal(g0, g1)

@@ -134,3 +134,19 @@ def test_cuda_wrappers_refuse_other_devices():
         stencil.require_cuda("k", A.coef, torch.zeros(16), A.stencil, A.grid)
     with pytest.raises(ValueError, match="at most"):
         stencil.geometry(((0, 0),) * 17, (4, 4), None, True)
+
+
+@pytest.mark.parametrize("name", ["2d", "2d-const", "3d", "3d-const"])
+def test_plain_k1_on_a_batch_equals_it_member_by_member(name):
+    """The plain K1 on a (batch, n) block: each row the plain K1 of that
+    member, bit for bit, and the container's own matvec on the CPU (the
+    chain of shifted windows) within rounding."""
+    At = from_jax_operator(OPERATORS[name]())
+    coef2, stencil2, grid2, sub = At.collapse_to_2d()
+    X = torch.from_numpy(np.random.default_rng(8).standard_normal((8, At.shape[0])))
+    Y = stencil.stencil_matvec_2d(coef2, X, stencil=stencil2, grid=grid2, sub=sub)
+    assert Y.shape == X.shape
+    for j in range(8):
+        assert torch.equal(Y[j], stencil.stencil_matvec_2d(coef2, X[j], stencil=stencil2, grid=grid2, sub=sub))
+    torch.testing.assert_close(Y, At.matvec(X), rtol=1e-13, atol=1e-13)
+    torch.testing.assert_close(stencil.stencil_matvec(At, X), Y, rtol=0, atol=0)

@@ -21,6 +21,7 @@ import krylov_tpu
 import krylov_tpu_torch
 from krylov_tpu.sparse.fixtures import laplace2d, laplace3d, poisson1d
 from krylov_tpu_torch.api import _fused_eligible
+from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.solvers import SolveResult
 from krylov_tpu_torch.sparse import fixtures
 from krylov_tpu_torch.sparse.convert import from_jax_operator
@@ -144,21 +145,23 @@ def test_unknown_method_raises():
 
 
 @pytest.mark.parametrize(
-    "kw, item",
+    "kw, error, match",
     [
-        # restarts= and refine= are ported; with mesh= or spectral_bounds=
-        # they still raise, naming the item that brings those
-        (dict(restarts=2, mesh=object()), "item 11"),
-        (dict(refine=1, spectral_bounds=(0.1, 8.0)), "item 9"),
-        (dict(chunk_iters=10), "item 10"),
-        (dict(M=object()), "item 9"),
-        (dict(method="cacg"), "item 9"),
+        # restarts= and refine= are ported; with mesh= or chunk_iters= below
+        # maxiter they still raise, naming the item that brings those
+        (dict(restarts=2, mesh=object()), NotImplementedError, "item 11"),
+        (dict(refine=1, chunk_iters=5), NotImplementedError, "item 10"),
+        (dict(chunk_iters=10), NotImplementedError, "item 10"),
+        # M= and spectral_bounds= are ported; given to a method that does
+        # not read them they raise instead of being dropped
+        (dict(M=object()), ValueError, "M= is read by"),
+        (dict(method="cacg", M=object()), ValueError, "M= is read by"),
     ],
     ids=["restarts", "refine", "chunk_iters", "M", "cacg"],
 )
-def test_unported_options_name_their_roadmap_item(kw, item):
+def test_unported_options_name_their_roadmap_item(kw, error, match):
     A = fixtures.laplace2d(6)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         krylov_tpu_torch.solve(A, np.ones(36), **kw)
 
 
@@ -210,3 +213,56 @@ def test_context_widens_operands_like_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
     with pytest.raises(NotImplementedError, match="item 11"):
         Context(axis="rows")
+
+
+@pytest.mark.parametrize("chunk_iters", [36, 100])
+def test_chunk_iters_at_or_above_maxiter_is_a_plain_solve(chunk_iters):
+    """The JAX package chunks only below the effective maxiter (here n =
+    36); at or above it the solve is the plain one, on both sides."""
+    A = laplace2d(6)
+    b = np.random.default_rng(9).standard_normal(36)
+    xr, ir = krylov_tpu.solve(A, b, method="mrr", tol=1e-10, chunk_iters=chunk_iters)
+    x, info = krylov_tpu_torch.solve(from_jax_operator(A), b, method="mrr", tol=1e-10, chunk_iters=chunk_iters)
+    x_plain, plain = krylov_tpu_torch.solve(from_jax_operator(A), b, method="mrr", tol=1e-10)
+    assert info["iterations"] == plain["iterations"] == ir["iterations"]
+    assert torch.equal(x, x_plain)
+    np.testing.assert_allclose(x.numpy(), np.asarray(xr), rtol=1e-8, atol=1e-12)
+
+
+def test_context_is_exported_like_jax():
+    assert krylov_tpu_torch.Context is Context
+    assert krylov_tpu_torch.DEFAULT_CONTEXT == Context() and "Context" in krylov_tpu_torch.__all__
+    assert "DEFAULT_CONTEXT" in krylov_tpu_torch.__all__
+
+
+@pytest.mark.parametrize(
+    "method, kw, match",
+    [
+        ("cg", dict(M="jacobi"), "M= is read by"),
+        ("kskipmrr", dict(M="jacobi", k=2), "M= is read by"),
+        ("camrr", dict(M="jacobi", k=2), "M= is read by"),
+        ("mrr", dict(spectral_bounds=(0.1, 8.0)), "spectral_bounds= is read by"),
+        ("pcg", dict(spectral_bounds=(0.1, 8.0)), "spectral_bounds= is read by"),
+    ],
+)
+def test_options_a_method_does_not_read_raise(method, kw, match):
+    """Where the JAX package drops M= and spectral_bounds= silently for a
+    method that does not read them, the port raises, from every entry
+    point."""
+    from krylov_tpu_torch import precond
+
+    A = fixtures.laplace2d(6)
+    if "M" in kw:
+        kw = dict(kw, M=precond.jacobi(A))
+    for call in (krylov_tpu_torch.solve, krylov_tpu_torch.solve_device):
+        with pytest.raises(ValueError, match=match):
+            call(A, np.ones(36), method=method, **kw)
+    with pytest.raises(ValueError, match=match):
+        krylov_tpu_torch.solve_batched(A, np.ones((2, 36)), method=method, **kw)
+
+
+def test_new_methods_stay_eager():
+    S = fixtures.laplace2d(6)
+    for method in ("pcg", "chronopoulos_gear", "gropp", "pipelined_cg", "cacg", "camrr"):
+        assert not _fused_eligible(S, method, None, None, None)
+    assert not _fused_eligible(S, "cg", object(), None, None)
