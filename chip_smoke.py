@@ -26,7 +26,15 @@ RESULTS.md, printed only (CG, the k-skip family, Jacobi-preconditioned CG
 and the Chebyshev CA solvers); last, the preconditioned, pipelined and CA
 solves of the main-path system on the eager loops, whose every SpMV is K1,
 float64 held to the JAX package's counts and K1 timed on that path beside
-the same loop over K1's plain version.  It prints a JSON line of the
+the same loop over K1's plain version.  Then the paths of chunked solves
+on the main-path system: ``solve(chunk_iters=)`` of the seven carry
+methods held against their unbroken eager solves, and ``fused=True``
+chunks (one K2/K3/K5 launch a chunk); a checkpoint of a first chunk saved,
+loaded and resumed; ``solve_batched`` of 8 right-hand sides on the eager
+k-skip loops, each member held against its solo solve; and the
+``condition.json`` driver, ``python -m krylov_tpu_torch solve``, in a
+subprocess (phase 15, started after the build beside the untimed checks
+of phases 3-4b and read before phase 5).  It prints a JSON line of the
 kernels and last a JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
@@ -116,6 +124,16 @@ PRECOND_RUNS = [("pcg", "none", 0), ("pcg", "jacobi", 0), ("pcg", "chebyshev6", 
                 ("cacg", "none", 4), ("cacg", "none", 8), ("camrr", "none", 4), ("camrr", "none", 8)]
 PRECOND_F64 = dict(zip(PRECOND_RUNS, [(1053, 1053), (1053, 1053), (190, 190), (1053, 1053), (1053, 1053),
                                       (1053, 1053), (1056, 264), (1056, 132), (937, 235), (937, 118)]))
+# Phase 12, chunked exact continuation on the main-path system in float64:
+# (method, k) and the iterations of the unbroken solve (the f64 counts of
+# phases 5, 5b and 11), which every chunked solve must take
+CHUNK_RUNS = {("cg", 0): 1053, ("mrr", 0): 934, ("kskipcg", 4): 1055, ("kskipmrr", 4): 936,
+              ("adaptivekskipmrr", 8): 937, ("cacg", 4): 1056, ("camrr", 4): 937}
+CHUNK_ITERS = 250
+# chunked against unbroken eager solves: the same loop bodies on the same
+# values, but a chunk's last residual is its final ||r||, where the
+# unbroken solve records the recurred one
+CHUNK_RTOL = 1e-10
 SEEDS = (1, 2, 3)  # fresh b of the timed comparisons
 KSKIP_ROUTES = ("resident", "streaming")  # K5/K6's routes, each held against the same plain run
 T0 = time.perf_counter()
@@ -847,7 +865,7 @@ class PlainChainOperator:
         return stencil.stencil_matvec_2d_reference(self.A.coef, x, stencil=self.A.stencil, grid=self.A.grid)
 
 
-def preconditioned(ops, b_np, A_csr, stencil) -> int:
+def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
     """11. The preconditioned, pipelined and CA solves of PRECOND_RUNS on
     the main-path system through solve(), on the eager loops, in float64
     (held: the JAX package's counts, PRECOND_F64, and the host float64 true
@@ -856,7 +874,8 @@ def preconditioned(ops, b_np, A_csr, stencil) -> int:
     least once an iteration.  Then eager preconditioned CG (M = None,
     float64) is timed through K1 against the same loop over K1's plain
     version (PlainChainOperator), in turns.  Returns the K1 launches of the
-    phase's solves."""
+    phase's solves and its float64 ``(x, info)`` by ``(method, k)``, which
+    phase 12 holds its chunked solves against."""
     import numpy as np
     import torch
 
@@ -866,7 +885,7 @@ def preconditioned(ops, b_np, A_csr, stencil) -> int:
     from krylov_tpu_torch.solvers import pcg_kernel
 
     f64 = torch.float64
-    total, failures = 0, []
+    total, failures, solves = 0, [], {}
     for dt in (f64, torch.float32):
         A = ops[dt]
         t0 = time.perf_counter()
@@ -879,6 +898,8 @@ def preconditioned(ops, b_np, A_csr, stencil) -> int:
             x, info = krylov_tpu_torch.solve(A, b_np, method=m, M=Ms[p], k=k, tol=TOL, maxiter=MAXITER)
             launches = stencil.stencil_matvec_2d.launches
             total += launches
+            if dt == f64 and p == "none":
+                solves[m, k] = (x, info)
             outer = len(info["residual"]) - 1
             true_res = true_rel(A_csr, b_np, x)
             phase(f"solve {m} M={p}{f' k={k}' if k else ''} {dt}: iters {info['iterations']}, outer {outer}, "
@@ -907,10 +928,284 @@ def preconditioned(ops, b_np, A_csr, stencil) -> int:
         for label, v in times.items()) + " (CUDA events; runs in the order K1, plain, plain, K1)")
     if len({it for v in times.values() for _, it in v}) != 1:
         raise AssertionError(f"eager pcg through K1 and through its plain version took other counts: {times}")
+    return total, solves
+
+
+def chunked(A, b_np, A_csr, fused, fused_kskip, stencil, unbroken: dict) -> dict:
+    """12. ``solve(chunk_iters=CHUNK_ITERS)`` on the main-path system in
+    float64.  The carry methods of CHUNK_RUNS chunk exactly on their eager
+    loops: each is held against its unbroken eager solve (fused=False) on
+    the card (``unbroken``: ``(x, info)`` by ``(method, k)`` of phases 5b
+    and 11; cg and mrr run here), equal counts (CHUNK_RUNS), nosl, khistory and final k,
+    histories within CHUNK_RTOL, at least 4 chunks, the host float64 true
+    residual below tol, K1 launched (its counter set to 0 just before the
+    chunked solve and read just after).  Then fused=True chunks of cg, mrr
+    and kskipmrr k=4 warm-restart: one K2/K3/K5 launch a chunk, all
+    resident, converged below tol; their counts are printed beside the
+    unbroken ones.  Returns the launches of each kernel in the phase."""
+    import numpy as np
+
+    import krylov_tpu_torch
+
+    launches = {"K1": 0, "fused_cg_solve_2d": 0, "fused_mrr_solve_2d": 0, "fused_kskipmrr_solve_2d": 0}
+    failures = []
+    for (m, k), count in CHUNK_RUNS.items():
+        kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER)
+        if (m, k) not in unbroken:
+            unbroken[m, k] = krylov_tpu_torch.solve(A, b_np, fused=False, **kw)
+        _, whole = unbroken[m, k]
+        stencil.stencil_matvec_2d.launches = 0
+        x, info = krylov_tpu_torch.solve(A, b_np, chunk_iters=CHUNK_ITERS, **kw)
+        k1 = stencil.stencil_matvec_2d.launches
+        launches["K1"] += k1
+        true_res = true_rel(A_csr, b_np, x)
+        m_res = len(info["residual"]) == len(whole["residual"])
+        t_err = (float(np.max(np.abs(info["residual"] - whole["residual"]) / whole["residual"]))
+                 if m_res else float("inf"))
+        phase(f"chunked {m}{f' k={k}' if k else ''} float64, chunks of {CHUNK_ITERS}: iters {info['iterations']} "
+              f"(unbroken eager {whole['iterations']}), chunks {info['chunks']}, converged {info['converged']}, "
+              f"history max rel err against unbroken {t_err:.3e} (tol {CHUNK_RTOL:g}), host f64 true res "
+              f"{true_res:.6e}, K1 launches {k1}; {info['time'] * 1e3:.3f} ms a solve chunked, "
+              f"{whole['time'] * 1e3:.3f} ms unbroken (solve() wall)")
+        same = (info["iterations"] == whole["iterations"] == count and m_res
+                and np.array_equal(info["nosl"], whole["nosl"])
+                and np.array_equal(info.get("khistory"), whole.get("khistory"))
+                and info.get("final_k") == whole.get("final_k"))
+        if not same:
+            failures.append(f"chunked {m}: {info['iterations']} iterations, unbroken {whole['iterations']}, "
+                            f"want {count}, or nosl/khistory/final k differ")
+        elif not t_err <= CHUNK_RTOL:
+            failures.append(f"chunked {m}: history differs from the unbroken solve by {t_err:.3e}")
+        if not (info["converged"] and info["chunks"] >= 4 and true_res < TOL and k1 >= info["iterations"]):
+            failures.append(f"chunked {m}: converged {info['converged']}, {info['chunks']} chunks, true res "
+                            f"{true_res:.3e}, {k1} K1 launches")
+    counted = {"cg": fused.fused_cg_solve_2d, "mrr": fused.fused_mrr_solve_2d,
+               "kskipmrr": fused_kskip.fused_kskipmrr_solve_2d}
+    for m, fn in counted.items():
+        k = 4 if m == "kskipmrr" else 0
+        reset((fn, stencil.stencil_matvec_2d))
+        x, info = krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=TOL, maxiter=MAXITER, chunk_iters=CHUNK_ITERS,
+                                         fused=True)
+        res, stream = fn.launches_resident, fn.launches_streaming
+        launches[fn.__name__] += res + stream
+        launches["K1"] += stencil.stencil_matvec_2d.launches
+        true_res = true_rel(A_csr, b_np, x)
+        phase(f"chunked {m}{f' k={k}' if k else ''} float64 fused=True (warm restarts), chunks of {CHUNK_ITERS}: "
+              f"iters {info['iterations']} (unbroken {CHUNK_RUNS[m, k]}), chunks {info['chunks']}, converged "
+              f"{info['converged']}, host f64 true res {true_res:.6e}, {fn.__name__} launches (resident, streaming) "
+              f"({res}, {stream}), K1 launches (x0 shifts) {stencil.stencil_matvec_2d.launches}; "
+              f"{info['time'] * 1e3:.3f} ms a solve")
+        if not (res == info["chunks"] and stream == 0 and info["converged"] and true_res < TOL):
+            failures.append(f"fused chunks {m}: {res} resident and {stream} streaming launches for "
+                            f"{info['chunks']} chunks, converged {info['converged']}, true res {true_res:.3e}")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 12", failures)
+    return launches
+
+
+def checkpoint_phase(A, b_np, A_csr, fused_kskip) -> int:
+    """13. ``checkpoint.save`` of the first chunk of an adaptive k-skip MrR
+    solve (k=8, eager, CHUNK_ITERS iterations) into a temporary directory,
+    ``load``, then ``resume`` on the card (the fused route: K5 after K1's
+    x0 shift): the file holds the five keys of the JAX package's layout,
+    the resumed solve converges with the host float64 true residual below
+    tol.  Returns K5's launches in the phase."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import checkpoint
+
+    kw = dict(method="adaptivekskipmrr", k=8, tol=TOL)
+    x1, info1 = krylov_tpu_torch.solve(A, b_np, maxiter=CHUNK_ITERS, fused=False, **kw)
+    reset((fused_kskip.fused_kskipmrr_solve_2d,))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chunk.npz")
+        checkpoint.save(path, x1, info1, method="adaptivekskipmrr")
+        with np.load(path) as z:
+            keys = sorted(z.files)
+        x_saved, state = checkpoint.load(path)
+        x, info = checkpoint.resume(A, b_np, path, maxiter=MAXITER, **kw)
+    launches = fused_kskip.fused_kskipmrr_solve_2d.launches
+    true_res = true_rel(A_csr, b_np, x)
+    phase(f"checkpoint: first chunk {info1['iterations']} iterations (true res {true_rel(A_csr, b_np, x1):.6e}), "
+          f"keys {keys}; resumed from {state['meta']['iterations']}: iters {info['iterations']}, converged "
+          f"{info['converged']}, final k {info.get('final_k')}, host f64 true res {true_res:.6e}, x on {x.device}, "
+          f"K5 launches {launches}")
+    if keys != sorted(["x", "residual", "nosl", "khistory", "meta_json"]) or not np.array_equal(
+            x_saved, x1.cpu().numpy()):
+        raise AssertionError(f"checkpoint: keys {keys}, or the saved x differs from the solve's")
+    if not (info["converged"] and true_res < TOL and info["resumed_from"]["prior_iterations"] == info1["iterations"]
+            and launches >= 1):
+        raise AssertionError(f"checkpoint: the resumed solve did not converge below tol (true res {true_res:.3e}) "
+                             f"or did not run K5")
+    return launches
+
+
+def gram_orders(A, B) -> None:
+    """The Gram of a k-skip MrR basis at k = 8 (19 rows a member: the chain
+    of A on each row of ``B``, float64) summed three ways on the card: one
+    strided-batched product of the whole stack, one product per member
+    (Context.gram), and products and a sum over each entry (a tree
+    reduction); prints each entry's largest relative distance from the
+    last."""
+    import torch
+
+    V = [B]
+    for _ in range(18):
+        V.append(A.matvec(V[-1]))
+    V = torch.stack(V, -2)
+    batched = V @ V.mT
+    member = torch.stack([v @ v.T for v in V])
+    tree = torch.stack([(v[:, None, :] * v[None, :, :]).sum(-1) for v in V])
+    dist = {name: float(((g - tree).abs() / tree.abs()).max()) for name, g in (("batched", batched),
+                                                                              ("per member", member))}
+    phase(f"Gram of an (8, 19, {B.shape[-1]}) float64 Krylov stack against products and a tree sum, max rel "
+          f"distance: one strided-batched product {dist['batched']:.3e}, one product a member {dist['per member']:.3e}")
+
+
+def batched_kskip(A, A_csr, hyb, dev, stencil) -> int:
+    """14. solve_batched of NRHS right-hand sides (seed 21, float64) on the
+    eager k-skip loops (fused=False) of the main-path stencil: kskipcg k=4,
+    kskipmrr k=4 and adaptive k=8, then kskipmrr k=4 on the phase-9 HYB
+    (seed 22).  Each member's iterations, outer count, nosl and khistory
+    equal its solo eager solve, the host float64 true residuals are below
+    tol.  K1's counter is set to 0 before the batch
+    and before each solo solve: for the static loops the batch launches K1
+    as often as its longest member's solo solve (one launch a batched
+    SpMV); for adaptive both are printed.  Times a solve, batched against
+    the solos, with CUDA events.  Returns K1's launches of the batches."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+
+    B = torch.from_numpy(np.random.default_rng(21).standard_normal((NRHS, NX * NX))).to(dev)
+    gram_orders(A, B)
+    P, H = hyb
+    BH = torch.from_numpy(np.random.default_rng(22).standard_normal((NRHS, H.shape[0]))).to(dev)
+    total, failures = 0, []
+    for op, rhs, m, k, label in ((A, B, "kskipcg", 4, "stencil"), (A, B, "kskipmrr", 4, "stencil"),
+                                 (A, B, "adaptivekskipmrr", 8, "stencil"), (H, BH, "kskipmrr", 4, "HYB")):
+        kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER, fused=False)
+        stencil.stencil_matvec_2d.launches = 0
+        t_batch, res = cuda_ms(lambda: krylov_tpu_torch.solve_batched(op, rhs, **kw))
+        k1_batch = stencil.stencil_matvec_2d.launches
+        total += k1_batch
+        solos, k1_solo = [], []
+
+        def run_solos():
+            for b in rhs:
+                stencil.stencil_matvec_2d.launches = 0
+                solos.append(krylov_tpu_torch.solve_device(op, b, **kw))
+                k1_solo.append(stencil.stencil_matvec_2d.launches)
+
+        t_solo, _ = cuda_ms(run_solos)
+        x_rel = max(rel_err(res.x[j], s.x) for j, s in enumerate(solos))
+        phase(f"batched {m} k={k} float64 eager, {label}, {NRHS} RHS: iterations {res.iterations.tolist()} "
+              f"(solo {[int(s.iterations) for s in solos]}), "
+              f"outer {res.index.tolist()}, converged {res.converged.tolist()}"
+              + ("" if res.final_k is None else f", final k {res.final_k.tolist()}")
+              + f"; K1 launches batched {k1_batch}, longest solo {max(k1_solo)}; {t_batch / NRHS:.3f} ms a solve "
+              f"batched, {t_solo / NRHS:.3f} ms solo (CUDA events); max |x - x_solo| / max |x_solo| {x_rel:.3e}")
+        for j, s in enumerate(solos):
+            m_ = int(s.index) + 1
+            same = (int(res.iterations[j]), int(res.index[j]), bool(res.converged[j])) == (
+                int(s.iterations), int(s.index), bool(s.converged)) and torch.equal(res.nosl_trace[j, :m_],
+                                                                                   s.nosl_trace[:m_])
+            if s.k_trace is not None:
+                same = same and torch.equal(res.k_trace[j, :m_], s.k_trace[:m_]) and int(res.final_k[j]) == int(
+                    s.final_k)
+            if not (same and bool(s.converged)):
+                failures.append(f"batched {m} {label} member {j}: counts or traces differ from its solo solve")
+        true_res = max(true_rel(P if label == "HYB" else A_csr, rhs[j].cpu().numpy(), res.x[j]) for j in range(NRHS))
+        if not true_res < TOL:
+            failures.append(f"batched {m} {label}: host true residual {true_res:.3e}")
+        if label == "stencil" and m != "adaptivekskipmrr" and k1_batch != max(k1_solo):
+            failures.append(f"batched {m}: {k1_batch} K1 launches, the longest solo solve {max(k1_solo)}")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 14", failures)
     return total
 
 
+def start_cli(tmp: str):
+    """15, started: ``python -m krylov_tpu_torch solve --config
+    condition.json`` in a subprocess on the main-path system (k-skip MrR
+    k=4, float64, chunks of CHUNK_ITERS, ``"b": "random"``, the main
+    path's b), its solution saved under ``tmp``.  It runs beside phases
+    3-4b, which time nothing they hold; :func:`cli_phase` waits for it
+    before phase 5.  Returns ``(process, start time, solution path)``."""
+    import os
+
+    out, cfg_path = os.path.join(tmp, "x.npz"), os.path.join(tmp, "condition.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"matrix": {"fixture": "laplace2d", "n": NX, "constant": True}, "b": "random",
+                   "method": "kskipmrr", "k": 4, "dtype": "float64", "chunk_iters": CHUNK_ITERS, "out": out}, f)
+    proc = subprocess.Popen([sys.executable, "-m", "krylov_tpu_torch", "solve", "--config", cfg_path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter(), out
+
+
+def cli_phase(run, A_csr) -> None:
+    """15. The driver run of :func:`start_cli`: exit code 0, the saved
+    iterate loads with 936 iterations and the host float64 true residual
+    below tol.  Then ``info`` on the same fixture, in this process."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from krylov_tpu_torch import checkpoint, cli
+
+    proc, t0, out = run
+    stdout, stderr = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t0
+    phase("  " + "\n  ".join(stdout.strip().splitlines()))
+    if proc.returncode != 0:
+        phase(stderr[-4000:])
+        raise AssertionError(f"python -m krylov_tpu_torch solve exited {proc.returncode}")
+    x, state = checkpoint.load(out)
+    b = np.random.default_rng(0).standard_normal(NX * NX)
+    true_res = float(np.linalg.norm(b - A_csr @ x) / np.linalg.norm(b))
+    phase(f"cli solve: exit 0, {wall:.2f} s from its start (subprocess wall, beside phases 3-4b), "
+          f"{state['meta']['iterations']} iterations, converged {state['meta']['converged']}, "
+          f"{len(state['nosl'])} trace entries, host f64 true res {true_res:.6e}")
+    if state["meta"]["iterations"] != 936 or not true_res < TOL:
+        raise AssertionError(f"cli solve: {state['meta']['iterations']} iterations (want 936), true res {true_res:.3e}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["info", "--fixture", "laplace2d", "--n", str(NX)])
+    report = json.loads(buf.getvalue())
+    phase(f"cli info: exit {rc}, {json.dumps(report)}")
+    if rc != 0 or report["container"] != "StencilMatrix" or report["shape"] != [NX * NX, NX * NX]:
+        raise AssertionError(f"cli info: exit {rc}, report {report}")
+
+
 def main() -> int:
+    """:func:`smoke`, then the driver subprocess of phase 15 stopped if it
+    still runs (a phase before its check failed) and its directory
+    removed."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    started = []
+    try:
+        return smoke(tmp, started)
+    finally:
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def smoke(tmp: str, started: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -939,6 +1234,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     phase(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.nvcc()}, {' '.join(_build.FLAGS)})")
+
+    mark("15 cli, started")
+    cli_run = start_cli(tmp)
+    started.append(cli_run[0])
 
     mark("3 K1")
     # 3. K1 against its plain version, on the main-path grid in both forms,
@@ -1038,6 +1337,10 @@ def main() -> int:
                     failures.append(f"the advection case did not roll back ({route}, {name}, seed {seed})")
     raise_failures("phase 4b", failures)
 
+    A_csr = laplace2d_csr_f64(NX)
+    mark("15 cli")
+    cli_phase(cli_run, A_csr)
+
     mark("5 main path")
     # 5. the main path through solve(), counters from this run only
     b_np = np.random.default_rng(0).standard_normal(NX * NX)
@@ -1058,7 +1361,6 @@ def main() -> int:
     if any(res < 1 or stream for res, stream in routes.values()):
         raise AssertionError(f"the main path did not run K2/K3 on the resident route alone: {routes}")
 
-    A_csr = laplace2d_csr_f64(NX)
     refs = {"mrr": numpy_mrr(A_csr, b_np, TOL, MAXITER), "cg": numpy_cg(A_csr, b_np, TOL, MAXITER),
             "mrr warm": numpy_mrr(A_csr, b_np, TOL, MAXITER, x0=x0_np)}
     b_nrm = np.linalg.norm(b_np)
@@ -1293,7 +1595,14 @@ def main() -> int:
     mark("10 row 4b")
     row4b(dev)
     mark("11 preconditioned, pipelined and CA")
-    k1_launches = preconditioned(ops, b_np, A_csr, stencil)
+    k1_launches, unbroken = preconditioned(ops, b_np, A_csr, stencil)
+    unbroken.update({(m, k): kres[m + " eager", f64] for m, k in KSKIP_RUNS.items()})
+    mark("12 chunked")
+    chunk_launches = chunked(ops[f64], b_np, A_csr, fused, fused_kskip, stencil, unbroken)
+    mark("13 checkpoint")
+    ckpt_launches = checkpoint_phase(ops[f64], b_np, A_csr, fused_kskip)
+    mark("14 batched k-skip")
+    k1_launches += chunk_launches["K1"] + batched_kskip(ops[f64], A_csr, hyb, dev, stencil)
     mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer
@@ -1309,17 +1618,22 @@ def main() -> int:
 
     res_src, str_src = "krylov_tpu_torch/kernels/csrc/fused_resident.cu", "krylov_tpu_torch/kernels/csrc/fused.cu"
     kernels = [
-        # K1's launches: those of phase 11, the eager path it carries (the
-        # fused main path of phase 5 launched it for the warm start alone)
+        # K1's launches: those of the eager paths it carries, phases 11, 12
+        # and 14 (the fused main path of phase 5 launched it for the warm
+        # start alone); each path's counts run from 0, and the resident
+        # K2/K3/K5 entries add the fused chunks of phase 12 (K5 also the
+        # resume of phase 13) to the main path's launches
         entry("stencil_matvec_2d", "krylov_tpu_torch/kernels/csrc/stencil.cu", "krylov_tpu/kernels/stencil.py:89",
               k1_launches, k1_err, spmv[f64][0], spmv[f64][1], k1_bound, conv[f64][0]),
         entry("fused_mrr_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:344",
-              routes["fused_mrr_solve_2d"][0], k23_err["mrr", f64], ms["mrr", f64][0], ms["mrr", f64][1],
+              routes["fused_mrr_solve_2d"][0] + chunk_launches["fused_mrr_solve_2d"], k23_err["mrr", f64],
+              ms["mrr", f64][0], ms["mrr", f64][1],
               k23_bound["mrr", f64]),
         entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344", stream["mrr"][0],
               stream["mrr"][1], stream["mrr"][2], stream["mrr"][3], stream["mrr"][4]),
         entry("fused_cg_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:259",
-              routes["fused_cg_solve_2d"][0], k23_err["cg", f64], ms["cg", f64][0], ms["cg", f64][1],
+              routes["fused_cg_solve_2d"][0] + chunk_launches["fused_cg_solve_2d"], k23_err["cg", f64],
+              ms["cg", f64][0], ms["cg", f64][1],
               k23_bound["cg", f64]),
         entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259", stream["cg"][0],
               stream["cg"][1], stream["cg"][2], stream["cg"][3], stream["cg"][4]),
@@ -1330,6 +1644,8 @@ def main() -> int:
                                  ("kskipcg", "fused_kskipcg_solve_2d", 629, ("kskipcg", 4))):
         for route in KSKIP_ROUTES:
             launches = kroutes[fn][0] if route == "resident" else kstream[fn]
+            if route == "resident" and fn == "fused_kskipmrr_solve_2d":  # the fused chunks and the resume
+                launches += chunk_launches[fn] + ckpt_launches
             err = max(kerr[m, 4, "float64", route], kerr[(*witness, "float64", route)])
             kernels.append(entry(f"{fn} {route}", kskip_src[route], f"krylov_tpu/kernels/fused_kskip.py:{line}",
                                  launches, err, kms[m, 4, "float64", route], kms[m, 4, "float64", "plain"], kbound[m]))

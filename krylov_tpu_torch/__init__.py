@@ -5,7 +5,9 @@ the preconditioned and pipelined CG family (with the Jacobi and Chebyshev
 preconditioners of :mod:`krylov_tpu_torch.precond`) and the Chebyshev-basis
 CA-CG and CA-MrR, on stencil, banded, ELL, HYB and dense operators (scipy, numpy and torch
 inputs convert at the front door), with device-side restarts, host-float64
-refinement and batched right-hand sides.  2-D/3-D stencil systems run the
+refinement, batched right-hand sides, chunked solves that carry the loops'
+state exactly (``chunk_iters=``), checkpoints (:mod:`krylov_tpu_torch.checkpoint`)
+and the ``condition.json`` driver (``python -m krylov_tpu_torch``).  2-D/3-D stencil systems run the
 whole solve in one hand-written CUDA kernel on a CUDA device
 (``kernels/csrc``), or through the kernels' plain PyTorch versions on the
 CPU; other methods and operators run eager loops, whose stencil SpMV on

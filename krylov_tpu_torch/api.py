@@ -13,7 +13,8 @@ methods, other operators, a preconditioner ``M``, ``fused=False``,
 ``basis_norm=True`` or a wider ``scalar_dtype`` take the eager loops of
 :mod:`.solvers`, whose stencil SpMV on the card is K1.  ``restarts=``
 appends device-side defect corrections to a solve, ``refine=``
-host-float64 iterative refinement.
+host-float64 iterative refinement, ``chunk_iters=`` splits it into bounded
+chunks that carry the loops' state exactly.
 """
 
 from __future__ import annotations
@@ -79,6 +80,11 @@ _KSKIP_METHODS = ("kskipcg", "kskipmrr", "adaptivekskipmrr")
 _CACG_METHODS = ("cacg", "camrr")
 _PRECONDITIONED_METHODS = ("pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
 _FUSED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
+# methods whose eager loops take carry_in/emit_carry: chunk_iters is exact
+# for them
+_CARRY_METHODS = ("cg", "mrr", *_KSKIP_METHODS, *_CACG_METHODS)
+# methods whose eager loops run a (batch, n) block as one loop
+_BATCHED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
 
 
 def _check_options(method: str, mesh=None, M=None, spectral_bounds=None) -> None:
@@ -203,16 +209,21 @@ def _prepare(A, b, x0, maxiter):
 
 
 def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M=None,
-              bounds=None) -> SolveResult:
+              bounds=None, carry=None) -> SolveResult:
     """One solve: the fused kernels, or the eager loop of ``method`` with
     the options it reads (``k``/``basis_norm``; ``s = max(k, 1)`` and the
-    resolved ``bounds``; ``M``)."""
+    resolved ``bounds``; ``M``).  ``carry`` (eager loops of
+    ``_CARRY_METHODS`` only): ``None`` runs the loop as it is; a pair
+    ``(state, valid)`` resumes from ``state`` when ``valid``, and the
+    result then carries the loop's state after it in ``result.carry``."""
     if use_fused:
         return _run_fused(A, b, x0, tol, method, maxiter, k)
     ctx = Context(scalar_dtype=scalar_dtype)
     if x0 is None:
         x0 = torch.zeros_like(b)
     kw = dict(tol=tol, maxiter=maxiter, ctx=ctx)
+    if carry is not None:
+        kw.update(carry_in=carry, emit_carry=True)
     if method in _KSKIP_METHODS:
         kw.update(k=k, basis_norm=basis_norm)
     elif method in _CACG_METHODS:
@@ -254,6 +265,66 @@ def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basi
     true_final = torch.linalg.vector_norm(b - A.matvec(x)) / b_norm
     return dataclasses.replace(result, x=x, iterations=iters, converged=true_final < tol_t,
                                true_residual=true_final)
+
+
+def _solve_chunked(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M, bounds,
+                   chunk_iters: int):
+    """A solve in chunks of ``chunk_iters`` iterations, as
+    :func:`krylov_tpu.api._solve_chunked`; returns the last chunk's
+    :class:`SolveResult` and the merged ``info``.
+
+    Without ``use_fused`` (the caller's ``fused=True``) the methods of
+    ``_CARRY_METHODS`` chunk on their eager loops, each chunk resuming from
+    the state the one before left (``carry_in``/``emit_carry``), so the
+    iterations are exactly those of the unbroken eager solve.  The others,
+    and fused chunks (one K2/K3/K5/K6 launch each, shifted to ``x0 = x``
+    through K1), warm-restart from the iterate.  A chunk always
+    runs whole, so the last may overshoot ``maxiter`` by up to
+    ``chunk_iters - 1``.  The solve stops on convergence, at ``maxiter``,
+    on a chunk without progress or on a non-finite residual.  ``time``
+    sums the chunks (each between device synchronisations), the traces
+    concatenate, and ``info["chunks"]`` counts the chunks.  The iterate
+    stays on the device between chunks.  ``valid`` is a host bool, so the
+    first chunk runs from ``x0`` with an invalid carry and no zero state
+    is built."""
+    exact = method in _CARRY_METHODS and not use_fused
+    carry = (None, False) if exact else None
+    x_cur, merged, iters_done, chunks = x0, None, 0, 0
+    on_cuda = b.is_cuda
+    while True:
+        if on_cuda:
+            torch.cuda.synchronize(b.device)
+        t0 = time.perf_counter()
+        result = _run_base(A, b, x_cur, tol, method, chunk_iters, k, scalar_dtype, use_fused, basis_norm, M,
+                           bounds, carry)
+        if on_cuda:
+            torch.cuda.synchronize(b.device)
+        seg = build_info(result, time.perf_counter() - t0)
+        if exact:
+            carry = (result.carry, True)
+            result = dataclasses.replace(result, carry=None)
+        chunks += 1
+        if merged is None:
+            merged = seg
+        else:
+            merged["time"] += seg["time"]
+            merged["nosl"] = np.concatenate([merged["nosl"], seg["nosl"][1:] + merged["nosl"][-1]])
+            merged["residual"] = np.concatenate([merged["residual"], seg["residual"][1:]])
+            if "khistory" in merged and "khistory" in seg:
+                merged["khistory"] = np.concatenate([merged["khistory"], seg["khistory"][1:]])
+            if "final_k" in seg:
+                merged["final_k"] = seg["final_k"]
+            if seg.get("residual_truncated"):
+                merged["residual_truncated"] = True
+            merged["iterations"] += seg["iterations"]
+            merged["converged"] = seg["converged"]
+        iters_done += seg["iterations"]
+        x_cur = result.x
+        if (seg["converged"] or iters_done >= maxiter or seg["iterations"] == 0
+                or not np.isfinite(seg["residual"][-1])):
+            break
+    merged["chunks"] = chunks
+    return result, merged
 
 
 def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
@@ -345,10 +416,15 @@ def solve(
     A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
-    if chunk_iters is not None and chunk_iters < maxiter_eff:
-        raise NotImplementedError(
-            "chunk_iters= below maxiter waits for the port of chunked exact continuation (ROADMAP queue 1, item 10)"
-        )
+    chunked = chunk_iters is not None and chunk_iters < maxiter_eff
+    if chunked:
+        if chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
+        if restarts:
+            raise ValueError(
+                "chunk_iters= and restarts= are mutually exclusive (restarts already re-dispatches; "
+                "chunk the outer solve OR defect-correct, not both)"
+            )
     if verbose:
         start_banner(_METHOD_NAMES[method], k if method in _KSKIP_METHODS else None)
 
@@ -358,16 +434,20 @@ def solve(
         _build.library()  # the fused kernels, or K1 for the eager loops
         compile_time = _build.build_seconds
     bounds = _resolve_bounds(A, method, spectral_bounds)  # set-up, before the timed solve
-    if on_cuda:
-        torch.cuda.synchronize(A.device)
-    t0 = time.perf_counter()
-    result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
-                         restarts, M, bounds)
-    if on_cuda:
-        torch.cuda.synchronize(A.device)
-    elapsed = time.perf_counter() - t0
-
-    info = build_info(result, elapsed)
+    if chunked:
+        # the chunks run fused only where the caller forced it: the carry
+        # methods chunk exactly on their eager loops otherwise
+        result, info = _solve_chunked(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, fused is True,
+                                      basis_norm_eff, M, bounds, chunk_iters)
+    else:
+        if on_cuda:
+            torch.cuda.synchronize(A.device)
+        t0 = time.perf_counter()
+        result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
+                             restarts, M, bounds)
+        if on_cuda:
+            torch.cuda.synchronize(A.device)
+        info = build_info(result, time.perf_counter() - t0)
     if compile_time:
         info["compile_time"] = compile_time
     x = result.x
@@ -434,11 +514,14 @@ def solve_batched(
 
     On the fused route the members run one fused kernel each, back to back
     on one stream with no host sync in between (the JAX package's
-    ``lax.map``).  On the eager route CG and MrR run the whole batch as one
-    loop over ``(batch, N)`` blocks, each member freezing on its own (the
-    JAX package's ``vmap``), through one K1 launch an SpMV on a stencil
-    operator on the card; the other methods run member by member, with the
-    spectral bounds of ``cacg``/``camrr`` resolved once."""
+    ``lax.map``).  On the eager route CG, MrR and the k-skip family run the
+    whole batch as one loop over ``(batch, N)`` blocks, each member
+    freezing on its own (the JAX package's ``vmap``), through one K1 launch
+    an SpMV on a stencil operator on the card; the adaptive loop reads the
+    guard of the whole batch at once and steps its members grouped by
+    their current k.  The preconditioned, pipelined and CA methods run
+    member by member, with the spectral bounds of ``cacg``/``camrr``
+    resolved once."""
     _check_options(method, mesh, M, spectral_bounds)
     A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
     B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
@@ -454,9 +537,8 @@ def solve_batched(
     # one tolerance tensor for the whole batch, in A's dtype as the JAX
     # package casts it: the fused kernels read it without a host transfer
     tol = torch.as_tensor(tol, dtype=A.dtype, device=A.device)
-    if not use_fused and method in ("cg", "mrr"):
-        X0 = torch.zeros_like(B) if X0 is None else X0
-        return _KERNELS[method](A, B, X0, tol=tol, maxiter=maxiter, ctx=Context(scalar_dtype=scalar_dtype))
+    if not use_fused and method in _BATCHED_METHODS:
+        return _run_base(A, B, X0, tol, method, maxiter, k, scalar_dtype, False, basis_norm)
     bounds = _resolve_bounds(A, method, spectral_bounds)
     members = [
         _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, use_fused,

@@ -3,9 +3,11 @@
 The counterpart of :class:`krylov_tpu.context.Context` with ``axis=None``:
 reductions are plain tensor ops.  ``scalar_dtype`` widens the *operands*
 of every inner product (not just the result), so the products themselves
-are exact to the wide precision.  ``dot`` and ``norm`` reduce over the last
-axis, so a ``(batch, n)`` block gives one value per member.  The mesh form (``psum`` over a device
-axis) waits for the distributed port (ROADMAP queue 1, item 11).
+are exact to the wide precision.  ``dot``, ``norm`` and ``gram`` take a
+leading batch axis and reduce each member as a solo solve does, so a
+batched member's inner products are its solo ones bit for bit.  The mesh
+form (``psum`` over a device axis) waits for the distributed port
+(ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -32,8 +34,12 @@ class Context:
         return v.to(self.scalar_dtype) if self.scalar_dtype is not None else v
 
     def dot(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """``<u, v>``; on ``(batch, n)`` blocks one product per member, the
+        solo solve's own reduction, as :meth:`gram`."""
         u, v = self._wide(u), self._wide(v)
-        return torch.dot(u, v) if u.ndim == 1 else (u * v).sum(-1)
+        if u.ndim == 1:
+            return torch.dot(u, v)
+        return torch.stack([torch.dot(a, c) for a, c in zip(u, v)])
 
     def norm(self, u: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self.dot(u, u))
@@ -43,8 +49,17 @@ class Context:
         return torch.stack([self.dot(u, v) for u, v in pairs])
 
     def gram(self, B: torch.Tensor) -> torch.Tensor:
-        """(m, m) inner products of the rows of ``B``."""
+        """(m, m) inner products of the rows of ``B``; a ``(batch, m, n)``
+        stack gives ``(batch, m, m)``, one product per member: the solo
+        solve's own product, so each member's Gram is the solo one bit for
+        bit.  One strided-batched product sums the long inner products in
+        another order, and the k-skip recurrences amplify that rounding
+        (about 1e12-fold at k = 8): on the card it changed the counts of
+        batched adaptive k=8 members against their solo solves, as the
+        inner products of :meth:`dot` summed in a batched reduction did."""
         Bw = self._wide(B)
+        if Bw.ndim == 3:
+            return torch.stack([self._rows_dot(m, m) for m in Bw])
         return self._rows_dot(Bw, Bw)
 
     def cross_gram(self, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:

@@ -31,11 +31,14 @@ from krylov_tpu_torch import precond
 from krylov_tpu_torch.kernels import stencil
 from krylov_tpu_torch.sparse import fixtures
 
-# (method, k, dtype, scalar dtype): pcg as the control; the float32 k-skip
-# loops, whose Gram is a float32 matrix product; the CA solves in float64
-# and float32 (the float32 ones roll back on this system)
+# (method, k, dtype, scalar dtype): pcg as the control; the k-skip loops
+# (float32: their Gram is a float32 matrix product); the CA solves in
+# float64 and float32 (the float32 ones roll back on this system)
 CASES = (
     ("pcg", 0, torch.float64, None),
+    ("kskipcg", 4, torch.float64, None),
+    ("kskipmrr", 4, torch.float64, None),
+    ("adaptivekskipmrr", 8, torch.float64, None),
     ("kskipcg", 4, torch.float32, None),
     ("kskipmrr", 4, torch.float32, None),
     ("cacg", 4, torch.float64, None),

@@ -113,6 +113,19 @@ class SolveResult:
     # True when the fused path ran past its trace capacity and the tail of
     # the history was overwritten in the last slot (None off that path).
     trace_truncated: Optional[torch.Tensor] = None
+    # the loop's state after its last iteration, with ``emit_carry=True``:
+    # passed back as ``carry_in=(carry, True)``, the next chunk resumes the
+    # recurrence exactly (``solve(chunk_iters=)``; None otherwise)
+    carry: Optional[tuple] = None
+
+
+def carried(carry_in):
+    """The state of ``carry_in=(state, valid)`` when ``valid`` (a host
+    bool), else None: the loop then starts from ``x0``."""
+    if carry_in is None:
+        return None
+    state, valid = carry_in
+    return state if valid else None
 
 
 def scalar_dtype_of(ctx, b: torch.Tensor) -> torch.dtype:

@@ -23,8 +23,14 @@ The small products of the s steps and the recovery combinations multiply
 and sum elementwise, and the Gram goes through
 :meth:`~krylov_tpu_torch.context.Context.gram`, so a float32 solve on the
 card does not depend on ``torch.backends.cuda.matmul.allow_tf32`` (the JAX
-package pins ``Precision.HIGHEST``).  ``carry_in``/``emit_carry`` are not
-ported yet (ROADMAP queue 1, item 10).
+package pins ``Precision.HIGHEST``).
+
+``carry_in=(state, valid)`` (``valid`` a host bool) resumes from a
+previous chunk's ``result.carry``: ``(x, r, p, x_best, res_best)`` for
+cacg, ``(x, r, y, z, x_best, res_best)`` for camrr, so the guard's best
+iterate crosses the chunk boundary; camrr then skips its half-step and
+starts its counts at 0.  ``emit_carry=True`` returns the state after the
+loop (before the best-iterate exit).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
     SolveResult,
+    carried,
     record_final,
     safe_div,
     scalar_dtype_of,
@@ -142,9 +149,11 @@ def _read_guard(res, res_best, x, x_best, tol):
     return bad, conv, x_best, res_best
 
 
-def _best_exit(ctx, b_norm, x, r, x_best, res_best, conv: bool, i: int, index: int, rtrace, ntrace) -> SolveResult:
+def _best_exit(ctx, b_norm, x, r, x_best, res_best, conv: bool, i: int, index: int, rtrace, ntrace,
+               carry=None) -> SolveResult:
     """On exhaustion the best iterate, never a diverged one; the final
-    residual written unless converged."""
+    residual written unless converged.  ``carry`` is the loop's state for
+    ``emit_carry``."""
     dev = x.device
     conv = torch.tensor(conv, device=dev)
     index = torch.tensor(index, device=dev)
@@ -153,7 +162,7 @@ def _best_exit(ctx, b_norm, x, r, x_best, res_best, conv: bool, i: int, index: i
     x = torch.where(use_best, x_best, x)
     record_final(rtrace, index, conv, torch.where(use_best, res_best, final_res))
     return SolveResult(x=x, residual_trace=rtrace, nosl_trace=ntrace, iterations=torch.tensor(i, device=dev),
-                       index=index, converged=conv)
+                       index=index, converged=conv, carry=carry)
 
 
 def _check_s(s: int) -> None:
@@ -162,7 +171,8 @@ def _check_s(s: int) -> None:
 
 
 def cacg_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin: float = 0.0, lmax: float = 0.0,
-                basis: str = "chebyshev", ctx: Context = DEFAULT_CONTEXT) -> SolveResult:
+                basis: str = "chebyshev", ctx: Context = DEFAULT_CONTEXT, carry_in=None,
+                emit_carry: bool = False) -> SolveResult:
     """CA-CG: chains ``P = [rho_0(A) p .. rho_s(A) p]`` and ``R =
     [rho_0(A) r .. rho_{s-1}(A) r]`` (2s - 1 SpMVs), one Gram, s CG steps
     on ``(2s + 1)``-long coefficient vectors, then ``x += x̂ V``,
@@ -176,10 +186,14 @@ def cacg_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin: 
     b_norm = ctx.norm(b)
     T = torch.as_tensor(T_np, dtype=sdt, device=dev)
 
-    x = x_best = x0
-    r = b - ctx.matvec(A, x0)
-    p = r
-    res_best = torch.tensor(float("inf"), dtype=sdt, device=dev)
+    state = carried(carry_in)
+    if state is not None:
+        x, r, p, x_best, res_best = state
+    else:
+        x = x_best = x0
+        r = b - ctx.matvec(A, x0)
+        p = r
+        res_best = torch.tensor(float("inf"), dtype=sdt, device=dev)
     max_outer = -(-maxiter // s)
     rtrace = torch.zeros(max_outer + 1, dtype=sdt, device=dev)
     ntrace = torch.zeros(max_outer + 1, dtype=torch.int32, device=dev)
@@ -218,11 +232,13 @@ def cacg_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin: 
         p = _combine(p_hat, V)
         r = b - ctx.matvec(A, x)  # residual replacement
 
-    return _best_exit(ctx, b_norm, x, r, x_best, res_best, conv, i, index, rtrace, ntrace)
+    return _best_exit(ctx, b_norm, x, r, x_best, res_best, conv, i, index, rtrace, ntrace,
+                      (x, r, p, x_best, res_best) if emit_carry else None)
 
 
 def camrr_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin: float = 0.0, lmax: float = 0.0,
-                 basis: str = "chebyshev", ctx: Context = DEFAULT_CONTEXT) -> SolveResult:
+                 basis: str = "chebyshev", ctx: Context = DEFAULT_CONTEXT, carry_in=None,
+                 emit_carry: bool = False) -> SolveResult:
     """CA-MrR: after MrR's initial half-step, chains from ``r`` and ``y``
     (s + 1 columns each, 2s SpMVs) plus ``z`` as one more basis column,
     one Gram, s MrR steps on ``(2s + 3)``-long coefficient vectors
@@ -252,17 +268,22 @@ def camrr_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin:
         y, z = scale(zeta, Ar), scale(-zeta, r0)
         return (x_from - z, r0 - y, y, z), r0
 
-    (x, r, y, z), r_start = half_step(x0)
-    x_best = x
-    res_best = torch.tensor(float("inf"), dtype=sdt, device=dev)
     max_outer = 1 + -(-maxiter // s)
     rtrace = torch.zeros(max_outer + 1, dtype=sdt, device=dev)
     ntrace = torch.zeros(max_outer + 1, dtype=torch.int32, device=dev)
-    rtrace[0] = ctx.norm(r_start) / b_norm
-    ntrace[1] = 1
-    i = index = 1
+    state = carried(carry_in)
+    if state is not None:
+        x, r, y, z, x_best, res_best = state
+        i = index = 0
+    else:
+        (x, r, y, z), r_start = half_step(x0)
+        x_best = x
+        res_best = torch.tensor(float("inf"), dtype=sdt, device=dev)
+        rtrace[0] = ctx.norm(r_start) / b_norm
+        ntrace[1] = 1
+        i = index = 1
     conv = False
-    for _ in range(max(0, -(-(maxiter - 1) // s))):  # while i < maxiter, i = 1 + step * s
+    for _ in range(max(0, -(-(maxiter - i) // s))):  # while i < maxiter, i = i0 + step * s
         V = torch.stack(_chain(ctx, A, r, s + 1, cheb, d, c) + _chain(ctx, A, y, s + 1, cheb, d, c) + [z])
         G = ctx.gram(V)  # one Gram an outer iteration
 
@@ -295,4 +316,5 @@ def camrr_kernel(A, b, x0, *, tol: float = 1e-5, maxiter: int, s: int = 4, lmin:
         y, z = _combine(y_hat, V), _combine(z_hat, V)
         r = b - ctx.matvec(A, x)  # residual replacement
 
-    return _best_exit(ctx, b_norm, x, r, x_best, res_best, conv, i, index, rtrace, ntrace)
+    return _best_exit(ctx, b_norm, x, r, x_best, res_best, conv, i, index, rtrace, ntrace,
+                      (x, r, y, z, x_best, res_best) if emit_carry else None)

@@ -9,6 +9,11 @@ convergence on ``||r||/||b|| < tol`` checked before the update.
 then runs as one loop over ``(batch, n)`` blocks, each member with its own
 counters, trace row and convergence point, as ``jax.vmap`` of the JAX
 solver gives them.
+
+``carry_in=((x, r, p, gamma), valid)`` resumes the recurrence exactly from
+a previous chunk's ``result.carry`` when the host bool ``valid`` is true;
+``emit_carry=True`` returns the state after the loop in ``result.carry``
+(``solve(chunk_iters=)``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
     SYNC_EVERY,
     SolveResult,
+    carried,
     record_final,
     safe_div,
     scalar_dtype_of,
@@ -30,14 +36,18 @@ from krylov_tpu_torch.solvers._common import (
 
 def cg_kernel(
     A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
-    ctx: Context = DEFAULT_CONTEXT,
+    ctx: Context = DEFAULT_CONTEXT, carry_in=None, emit_carry: bool = False,
 ) -> SolveResult:
     dev = b.device
     b_norm = ctx.norm(b)
-    x = x0
-    r = b - ctx.matvec(A, x0)
-    p = r
-    gamma = ctx.dot(r, r)
+    state = carried(carry_in)
+    if state is not None:
+        x, r, p, gamma = state
+    else:
+        x = x0
+        r = b - ctx.matvec(A, x0)
+        p = r
+        gamma = ctx.dot(r, r)
 
     batch = b.shape[:-1]
     trace = torch.zeros(batch + (maxiter + 1,), dtype=scalar_dtype_of(ctx, b), device=dev)
@@ -68,4 +78,5 @@ def cg_kernel(
         iterations=i,
         index=i,
         converged=conv,
+        carry=(x, r, p, gamma) if emit_carry else None,
     )

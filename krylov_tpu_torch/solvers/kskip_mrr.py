@@ -13,6 +13,12 @@ scalar recurrences, each with one SpMV ``Ar[1] = A r``.  ``Ar[1]`` is
 carried across outer iterations (seeded by one SpMV after the init step),
 so an outer iteration does not recompute it.  ``basis_norm=True`` scales
 the chains by powers of two as in :mod:`.kskip_cg`.
+
+``b`` and ``x0`` may carry a leading batch axis, as in :mod:`.kskip_cg`.
+``carry_in=((x, r, y, z, Ar1), valid)`` (``valid`` a host bool) resumes
+from a previous chunk's ``result.carry``, ``Ar1`` included so the chunk
+does not recompute it: the loop skips the init half-step and starts its
+update and outer counts at 0.  ``emit_carry=True`` returns that state.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
     SYNC_EVERY,
     SolveResult,
+    bcast,
+    carried,
     pow2_scale,
     record_final,
     safe_div,
@@ -33,7 +41,7 @@ from krylov_tpu_torch.solvers._common import (
     set_at,
     tree_select,
 )
-from krylov_tpu_torch.solvers.kskip_cg import inv_pow2
+from krylov_tpu_torch.solvers.kskip_cg import inv_pow2, scaled_gram
 
 
 def mrr_half_step(ctx, A, b, x_in):
@@ -54,7 +62,10 @@ def mrr_half_step(ctx, A, b, x_in):
 def mrr_step_scalars(alpha: list, beta: list, delta: list, k: int) -> list:
     """``(zeta, eta)`` of the k+1 MrR steps of one outer iteration, from
     the bundle lists (``beta[0]`` must be 0; all three are advanced in place
-    by the recurrences, which read no vector)."""
+    by the recurrences, which read no vector).  Each step advances the
+    entries ``2 <= l < 2(k - j) + 1`` together, as stacked tensors: the
+    same operations on each entry, in the same order, as one entry at a
+    time."""
 
     def coefs():
         d = alpha[2] * delta[0] - beta[1] ** 2
@@ -68,17 +79,20 @@ def mrr_step_scalars(alpha: list, beta: list, delta: list, k: int) -> list:
         delta[1] = eta**2 * delta[1] + 2 * eta * zeta * beta[2] + zeta**2 * alpha[3]
         beta[1] = eta * beta[1] + zeta * alpha[2] - delta[1]
         alpha[1] = -beta[1]
-        for l in range(2, 2 * (k - j) + 1):
-            delta[l] = eta**2 * delta[l] + 2 * eta * zeta * beta[l + 1] + zeta**2 * alpha[l + 2]
-            tau = eta * beta[l] + zeta * alpha[l + 1]
-            beta[l] = tau - delta[l]
-            alpha[l] = alpha[l] - tau - beta[l]
+        n = 2 * (k - j) + 1
+        dl, bl, al = torch.stack(delta[2:n]), torch.stack(beta[2:n + 1]), torch.stack(alpha[2:n + 2])
+        delta_n = eta**2 * dl + 2 * eta * zeta * bl[1:] + zeta**2 * al[2:]
+        tau = eta * bl[:-1] + zeta * al[1:-1]
+        beta_n = tau - delta_n
+        alpha_n = al[:-2] - tau - beta_n
+        delta[2:n], beta[2:n], alpha[2:n] = delta_n.unbind(0), beta_n.unbind(0), alpha_n.unbind(0)
         out.append(coefs())
     return out
 
 
 def _vector_step(ctx, A, sdt, zeta, eta, x, r, y, z, Ar1):
     vdt = r.dtype
+    zeta, eta = bcast(zeta, r), bcast(eta, r)
     y = (eta * y.to(sdt) + zeta * Ar1.to(sdt)).to(vdt)
     z = (eta * z.to(sdt) - zeta * r.to(sdt)).to(vdt)
     r = r - y
@@ -90,25 +104,23 @@ def kskipmrr_outer(ctx, A, k: int, basis_norm: bool, state):
     then k+1 MrR steps.  Returns ``(alpha[0], new state)``; ``alpha[0]`` is
     ``<r, r>`` of the incoming ``r``."""
     x, r, y, z, Ar1 = state
-    vdt, dev = r.dtype, r.device
     sdt = scalar_dtype_of(ctx, r)
     if basis_norm:
         # unit-scale chains with their cumulative power-of-two scales; the
         # rescaled Gram equals the Gram of the true bases exactly
         s2 = ctx.dot_bundle([(r, r), (Ar1, Ar1), (y, y)])
         s_r0, s_r1, s_y0 = (pow2_scale(torch.sqrt(s2[j])) for j in range(3))
-        Vr, Vy = [r * inv_pow2(s_r0, vdt), Ar1 * inv_pow2(s_r1, vdt)], [y * inv_pow2(s_y0, vdt)]
+        Vr, Vy = [r * inv_pow2(s_r0, r), Ar1 * inv_pow2(s_r1, r)], [y * inv_pow2(s_y0, r)]
         c_r, c_y = [s_r0, s_r1], [s_y0]
         for _ in range(k):
             Wr, Wy = ctx.matvec(A, Vr[-1]), ctx.matvec(A, Vy[-1])
             n2 = ctx.dot_bundle([(Wr, Wr), (Wy, Wy)])
             nr, ny = pow2_scale(torch.sqrt(n2[0])), pow2_scale(torch.sqrt(n2[1]))
-            Vr.append(Wr * inv_pow2(nr, vdt))
+            Vr.append(Wr * inv_pow2(nr, r))
             c_r.append(c_r[-1] * nr)
-            Vy.append(Wy * inv_pow2(ny, vdt))
+            Vy.append(Wy * inv_pow2(ny, r))
             c_y.append(c_y[-1] * ny)
-        cs = torch.stack(c_r + c_y)
-        G = ctx.gram(torch.stack(Vr + Vy)) * (cs[:, None] * cs[None, :])
+        G = scaled_gram(ctx, Vr + Vy, c_r + c_y)
     else:
         Ar = [r, Ar1]  # Ar[1] carried: 2k SpMVs
         for _ in range(k):
@@ -116,14 +128,12 @@ def kskipmrr_outer(ctx, A, k: int, basis_norm: bool, state):
         Ay = [y]
         for _ in range(k):
             Ay.append(ctx.matvec(A, Ay[-1]))
-        G = ctx.gram(torch.stack(Ar + Ay))
+        G = ctx.gram(torch.stack(Ar + Ay, -2))
 
     KA = k + 2  # offset of the Ay block in the stacked basis
-    alpha = [G[j // 2, j // 2 + j % 2] for j in range(2 * k + 3)]
-    beta = [torch.zeros((), dtype=sdt, device=dev)] + [
-        G[KA + j // 2, j // 2 + j % 2] for j in range(1, 2 * k + 2)
-    ]
-    delta = [G[KA + j // 2, KA + j // 2 + j % 2] for j in range(2 * k + 1)]
+    alpha = [G[..., j // 2, j // 2 + j % 2] for j in range(2 * k + 3)]
+    beta = [torch.zeros_like(alpha[0])] + [G[..., KA + j // 2, j // 2 + j % 2] for j in range(1, 2 * k + 2)]
+    delta = [G[..., KA + j // 2, KA + j // 2 + j % 2] for j in range(2 * k + 1)]
     alpha0 = alpha[0]
     for zeta, eta in mrr_step_scalars(alpha, beta, delta, k):
         state = _vector_step(ctx, A, sdt, zeta, eta, *state)
@@ -133,7 +143,7 @@ def kskipmrr_outer(ctx, A, k: int, basis_norm: bool, state):
 def kskipmrr_kernel(
     A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
     k: int = 0, ctx: Context = DEFAULT_CONTEXT, basis_norm: bool = False,
-    b_norm: Optional[torch.Tensor] = None,
+    b_norm: Optional[torch.Tensor] = None, carry_in=None, emit_carry: bool = False,
 ) -> SolveResult:
     # b_norm divides the residuals (default ||b||): the plain K5/K6 pass
     # that of the unshifted b
@@ -144,18 +154,25 @@ def kskipmrr_kernel(
     tol_t = torch.as_tensor(tol, dtype=b.dtype, device=dev)
     b_norm = ctx.norm(b) if b_norm is None else b_norm
 
-    # index grows by 1 an outer iteration, i by k+1; both start at 1
+    # index grows by 1 an outer iteration, i by k+1; both start at 1 (0
+    # with a carry)
+    batch = b.shape[:-1]
     max_index = 1 + max(0, -(-(maxiter - 1) // (k + 1))) if maxiter > 0 else 1
-    rtrace = torch.zeros(max_index + 1, dtype=sdt, device=dev)
-    ntrace = torch.zeros(max_index + 1, dtype=torch.int32, device=dev)
-    *state, r0 = mrr_half_step(ctx, A, b, x0)
-    rtrace[0] = ctx.norm(r0) / b_norm
-    ntrace[1] = 1
+    rtrace = torch.zeros(batch + (max_index + 1,), dtype=sdt, device=dev)
+    ntrace = torch.zeros(batch + (max_index + 1,), dtype=torch.int32, device=dev)
+    state = carried(carry_in)
+    if state is not None:
+        i0 = 0
+    else:
+        *state, r0 = mrr_half_step(ctx, A, b, x0)
+        rtrace[..., 0] = ctx.norm(r0) / b_norm
+        ntrace[..., 1] = 1
+        i0 = 1
 
-    i = torch.ones((), dtype=torch.int64, device=dev)
-    index = torch.ones((), dtype=torch.int64, device=dev)
-    conv = torch.zeros((), dtype=torch.bool, device=dev)
-    for step in range(max_index - 1):
+    i = torch.full(batch, i0, dtype=torch.int64, device=dev)
+    index = torch.full(batch, i0, dtype=torch.int64, device=dev)
+    conv = torch.zeros(batch, dtype=torch.bool, device=dev)
+    for step in range(max(0, -(-(maxiter - i0) // (k + 1)))):  # while i < maxiter
         alpha0, new = kskipmrr_outer(ctx, A, k, basis_norm, state)
         res = torch.sqrt(alpha0) / b_norm
         set_at(rtrace, index, res)
@@ -164,11 +181,12 @@ def kskipmrr_kernel(
         i = torch.where(conv, i, i + (k + 1))
         index = torch.where(conv, index, index + 1)
         set_at(ntrace, index, i, keep=conv)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv):
+        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
             break
 
     x, r = state[0], state[1]
     record_final(rtrace, index, conv, ctx.norm(r) / b_norm)
     return SolveResult(
         x=x, residual_trace=rtrace, nosl_trace=ntrace, iterations=i, index=index, converged=conv,
+        carry=tuple(state) if emit_carry else None,
     )

@@ -6,6 +6,11 @@ half-iteration sets ``zeta = <r,Ar>/<Ar,Ar>``, ``y = zeta Ar``,
 ``s = Ar - gamma y``, ``zeta = <r,s>/<s,s>``, ``eta = -zeta gamma`` and
 updates ``y, z, r, x`` by the 2-term recurrences.  ``b`` and ``x0`` may
 carry a leading batch axis, as in :mod:`krylov_tpu_torch.solvers.cg`.
+
+``carry_in=((x, r, y, z), valid)`` (``valid`` a host bool) resumes from a
+previous chunk's ``result.carry``: the loop skips the half-iteration and
+starts its update count and trace at 0, so the body records the carried
+residual in slot 0.  ``emit_carry=True`` returns the state after the loop.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from krylov_tpu_torch.solvers._common import (
     SYNC_EVERY,
     SolveResult,
     bcast,
+    carried,
     record_final,
     safe_div,
     scalar_dtype_of,
@@ -28,7 +34,7 @@ from krylov_tpu_torch.solvers._common import (
 
 def mrr_kernel(
     A, b: torch.Tensor, x0: torch.Tensor, *, tol: float = 1e-5, maxiter: int,
-    ctx: Context = DEFAULT_CONTEXT,
+    ctx: Context = DEFAULT_CONTEXT, carry_in=None, emit_carry: bool = False,
 ) -> SolveResult:
     dev, dt = b.device, b.dtype
     sdt = scalar_dtype_of(ctx, b)
@@ -36,20 +42,26 @@ def mrr_kernel(
     batch = b.shape[:-1]
     trace = torch.zeros(batch + (maxiter + 1,), dtype=sdt, device=dev)
 
-    # initial residual + half-iteration
-    r = b - ctx.matvec(A, x0)
-    trace[..., 0] = ctx.norm(r) / b_norm
-    Ar = ctx.matvec(A, r)
-    rAr, ArAr = ctx.dot_bundle([(r, Ar), (Ar, Ar)])
-    zeta = safe_div(rAr, ArAr)
-    y = scale(zeta, Ar)
-    z = scale(-zeta, r)
-    r = r - y
-    x = x0 - z
+    state = carried(carry_in)
+    if state is not None:
+        x, r, y, z = state
+        i0 = 0
+    else:
+        # initial residual + half-iteration
+        r = b - ctx.matvec(A, x0)
+        trace[..., 0] = ctx.norm(r) / b_norm
+        Ar = ctx.matvec(A, r)
+        rAr, ArAr = ctx.dot_bundle([(r, Ar), (Ar, Ar)])
+        zeta = safe_div(rAr, ArAr)
+        y = scale(zeta, Ar)
+        z = scale(-zeta, r)
+        r = r - y
+        x = x0 - z
+        i0 = 1
 
-    i = torch.ones(batch, dtype=torch.int64, device=dev)
+    i = torch.full(batch, i0, dtype=torch.int64, device=dev)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for step in range(maxiter - 1):
+    for step in range(maxiter - i0):
         Ar = ctx.matvec(A, r)
         rr, mu, nu = ctx.dot_bundle([(r, r), (y, y), (y, Ar)])
         res = torch.sqrt(rr) / b_norm
@@ -80,4 +92,5 @@ def mrr_kernel(
         iterations=i,
         index=i,
         converged=conv,
+        carry=(x, r, y, z) if emit_carry else None,
     )

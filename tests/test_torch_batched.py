@@ -5,8 +5,8 @@ port's own solo solves.
 The JAX package runs on the CPU with x64 (a ``vmap`` of its while_loop
 solvers).  The port runs stencil systems member by member on its fused
 route (the kernels' plain versions on the CPU), other operators (and
-``fused=False``) through one batched eager loop for CG and MrR and member by
-member for the k-skip family.  float64: equal iteration counts, outer
+``fused=False``) through one batched eager loop (the k-skip family's is
+held further in tests/test_torch_batched_kskip.py).  float64: equal iteration counts, outer
 counts, nosl and convergence flags per member, residual histories rtol 1e-9
 (atol 1e-13), x rtol 1e-8 (atol 1e-12); the k-skip family the tolerances of
 tests/test_torch_kskip_solve.py.  A fused batch runs each member's solo

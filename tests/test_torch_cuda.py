@@ -619,3 +619,47 @@ def test_float32_ca_solves_ignore_allow_tf32(cuda, method):
         torch.backends.cuda.matmul.allow_tf32 = previous
     (x0, i0, b0, g0), (x1, i1, b1, g1) = runs
     assert i0 == i1 and b0 == b1 and torch.equal(x0, x1) and torch.equal(g0, g1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, k", [("kskipcg", 4), ("kskipmrr", 4), ("adaptivekskipmrr", 8)])
+def test_batched_kskip_members_equal_solos_on_cuda(cuda, method, k):
+    """The eager k-skip loops on a (4, n) block on the card: one K1 launch a
+    batched SpMV, and each member's inner products are its solo solve's, so
+    each member takes its solo count, nosl and khistory, x rtol 1e-12."""
+    A = fixtures.laplace2d(40, constant=True, device=cuda)
+    B = torch.from_numpy(np.random.default_rng(34).standard_normal((4, A.shape[0]))).to(cuda)
+    kw = dict(method=method, k=k, tol=1e-8, maxiter=2000, fused=False)
+    before = stencil.stencil_matvec_2d.launches
+    res = krylov_tpu_torch.solve_batched(A, B, **kw)
+    batched = stencil.stencil_matvec_2d.launches - before
+    solo_launches = []
+    for j in range(4):
+        before = stencil.stencil_matvec_2d.launches
+        solo = krylov_tpu_torch.solve_device(A, B[j], **kw)
+        solo_launches.append(stencil.stencil_matvec_2d.launches - before)
+        m = int(solo.index) + 1
+        assert (int(res.iterations[j]), int(res.index[j])) == (int(solo.iterations), int(solo.index))
+        assert torch.equal(res.nosl_trace[j, :m], solo.nosl_trace[:m]) and bool(solo.converged)
+        if solo.k_trace is not None:
+            assert torch.equal(res.k_trace[j, :m], solo.k_trace[:m])
+        torch.testing.assert_close(res.x[j], solo.x, rtol=1e-12, atol=0)
+    assert batched == max(solo_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, k", [("cg", 0), ("mrr", 0), ("kskipmrr", 4), ("adaptivekskipmrr", 8),
+                                       ("camrr", 4)])
+def test_chunked_on_cuda_equals_unbroken(cuda, method, k):
+    """solve(chunk_iters=) on the card against the unbroken eager solve:
+    equal counts, nosl and khistory, histories rtol 1e-12."""
+    A = fixtures.laplace2d(48, constant=True, device=cuda)
+    b = np.random.default_rng(35).standard_normal(A.shape[0])
+    kw = dict(method=method, k=k, tol=1e-8, maxiter=3000)
+    x, info = krylov_tpu_torch.solve(A, b, chunk_iters=40, **kw)
+    xu, whole = krylov_tpu_torch.solve(A, b, fused=False, **kw)
+    assert info["converged"] and info["chunks"] >= 3 and info["iterations"] == whole["iterations"]
+    np.testing.assert_array_equal(info["nosl"], whole["nosl"])
+    np.testing.assert_array_equal(info.get("khistory"), whole.get("khistory"))
+    np.testing.assert_allclose(info["residual"], whole["residual"], rtol=1e-12, atol=0)
+    torch.testing.assert_close(x, xu, rtol=1e-12, atol=0)

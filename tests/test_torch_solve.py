@@ -147,17 +147,16 @@ def test_unknown_method_raises():
 @pytest.mark.parametrize(
     "kw, error, match",
     [
-        # restarts= and refine= are ported; with mesh= or chunk_iters= below
-        # maxiter they still raise, naming the item that brings those
+        # restarts= is ported; with mesh= it still raises, naming the item
+        # that brings mesh= (chunk_iters=, with refine= too, is ported:
+        # tests/test_torch_chunked.py)
         (dict(restarts=2, mesh=object()), NotImplementedError, "item 11"),
-        (dict(refine=1, chunk_iters=5), NotImplementedError, "item 10"),
-        (dict(chunk_iters=10), NotImplementedError, "item 10"),
         # M= and spectral_bounds= are ported; given to a method that does
         # not read them they raise instead of being dropped
         (dict(M=object()), ValueError, "M= is read by"),
         (dict(method="cacg", M=object()), ValueError, "M= is read by"),
     ],
-    ids=["restarts", "refine", "chunk_iters", "M", "cacg"],
+    ids=["restarts", "M", "cacg"],
 )
 def test_unported_options_name_their_roadmap_item(kw, error, match):
     A = fixtures.laplace2d(6)
