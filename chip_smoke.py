@@ -130,6 +130,14 @@ PRECOND_F64 = dict(zip(PRECOND_RUNS, [(1053, 1053), (1053, 1053), (190, 190), (1
 CHUNK_RUNS = {("cg", 0): 1053, ("mrr", 0): 934, ("kskipcg", 4): 1055, ("kskipmrr", 4): 936,
               ("adaptivekskipmrr", 8): 937, ("cacg", 4): 1056, ("camrr", 4): 937}
 CHUNK_ITERS = 250
+# Phase 16, the row-partitioned path (solve(mesh=)) in an NCCL world of one
+# on the main-path system in float64: (method, k, preconditioner) and the
+# counts of the eager solves (PERF.md section 2), which the sharded solves
+# must take, with x bitwise equal to the eager solve's
+SHARDED_RUNS = {("cg", 0, None): 1053, ("mrr", 0, None): 934, ("kskipcg", 4, None): 1055,
+                ("kskipmrr", 4, None): 936, ("adaptivekskipmrr", 8, None): 937, ("pcg", 0, "jacobi"): 1053,
+                ("cacg", 4, None): 1056}
+SHARDED_TIMED = (("cg", 0), ("kskipmrr", 4))  # sharded against eager, paired: eager, sharded, sharded, eager
 # chunked against unbroken eager solves: the same loop bodies on the same
 # values, but a chunk's last residual is its final ||r||, where the
 # unbroken solve records the recurred one
@@ -1132,6 +1140,186 @@ def batched_kskip(A, A_csr, hyb, dev, stencil) -> int:
     return total
 
 
+def fixup_on_card(ops, stencil) -> None:
+    """16a. The sharded stencil matvec's K1 calls at a split of the
+    main-path grid over 4 ranks, without a world: each rank's bulk (K1 on
+    its slab) and boundary planes (K1 on the extended slabs, from the true
+    halo planes of x) against the whole grid's K1, in both forms and both
+    dtypes; held at K1's limits, and whether the bits are equal is printed
+    (each point sums its terms in stencil order in both)."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch.dist.spmv import ShardedOperator, local_block, partition, stencil_boundary, stencil_bulk
+    from krylov_tpu_torch.sparse import fixtures
+
+    P = 4
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        for label, A in (("constant", ops[dt]), ("grid", fixtures.laplace2d(NX, dtype=dt, device=ops[dt].device))):
+            x = torch.from_numpy(np.random.default_rng(17).standard_normal((2, A.shape[0]))).to(A.device, dt)
+            want = stencil.stencil_matvec(A, x)
+            kind, arrays, offsets, strategy, grid = partition(A, P)
+            n, parts = A.shape[0] // P, []
+            launches = stencil.stencil_matvec_2d.launches
+            for rank in range(P):
+                op = ShardedOperator(kind=kind, arrays=local_block(kind, arrays, P, rank), offsets=offsets,
+                                     shape=A.shape, n_devices=P, strategy=strategy, rank=rank, grid=grid)
+                plane, s0 = op.aux["plane"], rank * n
+                x_l = x[:, s0: s0 + n].contiguous()
+                top = x[:, s0 - plane: s0].contiguous() if rank > 0 else None
+                bottom = x[:, s0 + n: s0 + n + plane].contiguous() if rank < P - 1 else None
+                parts.append(stencil_boundary(op, x_l, stencil_bulk(op, x_l), top, bottom))
+            launches = stencil.stencil_matvec_2d.launches - launches
+            got = torch.cat(parts, -1)
+            err = rel_err(got, want)
+            phase(f"sharded stencil matvec at 4 ranks, laplace2d({NX}) {label} {dt}, (2, n) block: {launches} K1 "
+                  f"launches (4 bulk, 6 boundary), max rel err against the whole grid's K1 {err:.3e} (tol {rtol:g}), "
+                  f"bitwise equal {torch.equal(got, want)}")
+            if not (err <= rtol and launches == 10):
+                raise AssertionError(f"the sharded stencil matvec disagrees with K1 on the whole grid ({label} {dt})")
+
+
+def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil) -> int:
+    """16. ``solve(mesh=)`` in an NCCL world of one (a ``file://`` store in
+    ``tmp``, ``device_id`` the card): each run of SHARDED_RUNS on the
+    main-path system in float64 held against the eager single-device solve
+    of the same method (fused=False): its count and SHARDED_RUNS's, nosl,
+    khistory, residual history and x bitwise equal (the slab is the whole
+    grid and the sum of one rank is its input), the host float64 true
+    residual below tol; one float32 CG likewise; CG on the phase-9 HYB
+    through the all-gather, the same.  Prints K1 launches and NCCL
+    all-reduces an iteration, ms an iteration sharded against eager on the
+    host clock (paired: eager, sharded, sharded, eager, twice) and the
+    all-gather's µs on the HYB, with the card's name and power limit.
+    Then, with the world gone, the multi-rank NCCL runs where the machine
+    has two cards or more (:mod:`krylov_tpu_torch.diagnostics.dryrun_multichip`
+    with the main-path solves at N = 250k, and :mod:`.weak_scaling`, over
+    min(4, cards) ranks, their counts held within k + 1 of one rank's), or
+    a line saying that it has one.  Returns
+    K1's launches of the sharded solves."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import precond
+    from krylov_tpu_torch.context import all_reduce
+    from krylov_tpu_torch.dist import make_mesh
+    from krylov_tpu_torch.dist.spmv import gather_rows, sharded_matvec
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    cards = torch.cuda.device_count()
+    phase(f"cards on this machine: {cards} ({smi})")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl_store"), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    k1_total, failures = 0, []
+    try:
+        mesh = make_mesh()
+        A = ops[torch.float64]
+        bounds = precond.lanczos_bounds(A)
+        b_nrm = np.linalg.norm(b_np)
+
+        def hold(label, A_, A_csr_, b_, kw, want_iters=None, below_tol=True):
+            """One sharded solve against the eager one (want_iters: the
+            count both must take, else the eager solve's; below_tol: hold
+            the host float64 true residual below tol)."""
+            nonlocal k1_total
+            x_e, i_e = krylov_tpu_torch.solve(A_, b_, fused=False, **kw)
+            want_iters = i_e["iterations"] if want_iters is None else want_iters
+            stencil.stencil_matvec_2d.launches, all_reduce.calls, gathers = 0, 0, sharded_matvec.gather_bytes
+            x_s, i_s = krylov_tpu_torch.solve(A_, b_, mesh=mesh, **kw)
+            k1, reduces = stencil.stencil_matvec_2d.launches, all_reduce.calls
+            k1_total += k1
+            true_res = float(np.linalg.norm(b_ - A_csr_ @ x_s.double().cpu().numpy()) / np.linalg.norm(b_))
+            phase(f"sharded {label}: iters {i_s['iterations']} (eager {i_e['iterations']}, want {want_iters}), "
+                  f"converged {i_s['converged']}, true res {true_res:.6e}, x bitwise equal {torch.equal(x_s, x_e)}; "
+                  f"K1 launches {k1} ({k1 / i_s['iterations']:.3f} an iteration), NCCL all-reduces {reduces} "
+                  f"({reduces / i_s['iterations']:.3f} an iteration), all-gather bytes "
+                  f"{sharded_matvec.gather_bytes - gathers}; solve() wall {i_s['time'] * 1e3:.3f} ms sharded, "
+                  f"{i_e['time'] * 1e3:.3f} ms eager")
+            same = (i_s["iterations"] == i_e["iterations"] == want_iters and torch.equal(x_s, x_e)
+                    and all(np.array_equal(i_s[key], i_e[key]) for key in ("nosl", "residual", "khistory")
+                            if key in i_e or key in i_s))
+            # a stencil's sharded SpMV is K1: at least one launch an iteration
+            k1_ok = k1 >= i_s["iterations"] if isinstance(A_, type(ops[torch.float64])) else k1 == 0
+            if not (same and k1_ok and i_s["converged"] and (true_res < TOL or not below_tol)):
+                failures.append(f"sharded {label}: not the eager solve's count, traces and x, K1 launches {k1}, or "
+                                f"true res {true_res:.3e} not below tol")
+
+        for (m, k, p), want in SHARDED_RUNS.items():
+            kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER)
+            if p == "jacobi":
+                kw["M"] = precond.jacobi(A)
+            if m == "cacg":
+                kw["spectral_bounds"] = bounds
+            hold(f"{m}{f' k={k}' if k else ''}{f' M={p}' if p else ''} float64", A, A_csr, b_np, kw, want)
+        # float32: its true residual is printed, not held (phase 5's)
+        hold("cg float32", ops[torch.float32], A_csr, b_np, dict(method="cg", tol=TOL, maxiter=MAXITER),
+             below_tol=False)
+        P_csr, H = hyb
+        b_h = np.random.default_rng(0).standard_normal(H.shape[0])
+        hold("cg HYB powerlaw_spd(2**20), all-gather", H, P_csr, b_h, dict(method="cg", tol=TOL, maxiter=MAXITER))
+
+        # the all-gather of one iterate of the HYB system, alone
+        x = torch.from_numpy(b_h).to(H.device)
+        buf = torch.empty_like(x)
+        group = mesh.get_group()
+        gather_rows(x, 1, group, buf)
+        ag_ms = cuda_ms(lambda: gather_rows(x, 1, group, buf), reps=200)[0]
+        ag_host = host_us(lambda: gather_rows(x, 1, group, buf), reps=200)
+        phase(f"all-gather of a float64 x of {H.shape[0]} rows in the world of one: {ag_ms * 1e3:.3f} us a call "
+              f"(CUDA events over 200 calls), {ag_host:.3f} us a call on the host ({smi})")
+
+        for m, k in SHARDED_TIMED:
+            kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER)
+            eager, shard = [], []
+            for _ in range(2):
+                for route in ("eager", "sharded", "sharded", "eager"):
+                    _, info = krylov_tpu_torch.solve(A, b_np, **kw, **({"mesh": mesh} if route == "sharded"
+                                                                       else {"fused": False}))
+                    (shard if route == "sharded" else eager).append(info["time"] * 1e3 / info["iterations"])
+            phase(f"ms an iteration, {m}{f' k={k}' if k else ''} float64 N={NX * NX} (host clock between device "
+                  f"synchronisations, paired eager, sharded, sharded, eager, twice; {smi}): sharded "
+                  f"{[round(v, 6) for v in shard]}, eager {[round(v, 6) for v in eager]}; median sharded / eager "
+                  f"{statistics.median(shard) / statistics.median(eager):.4f}")
+    finally:
+        dist.destroy_process_group()
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 16", failures)
+
+    if cards < 2:
+        phase(f"multi-rank NCCL run: not possible on this machine, which has {cards} card (NCCL takes one card "
+              "a rank)")
+        return k1_total
+    ranks = min(4, cards)
+    runs = {
+        "dryrun_multichip": [sys.executable, "-m", "krylov_tpu_torch.diagnostics.dryrun_multichip", "--ranks",
+                             str(ranks), "--device", "cuda", "--nx", str(NX)],
+        "weak_scaling": [sys.executable, "-m", "krylov_tpu_torch.diagnostics.weak_scaling", "--ranks", "1",
+                         str(ranks), "--device", "cuda"],
+    }
+    for name, cmd in runs.items():
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        phase(f"{name} over {ranks} NCCL ranks: exit {proc.returncode}\n  " + "\n  ".join(proc.stdout.splitlines()))
+        if proc.returncode != 0:
+            phase(proc.stderr[-4000:])
+            raise AssertionError(f"{name} over {ranks} NCCL ranks failed")
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        if name == "dryrun_multichip":  # the main path's counts it holds itself
+            off = {s: r for s, r in lines[0]["dryrun_multichip"].items() if abs(r["sharded"] - r["single"]) > r["k"] + 1}
+        else:
+            off = {(r["ranks"], r["rank"]): r["iterations"] for r in lines if r["iterations"] != lines[0]["iterations"]}
+        if off:
+            raise AssertionError(f"{name} over {ranks} NCCL ranks: counts off those of one rank: {off}")
+    return k1_total
+
+
 def start_cli(tmp: str):
     """15, started: ``python -m krylov_tpu_torch solve --config
     condition.json`` in a subprocess on the main-path system (k-skip MrR
@@ -1603,6 +1791,9 @@ def smoke(tmp: str, started: list) -> int:
     ckpt_launches = checkpoint_phase(ops[f64], b_np, A_csr, fused_kskip)
     mark("14 batched k-skip")
     k1_launches += chunk_launches["K1"] + batched_kskip(ops[f64], A_csr, hyb, dev, stencil)
+    mark("16 sharded")
+    fixup_on_card(ops, stencil)
+    k1_launches += sharded_phase(ops, b_np, A_csr, hyb, tmp, stencil)
     mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer

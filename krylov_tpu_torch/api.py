@@ -14,7 +14,10 @@ methods, other operators, a preconditioner ``M``, ``fused=False``,
 :mod:`.solvers`, whose stencil SpMV on the card is K1.  ``restarts=``
 appends device-side defect corrections to a solve, ``refine=``
 host-float64 iterative refinement, ``chunk_iters=`` splits it into bounded
-chunks that carry the loops' state exactly.
+chunks that carry the loops' state exactly.  ``mesh=`` (a 1-D
+``DeviceMesh``, :func:`krylov_tpu_torch.dist.make_mesh`) runs the eager
+loops row-partitioned over the ranks of a ``torch.distributed`` world
+(:mod:`krylov_tpu_torch.dist`).
 """
 
 from __future__ import annotations
@@ -88,14 +91,20 @@ _BATCHED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
 
 
 def _check_options(method: str, mesh=None, M=None, spectral_bounds=None) -> None:
-    """Raise on an unknown method, on ``mesh=`` (not ported yet, naming the
-    ROADMAP queue-1 item that brings it), and on ``M=`` or
-    ``spectral_bounds=`` given to a method that does not read them (the
-    JAX package drops them silently)."""
+    """Raise on an unknown method, on a ``mesh`` that is not a
+    one-dimensional ``torch.distributed`` ``DeviceMesh`` (``TypeError``),
+    and on ``M=`` or ``spectral_bounds=`` given to a method that does not
+    read them (the JAX package drops them silently)."""
     if method not in _KERNELS:
         raise ValueError(f"unknown method {method!r}; available: {sorted(_METHOD_NAMES)}")
     if mesh is not None:
-        raise NotImplementedError("mesh= waits for the distributed port (ROADMAP queue 1, item 11)")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not (isinstance(mesh, DeviceMesh) and mesh.ndim == 1):
+            raise TypeError(
+                "mesh= takes a one-dimensional torch.distributed DeviceMesh "
+                f"(krylov_tpu_torch.dist.make_mesh), got {type(mesh).__name__}"
+            )
     if M is not None and method not in _PRECONDITIONED_METHODS:
         raise ValueError(f"M= is read by {_PRECONDITIONED_METHODS} only, not by method {method!r}")
     if spectral_bounds is not None and method not in _CACG_METHODS:
@@ -209,16 +218,20 @@ def _prepare(A, b, x0, maxiter):
 
 
 def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M=None,
-              bounds=None, carry=None) -> SolveResult:
+              bounds=None, carry=None, ctx=None) -> SolveResult:
     """One solve: the fused kernels, or the eager loop of ``method`` with
     the options it reads (``k``/``basis_norm``; ``s = max(k, 1)`` and the
     resolved ``bounds``; ``M``).  ``carry`` (eager loops of
     ``_CARRY_METHODS`` only): ``None`` runs the loop as it is; a pair
     ``(state, valid)`` resumes from ``state`` when ``valid``, and the
-    result then carries the loop's state after it in ``result.carry``."""
+    result then carries the loop's state after it in ``result.carry``.
+    ``ctx`` (default: single-device with ``scalar_dtype``) is the loop's
+    :class:`~krylov_tpu_torch.context.Context`: the distributed one of
+    :func:`krylov_tpu_torch.dist.solve_sharded`."""
     if use_fused:
         return _run_fused(A, b, x0, tol, method, maxiter, k)
-    ctx = Context(scalar_dtype=scalar_dtype)
+    if ctx is None:
+        ctx = Context(scalar_dtype=scalar_dtype)
     if x0 is None:
         x0 = torch.zeros_like(b)
     kw = dict(tol=tol, maxiter=maxiter, ctx=ctx)
@@ -344,6 +357,16 @@ def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
     return A, b, x0, maxiter, use_fused, bool(basis_norm) and method in _KSKIP_METHODS
 
 
+def _check_mesh_options(restarts: int = 0, chunk_iters=None, fused=None) -> None:
+    """The options ``mesh=`` does not take, with the JAX package's errors."""
+    if restarts:
+        raise ValueError("restarts= is single-device only (use refine= with mesh)")
+    if chunk_iters is not None:
+        raise ValueError("chunk_iters= is single-device only")
+    if fused:
+        raise ValueError("fused= and mesh= are mutually exclusive")
+
+
 def solve_device(
     A, b, method: str = "cg", x0=None, tol: float = 1e-5,
     maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
@@ -356,8 +379,21 @@ def solve_device(
 
     ``restarts``: device-side defect-correction passes appended to the
     solve (see :func:`_run_single`); the result then carries
-    ``true_residual`` and ``converged`` reflects it."""
+    ``true_residual`` and ``converged`` reflects it.  Single-device only.
+
+    With ``mesh=`` every rank calls it with the whole system; ``x`` is then
+    this rank's rows of the solution (the JAX package returns one global
+    array sharded over the mesh; a plain tensor a rank is its counterpart
+    here), and the traces are the same on every rank."""
     _check_options(method, mesh, M, spectral_bounds)
+    if mesh is not None:
+        _check_mesh_options(restarts=restarts, fused=fused)
+        A, b, x0, maxiter, _, basis_norm = _plan(A, b, x0, method, maxiter, M, scalar_dtype, False, basis_norm)
+        from krylov_tpu_torch.dist import solve_sharded
+
+        return solve_sharded(A, b, x0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
+                             scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds,
+                             gather=False)
     A, b, x0, maxiter, use_fused, basis_norm = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
@@ -407,11 +443,25 @@ def solve(
     ``converged`` is ``true_residual < tol``.  The returned ``x`` is then a
     float64 tensor on the operator's device, where the JAX package returns
     a float64 numpy array.  ``chunk_iters`` at or above the effective
-    ``maxiter`` runs one plain solve, as in the JAX package; below it, and
-    ``mesh=``, raise ``NotImplementedError`` naming the ROADMAP item that
-    ports them.
+    ``maxiter`` runs one plain solve, as in the JAX package; below it the
+    solve runs in chunks (:func:`_solve_chunked`).
+
+    ``mesh=`` (a 1-D ``DeviceMesh`` from :func:`krylov_tpu_torch.dist.make_mesh`,
+    called on every rank of an initialised ``torch.distributed`` world with
+    the whole system) partitions the rows over the ranks and runs the eager
+    loop of ``method`` on each rank's block (:func:`krylov_tpu_torch.dist.solve_sharded`):
+    every reduction is one all-reduce, every SpMV one halo or all-gather
+    exchange, a stencil's through K1 on the rank's slab.  ``x`` is then the
+    whole solution on every rank, and ``info`` the same on every rank; its
+    ``time`` starts after a barrier of the ranks.  ``restarts=``,
+    ``chunk_iters=`` and ``fused=True`` raise ``ValueError`` with it;
+    ``refine=`` takes its host-float64 defect on the whole operator and
+    ``x``.
     """
     _check_options(method, mesh, M, spectral_bounds)
+    if mesh is not None:
+        _check_mesh_options(restarts, chunk_iters, fused)
+        fused = False
     b_in = b
     A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
@@ -434,7 +484,14 @@ def solve(
         _build.library()  # the fused kernels, or K1 for the eager loops
         compile_time = _build.build_seconds
     bounds = _resolve_bounds(A, method, spectral_bounds)  # set-up, before the timed solve
-    if chunked:
+    if mesh is not None:
+        from krylov_tpu_torch.dist import solve_sharded
+
+        result, elapsed = solve_sharded(
+            A, b, x0, tol=tol, method=method, maxiter=maxiter_eff, k=k, M=M, mesh=mesh, scalar_dtype=scalar_dtype,
+            basis_norm=basis_norm_eff, spectral_bounds=bounds, return_times=True)
+        info = build_info(result, elapsed)
+    elif chunked:
         # the chunks run fused only where the caller forced it: the carry
         # methods chunk exactly on their eager loops otherwise
         result, info = _solve_chunked(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, fused is True,
@@ -521,8 +578,14 @@ def solve_batched(
     guard of the whole batch at once and steps its members grouped by
     their current k.  The preconditioned, pipelined and CA methods run
     member by member, with the spectral bounds of ``cacg``/``camrr``
-    resolved once."""
+    resolved once.  ``mesh=`` runs the batch row-partitioned, as one
+    ``(batch, n_local)`` loop where the method batches (one all-reduce a
+    reduction for the whole batch), and returns the whole ``x`` on every
+    rank; ``fused=True`` raises with it."""
     _check_options(method, mesh, M, spectral_bounds)
+    if mesh is not None:
+        _check_mesh_options(fused=fused)
+        fused = False
     A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
     B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
     if B.ndim != 2 or B.shape[1] != A.shape[0]:
@@ -537,14 +600,23 @@ def solve_batched(
     # one tolerance tensor for the whole batch, in A's dtype as the JAX
     # package casts it: the fused kernels read it without a host transfer
     tol = torch.as_tensor(tol, dtype=A.dtype, device=A.device)
+    if mesh is not None:
+        from krylov_tpu_torch.dist import solve_sharded
+
+        return solve_sharded(A, B, X0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
+                             scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds)
     if not use_fused and method in _BATCHED_METHODS:
         return _run_base(A, B, X0, tol, method, maxiter, k, scalar_dtype, False, basis_norm)
     bounds = _resolve_bounds(A, method, spectral_bounds)
-    members = [
+    return _stack_members([
         _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, use_fused,
                   basis_norm, M, bounds)
         for j in range(B.shape[0])
-    ]
+    ])
+
+
+def _stack_members(members: list) -> SolveResult:
+    """The members' results stacked along a leading batch axis."""
     return SolveResult(**{
         f.name: None if getattr(members[0], f.name) is None else torch.stack([getattr(m, f.name) for m in members])
         for f in dataclasses.fields(SolveResult)

@@ -25,21 +25,28 @@ file) and exit codes (0 converged, 1 not converged, 2 bad input)::
       "basis_norm": false,    // k-skip: pow2-normalized Krylov chains
       "scalar_dtype": null | "float64",   // wide scalar recurrences
       "precond": null | "jacobi" | "chebyshev",
-      "mesh":     false,      // true raises: the distributed port is to come
+      "mesh":     false,      // true => row-partitioned over the ranks (below)
       "out":     "solution.npz"   // checkpoint.save() format
     }
 
 ``"b": "random"`` is ``numpy.random.default_rng(0).standard_normal(n)``.
 The one flag the JAX driver lacks is ``--device`` (default ``cuda``): the
 device the operator and the solve run on, where the JAX driver runs on
-JAX's platform.
+JAX's platform.  ``--mesh`` (``"mesh": true``) solves row-partitioned
+(:mod:`krylov_tpu_torch.dist`) over the world ``torchrun`` started, one
+rank a card (``torchrun --nproc-per-node 4 -m krylov_tpu_torch solve
+--mesh ...``; rank 0 writes ``out``), or, run alone, over a world of one on
+``--device``: NCCL on a card, gloo on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -99,7 +106,39 @@ def _make_precond(name: Optional[str], A):
     raise ValueError(f"unknown preconditioner {name!r}")
 
 
+def _mesh(device, stack: contextlib.ExitStack):
+    """The rows mesh of ``--mesh``: over the world ``torchrun`` started
+    (read from its environment) or, without one, a world of one on
+    ``device`` (a ``file://`` store in a temporary directory).  A world made
+    here is destroyed when ``stack`` closes."""
+    import torch
+    import torch.distributed as dist
+
+    from krylov_tpu_torch.device import resolve
+    from krylov_tpu_torch.dist import make_mesh
+
+    dev = resolve(device)
+    if not dist.is_initialized():
+        kw = {}
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", dev.index or 0)))
+            kw["device_id"] = torch.device("cuda", torch.cuda.current_device())
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, **kw)
+        else:
+            store = os.path.join(stack.enter_context(tempfile.TemporaryDirectory()), "store")
+            dist.init_process_group(backend, init_method=f"file://{store}", rank=0, world_size=1, **kw)
+        stack.callback(dist.destroy_process_group)
+    return make_mesh(dev.type)
+
+
 def _cmd_solve(args) -> int:
+    with contextlib.ExitStack() as stack:
+        return _solve(args, stack)
+
+
+def _solve(args, stack: contextlib.ExitStack) -> int:
     import torch
 
     import krylov_tpu_torch
@@ -132,6 +171,7 @@ def _cmd_solve(args) -> int:
             print(f"error: scalar_dtype must be 'float32' or 'float64', got {scalar_dtype!r}", file=sys.stderr)
             return 2
         scalar_dtype = getattr(torch, str(scalar_dtype))
+    mesh = _mesh(args.device, stack) if cfg.get("mesh") else None
     A = _load_matrix(cfg["matrix"], dtype=getattr(torch, dtype.name), device=args.device)
     b = _load_rhs(cfg.get("b"), A.shape[0], dtype)
     M = _make_precond(cfg.get("precond"), A)
@@ -144,7 +184,7 @@ def _cmd_solve(args) -> int:
         maxiter=cfg.get("maxiter"),
         k=int(cfg.get("k", 0)),
         M=M,
-        mesh=True if cfg.get("mesh") else None,  # raises, naming the ROADMAP item
+        mesh=mesh,
         refine=int(cfg.get("refine", 0)),
         scalar_dtype=scalar_dtype,
         basis_norm=bool(cfg.get("basis_norm", False)),
@@ -153,7 +193,7 @@ def _cmd_solve(args) -> int:
     )
 
     out = cfg.get("out")
-    if out:
+    if out and (mesh is None or mesh.get_rank() == 0):
         from krylov_tpu_torch import checkpoint
 
         checkpoint.save(out, x, info, method=cfg.get("method", "cg"), tol=float(cfg.get("tol", 1e-5)))
@@ -216,7 +256,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the solve in chunks of this many iterations (exact state carry for "
                         "cg/mrr/the k-skip family/cacg/camrr; warm restart otherwise)")
     s.add_argument("--precond", choices=["none", "jacobi", "chebyshev"])
-    s.add_argument("--mesh", action="store_true", help="row-partition over all devices (not ported yet)")
+    s.add_argument("--mesh", action="store_true", help="row-partition over the ranks torchrun started, or a world of one")
     s.add_argument("--out", help="save solution + info (.npz)")
     s.add_argument("--quiet", action="store_true")
     s.set_defaults(fn=_cmd_solve)

@@ -271,13 +271,18 @@ def host_matvec64(A: Operator, x) -> np.ndarray:
 _FROM_JAX = {cls.__name__: cls for cls in (StencilMatrix, DiaMatrix, EllMatrix, HybMatrix, DenseMatrix)}
 
 
-def from_jax_operator(A, device=None, dtype=None):
+def from_jax_operator(A, device=None, dtype=None, rank=None):
     """Convert a ``krylov_tpu`` container (``StencilMatrix``, ``DiaMatrix``,
     ``EllMatrix``, ``HybMatrix`` or ``DenseMatrix``) into this package's;
     a ``krylov_tpu.precond.ChebyshevPreconditioner`` becomes
     :class:`krylov_tpu_torch.precond.ChebyshevPreconditioner` with its
     operator converted and its ``lmin``, ``lmax`` and ``degree`` kept (a
-    Jacobi preconditioner is a ``DiaMatrix`` already).
+    Jacobi preconditioner is a ``DiaMatrix`` already).  A
+    ``krylov_tpu.dist.ShardedOperator`` (globally shaped, as
+    ``krylov_tpu.dist.shard_operator`` returns it) becomes rank ``rank``'s
+    :class:`krylov_tpu_torch.dist.ShardedOperator`, its leaves cut as the
+    JAX package's partition specs cut them inside ``shard_map``
+    (:func:`krylov_tpu_torch.dist.spmv.local_block`).
 
     ``dtype`` (torch or numpy) casts the floating-point leaves and defaults
     to their own dtype; index leaves keep theirs."""
@@ -286,10 +291,26 @@ def from_jax_operator(A, device=None, dtype=None):
 
         return ChebyshevPreconditioner(A=from_jax_operator(A.A, device, dtype), lmin=float(A.lmin),
                                        lmax=float(A.lmax), degree=int(A.degree))
+    if type(A).__name__ == "ShardedOperator":
+        from krylov_tpu_torch.dist.spmv import ShardedOperator, local_block
+
+        if rank is None:
+            raise ValueError("from_jax_operator of a ShardedOperator needs the rank whose block it returns")
+        arrays = []
+        for a in A.arrays:
+            t = _tensor(np.array(a), device)
+            arrays.append(t.to(as_torch_dtype(dtype)) if dtype is not None and t.is_floating_point() else t)
+        offsets = A.offsets
+        if offsets is not None:
+            offsets = tuple(tuple(int(d) for d in o) if A.kind == "stencil" else int(o) for o in offsets)
+        return ShardedOperator(
+            kind=A.kind, arrays=local_block(A.kind, arrays, A.n_devices, rank), offsets=offsets,
+            shape=tuple(int(g) for g in A.shape), n_devices=int(A.n_devices), strategy=A.strategy, rank=int(rank),
+            grid=None if A.grid is None else tuple(int(g) for g in A.grid))
     cls = _FROM_JAX.get(type(A).__name__)
     if cls is None:
-        raise TypeError(f"from_jax_operator takes a krylov_tpu container ({', '.join(_FROM_JAX)}), "
-                        f"got {type(A).__name__}")
+        raise TypeError(f"from_jax_operator takes a krylov_tpu container ({', '.join(_FROM_JAX)}), a "
+                        f"ChebyshevPreconditioner or a dist.ShardedOperator, got {type(A).__name__}")
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(A, f.name)

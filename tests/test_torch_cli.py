@@ -96,9 +96,24 @@ def test_bad_scalar_dtype_in_config_exits_2(tmp_path):
     assert _both(["solve", "--config", str(cond), "--quiet"]) == (2, 2)
 
 
-def test_mesh_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["solve", "--fixture", "laplace2d", "--n", "8", "--mesh", "--quiet", "--device", "cpu"])
+def test_mesh_names_the_roadmap_item(tmp_path):
+    """``--mesh`` is ported: run alone, the port's driver solves over a
+    gloo world of one (made and destroyed by the command), as the JAX
+    driver solves over its mesh of the 8 CPU devices; the same exit code,
+    count and x (rtol 1e-8)."""
+    import torch.distributed as dist
+
+    outs = {}
+    for name, run in (("jax", jax_main), ("torch", main)):
+        out = str(tmp_path / f"{name}.npz")
+        args = ["solve", "--fixture", "laplace2d", "--n", "8", "--mesh", "--quiet", "--b", "random", "--dtype",
+                "float64", "--tol", "1e-9", "--out", out]
+        assert run(args + (["--device", "cpu"] if name == "torch" else [])) == 0
+        outs[name] = jcheckpoint.load(out)
+    assert not dist.is_initialized()
+    (xr, sr), (x, s) = outs["jax"], outs["torch"]
+    assert s["meta"]["iterations"] == sr["meta"]["iterations"]
+    np.testing.assert_allclose(x, xr, rtol=1e-8, atol=1e-12)
 
 
 @pytest.mark.parametrize("args", [

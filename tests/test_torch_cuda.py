@@ -663,3 +663,93 @@ def test_chunked_on_cuda_equals_unbroken(cuda, method, k):
     np.testing.assert_array_equal(info.get("khistory"), whole.get("khistory"))
     np.testing.assert_allclose(info["residual"], whole["residual"], rtol=1e-12, atol=0)
     torch.testing.assert_close(x, xu, rtol=1e-12, atol=0)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """An NCCL world of one on the card (a file:// store under tmp_path)
+    and its rows mesh; the world is destroyed after the test."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch.dist import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["grid", "constant"])
+@pytest.mark.parametrize("method, k, precond", [("cg", 0, None), ("mrr", 0, None), ("kskipmrr", 2, None),
+                                                ("adaptivekskipmrr", 2, None), ("pcg", 0, "jacobi"),
+                                                ("cacg", 4, None)])
+def test_sharded_solve_in_nccl_world_of_one_equals_eager(nccl_mesh, method, k, precond, form):
+    """solve(mesh=) in an NCCL world of one against the eager solve on the
+    same card: the slab is the whole grid and the sum of one rank is its
+    input, so count, traces and x are equal bitwise."""
+    from krylov_tpu_torch import precond as pc
+
+    A = fixtures.laplace2d(32, constant=form == "constant", device="cuda")
+    b = np.random.default_rng(14).standard_normal(A.shape[0])
+    kw = dict(method=method, k=k, tol=1e-9, maxiter=2000)
+    if precond:
+        kw["M"] = pc.jacobi(A)
+    if method == "cacg":
+        kw["spectral_bounds"] = pc.lanczos_bounds(A)
+    x_e, i_e = krylov_tpu_torch.solve(A, b, fused=False, **kw)
+    x_s, i_s = krylov_tpu_torch.solve(A, b, mesh=nccl_mesh, **kw)
+    assert i_s["converged"] and i_s["iterations"] == i_e["iterations"]
+    for key in ("nosl", "residual", "khistory"):
+        if key in i_e:
+            np.testing.assert_array_equal(i_s[key], i_e[key])
+    assert x_s.device.type == "cuda" and torch.equal(x_s, x_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+def test_sharded_stencil_matvec_launches_k1(cuda, nccl_mesh, name):
+    """The sharded stencil SpMV of a world of one is one K1 launch on the
+    slab (the whole grid), equal to the operator's own K1 product."""
+    from krylov_tpu_torch.context import Context
+    from krylov_tpu_torch.dist import shard_operator
+
+    A = OPERATORS[name](device="cuda")
+    op = shard_operator(A, nccl_mesh)
+    ctx = Context(axis="rows", group=nccl_mesh.get_group())
+    x = _rhs(A.shape[0], 16, cuda)
+    before = stencil.stencil_matvec_2d.launches
+    y = op.matvec(x, ctx)
+    assert stencil.stencil_matvec_2d.launches == before + 1 and op.strategy == "halo"
+    assert y.device.type == "cuda" and torch.equal(y, stencil.stencil_matvec(A, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(OPERATORS))
+def test_sharded_stencil_boundary_planes_on_card(cuda, name, dtype):
+    """The 2-rank split of the sharded stencil SpMV without a world: each
+    rank's bulk (K1 on its slab) and boundary planes (K1 on the extended
+    slabs, from the true halo planes) against the whole grid's K1, bitwise
+    (each point sums its terms in stencil order in both)."""
+    from krylov_tpu_torch.dist.spmv import ShardedOperator, local_block, partition, stencil_boundary, stencil_bulk
+
+    A = OPERATORS[name](dtype=dtype, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal((2, A.shape[0]))).to(cuda, dtype)
+    want = stencil.stencil_matvec(A, x)
+    P = 2
+    kind, arrays, offsets, strategy, grid = partition(A, P)
+    n = A.shape[0] // P
+    before = stencil.stencil_matvec_2d.launches
+    for rank in range(P):
+        op = ShardedOperator(kind=kind, arrays=local_block(kind, arrays, P, rank), offsets=offsets, shape=A.shape,
+                             n_devices=P, strategy=strategy, rank=rank, grid=grid)
+        plane, s0 = op.aux["plane"], rank * n
+        x_l = x[:, s0: s0 + n].contiguous()
+        top = x[:, s0 - plane: s0].contiguous() if rank > 0 else None
+        bottom = x[:, s0 + n: s0 + n + plane].contiguous() if rank < P - 1 else None
+        assert torch.equal(stencil_boundary(op, x_l, stencil_bulk(op, x_l), top, bottom), want[:, s0: s0 + n])
+    assert stencil.stencil_matvec_2d.launches == before + P + 2 * (P - 1)

@@ -192,8 +192,19 @@ def test_solve_restarts_info_f32():
     assert info["converged"] == (info["true_residual"] < 1e-5)
 
 
-def test_restarts_with_mesh_still_raise():
+def test_restarts_with_mesh_still_raise(tmp_path):
+    """mesh= is ported, restarts= stays single-device, with the JAX
+    package's error (a gloo world of one in this process, destroyed after)."""
+    import torch.distributed as dist
+
+    from krylov_tpu_torch.dist import make_mesh
+
     A = fixtures.laplace2d(6)
-    for fn in (krylov_tpu_torch.solve, krylov_tpu_torch.solve_device):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(A, np.ones(36), mesh=object(), restarts=1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh("cpu")
+        for fn in (krylov_tpu_torch.solve, krylov_tpu_torch.solve_device):
+            with pytest.raises(ValueError, match="restarts= is single-device only"):
+                fn(A, np.ones(36), mesh=mesh, restarts=1)
+    finally:
+        dist.destroy_process_group()

@@ -147,10 +147,10 @@ def test_unknown_method_raises():
 @pytest.mark.parametrize(
     "kw, error, match",
     [
-        # restarts= is ported; with mesh= it still raises, naming the item
-        # that brings mesh= (chunk_iters=, with refine= too, is ported:
-        # tests/test_torch_chunked.py)
-        (dict(restarts=2, mesh=object()), NotImplementedError, "item 11"),
+        # restarts= and mesh= are ported; a mesh that is not a 1-D
+        # torch.distributed DeviceMesh raises before anything runs (the
+        # mesh= errors of a real mesh: tests/test_torch_dist.py)
+        (dict(restarts=2, mesh=object()), TypeError, "DeviceMesh"),
         # M= and spectral_bounds= are ported; given to a method that does
         # not read them they raise instead of being dropped
         (dict(M=object()), ValueError, "M= is read by"),
@@ -210,7 +210,7 @@ def test_context_widens_operands_like_jax():
     ):
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="axis= and group= together"):
         Context(axis="rows")
 
 
