@@ -34,8 +34,14 @@ loaded and resumed; ``solve_batched`` of 8 right-hand sides on the eager
 k-skip loops, each member held against its solo solve; and the
 ``condition.json`` driver, ``python -m krylov_tpu_torch solve``, in a
 subprocess (phase 15, started after the build beside the untimed checks
-of phases 3-4b and read before phase 5).  It prints a JSON line of the
-kernels and last a JSON line with the device.
+of phases 3-4b and read before phase 5, as are the five examples of
+``krylov_tpu_torch.examples``, phase 19); ``solve_batched`` of 8
+right-hand sides on the batched pipelined and CA loops, each member held
+bitwise against its solo solve (phase 17); ``solve(mesh=)`` and
+``solve_batched(mesh=)`` in an NCCL world of one (phase 16); last, in a
+process of its own, the profiler's traces of the main path and
+``phase_times`` (phase 18).  It prints a JSON line of the kernels and
+last a JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
 no CUDA device it exits 1 before printing a result.
@@ -138,6 +144,40 @@ SHARDED_RUNS = {("cg", 0, None): 1053, ("mrr", 0, None): 934, ("kskipcg", 4, Non
                 ("kskipmrr", 4, None): 936, ("adaptivekskipmrr", 8, None): 937, ("pcg", 0, "jacobi"): 1053,
                 ("cacg", 4, None): 1056}
 SHARDED_TIMED = (("cg", 0), ("kskipmrr", 4))  # sharded against eager, paired: eager, sharded, sharded, eager
+SHARDED_BATCHED = (("pcg", 0, "jacobi"), ("cacg", 4, None))  # 16b: solve_batched(mesh=) of 4 RHS
+# Phase 17, solve_batched of NRHS right-hand sides (seed 21, float64) on the
+# batched eager loops of the main-path system: (method, preconditioner, k),
+# PRECOND_RUNS' configurations; each member held bitwise against its solo
+# solve
+BATCHED_RUNS = [("pcg", "none", 0), ("pcg", "jacobi", 0), ("pcg", "chebyshev6", 0),
+                ("chronopoulos_gear", "jacobi", 0), ("gropp", "jacobi", 0), ("pipelined_cg", "jacobi", 0),
+                ("cacg", "none", 4), ("camrr", "none", 4)]
+# Phase 19, the examples of krylov_tpu_torch.examples as subprocesses on the
+# card: their time limit in seconds, and the lines tests/test_examples.py
+# asserts for their JAX twins, as (text, count; None: at least once)
+EXAMPLE_TIMEOUT = 300
+PROFILING_TIMEOUT = 300  # phase 18's process, in seconds
+EXAMPLE_MARKERS = {
+    "basic_solve": (("converged", 5),),
+    "preconditioned": (("converged=True", 12),),
+    "multi_rhs_solve": (("converged=True", 8),),
+    "production_long_solve": (("matches unbroken solve", None), ("resumed: converged=True", None)),
+    "distributed_solve": (("true relative residual", None),),
+}
+# runs one example as its own module's __main__, then prints the launch
+# counts of the hand kernels in its process as a last line
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
+name = sys.argv[1]
+sys.argv = [name, "--device", "cuda"]
+runpy.run_module("krylov_tpu_torch.examples." + name, run_name="__main__", alter_sys=True)
+counts = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches}
+for fn in (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipcg_solve_2d,
+           fused_kskip.fused_kskipmrr_solve_2d):
+    counts[fn.__name__] = [fn.launches_resident, fn.launches_streaming]
+print("launches " + json.dumps(counts), flush=True)
+"""
 # chunked against unbroken eager solves: the same loop bodies on the same
 # values, but a chunk's last residual is its final ||r||, where the
 # unbroken solve records the recurred one
@@ -1140,6 +1180,248 @@ def batched_kskip(A, A_csr, hyb, dev, stencil) -> int:
     return total
 
 
+def batched_eager(ops, A_csr, B, stencil) -> int:
+    """17. solve_batched of the NRHS right-hand sides of phase 14 (seed 21,
+    float64) on the batched eager loops of the main-path stencil, for
+    BATCHED_RUNS (pcg with M None, Jacobi and Chebyshev(6), the other
+    pipelined methods with Jacobi, cacg/camrr k=4 with Lanczos bounds).
+    Each member's count, index, convergence flag, nosl and residual traces
+    and x bitwise equal to its solo solve; the host float64 true residuals
+    below tol.  K1's counter is set to 0 before the batch and before each
+    solo solve: a pipelined batch launches K1 as often as its longest
+    solo solve (one launch a batched SpMV, d a Chebyshev application); a
+    CA batch may add, in an outer iteration where some members roll back
+    while others advance, the rollback branch's SpMVs (one for cacg, two
+    for camrr's half-step) to the advance's one, which a solo solve takes
+    in turns; those outer iterations are counted and printed.  Times a
+    solve, batched against the solos, with CUDA events.  Returns K1's
+    launches of the batches."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import precond
+    from krylov_tpu_torch.solvers import cacg
+
+    A = ops[torch.float64]
+    Ms = {"none": None, "jacobi": precond.jacobi(A), "chebyshev6": precond.chebyshev(A, degree=6)}
+    bounds = precond.lanczos_bounds(A)
+    mixed = [0]  # outer iterations of a CA batch that ran both branches
+    read = cacg._Outer.read
+
+    def logged(self, *args):
+        out = read(self, *args)
+        mixed[0] += bool(out[0].size and out[1].size)
+        return out
+
+    cacg._Outer.read = logged
+    total, failures = 0, []
+    try:
+        for m, p, k in BATCHED_RUNS:
+            kw = dict(method=m, M=Ms[p], k=k, tol=TOL, maxiter=MAXITER)
+            if m in ("cacg", "camrr"):
+                kw["spectral_bounds"] = bounds
+            mixed[0] = 0
+            stencil.stencil_matvec_2d.launches = 0
+            t_batch, res = cuda_ms(lambda: krylov_tpu_torch.solve_batched(A, B, **kw))
+            k1_batch, n_mixed = stencil.stencil_matvec_2d.launches, mixed[0]
+            total += k1_batch
+            solos, k1_solo = [], []
+
+            def run_solos():
+                for b in B:
+                    stencil.stencil_matvec_2d.launches = 0
+                    solos.append(krylov_tpu_torch.solve_device(A, b, **kw))
+                    k1_solo.append(stencil.stencil_matvec_2d.launches)
+
+            t_solo, _ = cuda_ms(run_solos)
+            true_res = max(true_rel(A_csr, B[j].cpu().numpy(), res.x[j]) for j in range(NRHS))
+            phase(f"batched {m} M={p}{f' k={k}' if k else ''} float64 eager, stencil, {NRHS} RHS: iterations "
+                  f"{res.iterations.tolist()} (solo {[int(s.iterations) for s in solos]}), outer {res.index.tolist()}, "
+                  f"converged {res.converged.tolist()}; K1 launches batched {k1_batch}, longest solo {max(k1_solo)}"
+                  + (f", outer iterations with a rollback beside an advance {n_mixed}" if m in ("cacg", "camrr")
+                     else "") + f"; {t_batch / NRHS:.3f} ms a solve batched, {t_solo / NRHS:.3f} ms solo "
+                  f"({t_batch / t_solo:.4f}x; CUDA events); host f64 true res max {true_res:.6e}")
+            for j, s in enumerate(solos):
+                m_ = int(s.index) + 1
+                same = ((int(res.iterations[j]), int(res.index[j]), bool(res.converged[j]))
+                        == (int(s.iterations), int(s.index), bool(s.converged))
+                        and torch.equal(res.nosl_trace[j, :m_], s.nosl_trace[:m_])
+                        and torch.equal(res.residual_trace[j, :m_], s.residual_trace[:m_])
+                        and torch.equal(res.x[j], s.x))
+                if not (same and bool(s.converged)):
+                    failures.append(f"batched {m} M={p} member {j}: not bitwise its solo solve")
+            if not true_res < TOL:
+                failures.append(f"batched {m} M={p}: host true residual {true_res:.3e}")
+            extra = 2 * n_mixed if m in ("cacg", "camrr") else 0
+            if not max(k1_solo) <= k1_batch <= max(k1_solo) + extra:
+                failures.append(f"batched {m} M={p}: {k1_batch} K1 launches, the longest solo solve {max(k1_solo)}"
+                                f" (+ at most {extra} for rollbacks)")
+
+    finally:
+        cacg._Outer.read = read
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 17", failures)
+    return total
+
+
+def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
+    """18, in the process of :func:`profiling_child`.
+    :mod:`krylov_tpu_torch.diagnostics.profiling` on the main path:
+    ``trace_solve`` of the float64 MrR solve (934 iterations) writes a
+    trace whose kernel events name the resident K2 kernel, and a
+    warm-started one (x0 = half the first solve's x) names K1 beside it,
+    each on its first try; ``phase_times`` returns its five keys with 934
+    iterations.  Prints each trace's kernel names with their summed device
+    µs.  Returns the phase's launches of K1 and of K2 on each route."""
+    import glob
+    import os
+
+    from krylov_tpu_torch.diagnostics import profiling
+
+    counted = (stencil.stencil_matvec_2d, fused.fused_mrr_solve_2d)
+    reset(counted)
+    x0, failures = None, []
+    for run in ("cold", "warm"):
+        want = {"mrr_resident_kernel": True, "stencil2d_kernel": run == "warm"}
+        d = os.path.join(tmp, f"trace_{run}")
+        x, info = profiling.trace_solve(A, b_np, d, method="mrr", tol=TOL, maxiter=MAXITER, x0=x0)
+        paths = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        with open(paths[0]) as f:
+            trace_events = json.load(f)["traceEvents"]
+        events = [e for e in trace_events if e.get("cat") == "kernel"]
+        launches = [e["ts"] for e in trace_events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver") and "aunch" in e.get("name", "")]
+        us = {}
+        for e in events:
+            us[e["name"]] = us.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+        named = {key: any(key in n for n in us) for key in want}
+        offset = min(e["ts"] for e in events) - min(launches) if events and launches else float("nan")
+        phase(f"trace_solve mrr float64 {run}: {len(paths)} trace file(s), {len(events)} kernel events for "
+              f"{len(launches)} launch calls, first kernel {offset:.1f} us after the first launch; "
+              f"iterations {info['iterations']}, converged {info['converged']}; kernels (device us summed): "
+              + ", ".join(f"{n[:60]} {v:.3f}" for n, v in sorted(us.items(), key=lambda kv: -kv[1])[:6]))
+        if len(paths) != 1 or not info["converged"] or any(named[key] != v for key, v in want.items() if v):
+            failures.append(f"trace_solve {run}: {len(paths)} trace files, kernels named {named}")
+        if run == "cold":
+            if info["iterations"] != 934:
+                failures.append(f"trace_solve cold: {info['iterations']} iterations, want 934")
+            x0 = 0.5 * x
+    pt = profiling.phase_times(A, b_np, method="mrr", tol=TOL, maxiter=MAXITER)
+    phase(f"phase_times mrr float64 N={NX * NX}: " + ", ".join(
+        f"{key} {v:.6f}" if isinstance(v, float) else f"{key} {v}" for key, v in pt.items()))
+    keys = {"compile_plus_first_solve_s", "solve_s", "fetch_s", "iterations", "converged"}
+    if set(pt) != keys or pt["iterations"] != 934 or not pt["converged"]:
+        failures.append(f"phase_times: {pt}")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 18", failures)
+    launches = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches}
+    launches.update(route_counts(counted[1:]))
+    return launches
+
+
+def profiling_child(tmp: str) -> int:
+    """Phase 18's process (``chip_smoke.py --profiling TMP``): the
+    main-path system in float64 and its b, then :func:`profiling_phase`,
+    whose launches it prints as a last line.  A process of its own, so
+    that its traces are the process's first profiler sessions (on the
+    card, traces taken after long use of the profiler in one process have
+    lost kernel records; PERF.md, Open question 7) and that its profiler
+    sessions leave no trace on the timed phases of the main process."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch.kernels import fused, stencil
+    from krylov_tpu_torch.sparse import fixtures
+
+    if not torch.cuda.is_available():
+        return 1
+    A = fixtures.laplace2d(NX, dtype=torch.float64, constant=True, device=torch.device("cuda"))
+    b_np = np.random.default_rng(0).standard_normal(NX * NX)
+    launches = profiling_phase(A, b_np, tmp, fused, stencil)
+    print("launches " + json.dumps(launches), flush=True)
+    return 0
+
+
+def profiling_run(tmp: str) -> dict:
+    """18. :func:`profiling_child` as a subprocess on the card, after every
+    timed phase, within PROFILING_TIMEOUT seconds; its lines are printed,
+    and a nonzero exit fails the phase.  Returns its launches: ``{name:
+    launches}`` for K1, ``{name: [resident, streaming]}`` for K2."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"), "--profiling", tmp],
+                          capture_output=True, text=True, cwd=root, timeout=PROFILING_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        phase(line)
+    phase(f"phase 18 process: exit {proc.returncode}, {time.perf_counter() - t0:.2f} s (subprocess wall)")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith("launches "):
+        phase(proc.stdout[-2000:] + proc.stderr[-4000:])
+        raise AssertionError(f"phase 18 failed: exit {proc.returncode}")
+    return json.loads(lines[-1].removeprefix("launches "))
+
+
+def start_examples() -> dict:
+    """19, started: each example of ``krylov_tpu_torch.examples`` as its own
+    subprocess on the card (``--device cuda``), through EXAMPLE_RUNNER,
+    which prints the example's launches of the hand kernels after it.
+    They run beside phases 3-4b (and phase 15), which time nothing they
+    hold; :func:`examples_phase` waits for them before phase 5.  Returns
+    ``{name: (process, start time)}``."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {name: (subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, name], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, cwd=root), time.perf_counter())
+            for name in EXAMPLE_MARKERS}
+
+
+def examples_phase(runs: dict, cards: int) -> dict:
+    """19. The examples of :func:`start_examples`, each within
+    EXAMPLE_TIMEOUT seconds of its start: exit 0, no "diverged", the
+    markers of EXAMPLE_MARKERS, and distributed_solve's world of min(cards,
+    4) NCCL ranks (its ranks are processes of their own, whose launches
+    are not counted here).  Returns the launches the examples' processes
+    counted, summed: ``{name: [launches]}`` for K1, ``{name: [resident,
+    streaming]}`` for K2/K3/K5/K6."""
+    failures, total = [], {}
+    for name, (proc, t0) in runs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            failures.append(f"example {name}: not done within {EXAMPLE_TIMEOUT} s")
+            continue
+        wall = time.perf_counter() - t0
+        lines = stdout.strip().splitlines()
+        counts = json.loads(lines[-1].removeprefix("launches ")) if lines and lines[-1].startswith("launches ") else {}
+        body = "\n".join(lines[:-1])
+        phase(f"example {name}: exit {proc.returncode}, {wall:.2f} s from its start (subprocess wall, beside "
+              f"phases 3-4b); launches {json.dumps(counts)}\n  " + "\n  ".join(
+                  line for line in lines[:-1] if line.strip() and not line.startswith(("#", "Method", "Initial"))))
+        markers = list(EXAMPLE_MARKERS[name])
+        if name == "distributed_solve":
+            markers.append((f"devices: {min(cards, 4)} x cuda", None))
+        ok = proc.returncode == 0 and counts and "diverged" not in body and all(
+            (body.count(text) >= 1) if n is None else (body.count(text) == n) for text, n in markers)
+        if not ok:
+            phase(stderr[-4000:])
+            failures.append(f"example {name}: exit {proc.returncode}, markers {markers}")
+        for key, v in counts.items():
+            v = v if isinstance(v, list) else [v]
+            total[key] = [a + b for a, b in zip(total.get(key, [0] * len(v)), v)]
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 19", failures)
+    return total
+
+
 def fixup_on_card(ops, stencil) -> None:
     """16a. The sharded stencil matvec's K1 calls at a split of the
     main-path grid over 4 ranks, without a world: each rank's bulk (K1 on
@@ -1179,7 +1461,7 @@ def fixup_on_card(ops, stencil) -> None:
                 raise AssertionError(f"the sharded stencil matvec disagrees with K1 on the whole grid ({label} {dt})")
 
 
-def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil) -> int:
+def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     """16. ``solve(mesh=)`` in an NCCL world of one (a ``file://`` store in
     ``tmp``, ``device_id`` the card): each run of SHARDED_RUNS on the
     main-path system in float64 held against the eager single-device solve
@@ -1191,6 +1473,10 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil) -> int:
     all-reduces an iteration, ms an iteration sharded against eager on the
     host clock (paired: eager, sharded, sharded, eager, twice) and the
     all-gather's µs on the HYB, with the card's name and power limit.
+    16b: ``solve_batched(mesh=)`` of SHARDED_BATCHED on 4 of ``B``'s
+    right-hand sides, bitwise equal to the eager batch, with as many
+    all-reduces as its longest member's solo sharded solve, and ms an
+    (outer) iteration beside the members solved one by one.
     Then, with the world gone, the multi-rank NCCL runs where the machine
     has two cards or more (:mod:`krylov_tpu_torch.diagnostics.dryrun_multichip`
     with the main-path solves at N = 250k, and :mod:`.weak_scaling`, over
@@ -1263,6 +1549,49 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil) -> int:
         P_csr, H = hyb
         b_h = np.random.default_rng(0).standard_normal(H.shape[0])
         hold("cg HYB powerlaw_spd(2**20), all-gather", H, P_csr, b_h, dict(method="cg", tol=TOL, maxiter=MAXITER))
+
+        # 16b. batches under mesh=: one (batch, n) loop, whose reductions sum
+        # the whole batch in one all-reduce each
+        B4 = B[:4]
+        for m, k, p in SHARDED_BATCHED:
+            kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER)
+            if p == "jacobi":
+                kw["M"] = precond.jacobi(A)
+            if m == "cacg":
+                kw["spectral_bounds"] = bounds
+            eager = krylov_tpu_torch.solve_batched(A, B4, **kw)
+            stencil.stencil_matvec_2d.launches, all_reduce.calls = 0, 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = krylov_tpu_torch.solve_batched(A, B4, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            t_batch = time.perf_counter() - t0
+            k1, reduces = stencil.stencil_matvec_2d.launches, all_reduce.calls
+            k1_total += k1
+            solo_reduces, t_solo = [], 0.0
+            for b in B4:
+                all_reduce.calls = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                krylov_tpu_torch.solve_device(A, b, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+                t_solo += time.perf_counter() - t0
+                solo_reduces.append(all_reduce.calls)
+            steps = int(res.index.max())  # (outer) iterations of the longest member
+            same = (torch.equal(res.x, eager.x) and torch.equal(res.iterations, eager.iterations)
+                    and torch.equal(res.residual_trace, eager.residual_trace)
+                    and torch.equal(res.nosl_trace, eager.nosl_trace))
+            true_res = max(true_rel(A_csr, B4[j].cpu().numpy(), res.x[j]) for j in range(len(B4)))
+            phase(f"sharded batch {m}{f' k={k}' if k else ''}{f' M={p}' if p else ''} float64, {len(B4)} RHS: "
+                  f"iterations {res.iterations.tolist()}, bitwise equal to the eager batch {same}, host f64 true res "
+                  f"max {true_res:.6e}; NCCL all-reduces {reduces} ({reduces / steps:.3f} an (outer) iteration of "
+                  f"the longest member), member by member {solo_reduces} (longest {max(solo_reduces)}); K1 launches "
+                  f"{k1}; ms an (outer) iteration of the batch {t_batch * 1e3 / steps:.4f}, member by member (the "
+                  f"path before the batch loop) {t_solo * 1e3 / steps:.4f} ({t_batch / t_solo:.4f}x; host clock "
+                  f"between synchronisations; {smi})")
+            if not (same and bool(res.converged.all()) and true_res < TOL and reduces == max(solo_reduces)):
+                failures.append(f"sharded batch {m}: not the eager batch bitwise, or {reduces} all-reduces against "
+                                f"the longest member's {max(solo_reduces)}")
 
         # the all-gather of one iterate of the HYB system, alone
         x = torch.from_numpy(b_h).to(H.device)
@@ -1423,9 +1752,11 @@ def smoke(tmp: str, started: list) -> int:
     _build.library()
     phase(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.nvcc()}, {' '.join(_build.FLAGS)})")
 
-    mark("15 cli, started")
+    mark("15 cli and 19 examples, started")
     cli_run = start_cli(tmp)
     started.append(cli_run[0])
+    example_runs = start_examples()
+    started.extend(proc for proc, _ in example_runs.values())
 
     mark("3 K1")
     # 3. K1 against its plain version, on the main-path grid in both forms,
@@ -1528,6 +1859,8 @@ def smoke(tmp: str, started: list) -> int:
     A_csr = laplace2d_csr_f64(NX)
     mark("15 cli")
     cli_phase(cli_run, A_csr)
+    mark("19 examples")
+    ex = examples_phase(example_runs, torch.cuda.device_count())
 
     mark("5 main path")
     # 5. the main path through solve(), counters from this run only
@@ -1791,9 +2124,14 @@ def smoke(tmp: str, started: list) -> int:
     ckpt_launches = checkpoint_phase(ops[f64], b_np, A_csr, fused_kskip)
     mark("14 batched k-skip")
     k1_launches += chunk_launches["K1"] + batched_kskip(ops[f64], A_csr, hyb, dev, stencil)
+    B21 = torch.from_numpy(np.random.default_rng(21).standard_normal((NRHS, NX * NX))).to(dev)
+    mark("17 batched eager")
+    k1_launches += batched_eager(ops, A_csr, B21, stencil)
     mark("16 sharded")
     fixup_on_card(ops, stencil)
-    k1_launches += sharded_phase(ops, b_np, A_csr, hyb, tmp, stencil)
+    k1_launches += sharded_phase(ops, b_np, A_csr, hyb, tmp, stencil, B21)
+    mark("18 profiling")
+    prof = profiling_run(tmp)
     mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer
@@ -1808,33 +2146,42 @@ def smoke(tmp: str, started: list) -> int:
                 "library_ms": library_ms}
 
     res_src, str_src = "krylov_tpu_torch/kernels/csrc/fused_resident.cu", "krylov_tpu_torch/kernels/csrc/fused.cu"
+    def more(fn, route):
+        """The launches of phases 18 (K2, K1) and 19 (the examples' processes)
+        on ``route`` (0 resident, 1 streaming) of the wrapper ``fn``."""
+        p = prof.get(fn, 0)
+        return (p[route] if isinstance(p, list) else p) + ex.get(fn, [0, 0])[route]
+
     kernels = [
-        # K1's launches: those of the eager paths it carries, phases 11, 12
-        # and 14 (the fused main path of phase 5 launched it for the warm
-        # start alone); each path's counts run from 0, and the resident
-        # K2/K3/K5 entries add the fused chunks of phase 12 (K5 also the
-        # resume of phase 13) to the main path's launches
+        # K1's launches: those of the eager paths it carries, phases 11, 12,
+        # 14, 16 and 17 and the examples of 19 (the fused main path of phase
+        # 5 launched it for the warm start alone, phase 18 for its warm
+        # trace); each path's counts run from 0, and the resident K2/K3/K5
+        # entries add the fused chunks of phase 12 (K5 also the resume of
+        # phase 13), the traced and timed solves of phase 18 (K2) and the
+        # examples of phase 19 to the main path's launches
         entry("stencil_matvec_2d", "krylov_tpu_torch/kernels/csrc/stencil.cu", "krylov_tpu/kernels/stencil.py:89",
-              k1_launches, k1_err, spmv[f64][0], spmv[f64][1], k1_bound, conv[f64][0]),
+              k1_launches + more("stencil_matvec_2d", 0), k1_err, spmv[f64][0], spmv[f64][1], k1_bound,
+              conv[f64][0]),
         entry("fused_mrr_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:344",
-              routes["fused_mrr_solve_2d"][0] + chunk_launches["fused_mrr_solve_2d"], k23_err["mrr", f64],
-              ms["mrr", f64][0], ms["mrr", f64][1],
-              k23_bound["mrr", f64]),
-        entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344", stream["mrr"][0],
-              stream["mrr"][1], stream["mrr"][2], stream["mrr"][3], stream["mrr"][4]),
+              routes["fused_mrr_solve_2d"][0] + chunk_launches["fused_mrr_solve_2d"] + more("fused_mrr_solve_2d", 0),
+              k23_err["mrr", f64], ms["mrr", f64][0], ms["mrr", f64][1], k23_bound["mrr", f64]),
+        entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344",
+              stream["mrr"][0] + more("fused_mrr_solve_2d", 1), stream["mrr"][1], stream["mrr"][2],
+              stream["mrr"][3], stream["mrr"][4]),
         entry("fused_cg_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:259",
-              routes["fused_cg_solve_2d"][0] + chunk_launches["fused_cg_solve_2d"], k23_err["cg", f64],
-              ms["cg", f64][0], ms["cg", f64][1],
-              k23_bound["cg", f64]),
-        entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259", stream["cg"][0],
-              stream["cg"][1], stream["cg"][2], stream["cg"][3], stream["cg"][4]),
+              routes["fused_cg_solve_2d"][0] + chunk_launches["fused_cg_solve_2d"] + more("fused_cg_solve_2d", 0),
+              k23_err["cg", f64], ms["cg", f64][0], ms["cg", f64][1], k23_bound["cg", f64]),
+        entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259",
+              stream["cg"][0] + more("fused_cg_solve_2d", 1), stream["cg"][1], stream["cg"][2], stream["cg"][3],
+              stream["cg"][4]),
     ]
     kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
     for m, fn, line, witness in (("kskipmrr", "fused_kskipmrr_solve_2d", 528, ("adaptivekskipmrr", 8)),
                                  ("kskipcg", "fused_kskipcg_solve_2d", 629, ("kskipcg", 4))):
         for route in KSKIP_ROUTES:
-            launches = kroutes[fn][0] if route == "resident" else kstream[fn]
+            launches = (kroutes[fn][0] if route == "resident" else kstream[fn]) + more(fn, KSKIP_ROUTES.index(route))
             if route == "resident" and fn == "fused_kskipmrr_solve_2d":  # the fused chunks and the resume
                 launches += chunk_launches[fn] + ckpt_launches
             err = max(kerr[m, 4, "float64", route], kerr[(*witness, "float64", route)])
@@ -1847,4 +2194,4 @@ def smoke(tmp: str, started: list) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profiling_child(sys.argv[2]) if sys.argv[1:2] == ["--profiling"] else main())

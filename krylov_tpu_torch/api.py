@@ -86,8 +86,6 @@ _FUSED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
 # methods whose eager loops take carry_in/emit_carry: chunk_iters is exact
 # for them
 _CARRY_METHODS = ("cg", "mrr", *_KSKIP_METHODS, *_CACG_METHODS)
-# methods whose eager loops run a (batch, n) block as one loop
-_BATCHED_METHODS = ("cg", "mrr", *_KSKIP_METHODS)
 
 
 def _check_options(method: str, mesh=None, M=None, spectral_bounds=None) -> None:
@@ -571,15 +569,18 @@ def solve_batched(
 
     On the fused route the members run one fused kernel each, back to back
     on one stream with no host sync in between (the JAX package's
-    ``lax.map``).  On the eager route CG, MrR and the k-skip family run the
-    whole batch as one loop over ``(batch, N)`` blocks, each member
-    freezing on its own (the JAX package's ``vmap``), through one K1 launch
-    an SpMV on a stencil operator on the card; the adaptive loop reads the
-    guard of the whole batch at once and steps its members grouped by
-    their current k.  The preconditioned, pipelined and CA methods run
-    member by member, with the spectral bounds of ``cacg``/``camrr``
-    resolved once.  ``mesh=`` runs the batch row-partitioned, as one
-    ``(batch, n_local)`` loop where the method batches (one all-reduce a
+    ``lax.map``).  On the eager route every method runs the whole batch as
+    one loop over ``(batch, N)`` blocks, each member freezing on its own
+    (the JAX package's ``vmap``), through one K1 launch an SpMV on a
+    stencil operator on the card (d launches a Chebyshev application of
+    ``M``, for the whole block).  The loops that read the host (the
+    adaptive k-skip guard, the ``cacg``/``camrr`` divergence guard) read
+    the whole batch's flags at once, once an outer iteration; the adaptive
+    loop steps its members grouped by their current k, and the CA loops
+    run the advance on the members that advance and the rollback on those
+    that roll back.  The spectral bounds of ``cacg``/``camrr`` are
+    resolved once for the batch.  ``mesh=`` runs the batch
+    row-partitioned, as one ``(batch, n_local)`` loop (one all-reduce a
     reduction for the whole batch), and returns the whole ``x`` on every
     rank; ``fused=True`` raises with it."""
     _check_options(method, mesh, M, spectral_bounds)
@@ -605,12 +606,11 @@ def solve_batched(
 
         return solve_sharded(A, B, X0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
                              scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds)
-    if not use_fused and method in _BATCHED_METHODS:
-        return _run_base(A, B, X0, tol, method, maxiter, k, scalar_dtype, False, basis_norm)
-    bounds = _resolve_bounds(A, method, spectral_bounds)
+    if not use_fused:
+        return _run_base(A, B, X0, tol, method, maxiter, k, scalar_dtype, False, basis_norm, M,
+                         _resolve_bounds(A, method, spectral_bounds))
     return _stack_members([
-        _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, use_fused,
-                  basis_norm, M, bounds)
+        _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, True, basis_norm)
         for j in range(B.shape[0])
     ])
 

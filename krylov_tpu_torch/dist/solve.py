@@ -82,8 +82,8 @@ def solve_sharded(
     device of ``A``, whose type must be the mesh's.  The system is padded so
     that the number of ranks divides N; the spectral bounds of ``cacg``/
     ``camrr`` are resolved once on the whole ``A`` and taken from group rank
-    0.  A batch runs as one ``(batch, n_local)`` loop for the methods that
-    batch (``api._BATCHED_METHODS``), member by member for the others.
+    0.  A batch runs as one ``(batch, n_local)`` loop, with one all-reduce a
+    reduction for the whole batch.
 
     The timed window starts after a barrier of the rows group and runs
     between device synchronisations (NCCL runs on its own streams, so the
@@ -92,7 +92,7 @@ def solve_sharded(
     stripped: ``gather=False`` returns this rank's rows of the unpadded
     ``x`` instead.  The traces are the same on every rank.  With
     ``return_times=True`` returns ``(result, exec_seconds)``."""
-    from krylov_tpu_torch.api import _BATCHED_METHODS, _CACG_METHODS, _resolve_bounds, _run_base, _stack_members
+    from krylov_tpu_torch.api import _CACG_METHODS, _resolve_bounds, _run_base
 
     (axis,) = mesh.mesh_dim_names
     group = mesh.get_group()
@@ -123,10 +123,7 @@ def solve_sharded(
     t0 = time.perf_counter()
     run = dict(tol=tol, method=method, maxiter=maxiter, k=k, scalar_dtype=scalar_dtype, use_fused=False,
                basis_norm=basis_norm, M=m_op, bounds=bounds, ctx=ctx)
-    if batched and method not in _BATCHED_METHODS:
-        result = _stack_members([_run_base(op, b_l[j], x0_l[j], **run) for j in range(b.shape[0])])
-    else:
-        result = _run_base(op, b_l, x0_l, **run)
+    result = _run_base(op, b_l, x0_l, **run)
     if on_cuda:
         torch.cuda.synchronize(device)
     exec_s = time.perf_counter() - t0

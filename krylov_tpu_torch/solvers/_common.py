@@ -31,7 +31,7 @@ SYNC_EVERY = 32
 def bcast(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``s`` (a scalar per batch member) with trailing unit axes up to
     ``v``'s rank, so it broadcasts over each member's vector."""
-    return s.reshape(s.shape + (1,) * (v.ndim - s.ndim))
+    return s if s.ndim == 0 else s.reshape(s.shape + (1,) * (v.ndim - s.ndim))
 
 
 def tree_select(pred: torch.Tensor, on_true, on_false) -> tuple:

@@ -648,6 +648,64 @@ def test_batched_kskip_members_equal_solos_on_cuda(cuda, method, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method, k, precond", [("pcg", 0, "chebyshev"), ("pipelined_cg", 0, "jacobi"),
+                                                ("cacg", 4, None), ("camrr", 4, None)])
+def test_batched_pipelined_and_ca_members_equal_solos_on_cuda(cuda, method, k, precond):
+    """The pipelined family and the CA loops on a (4, n) block on the card:
+    the K1 launches of the longest solo solve (d a Chebyshev application,
+    for the whole block), and each member bitwise its solo solve (count,
+    nosl, residual trace, x)."""
+    from krylov_tpu_torch import precond as pc
+
+    A = fixtures.laplace2d(40, constant=True, device=cuda)
+    B = torch.from_numpy(np.random.default_rng(36).standard_normal((4, A.shape[0]))).to(cuda)
+    kw = dict(method=method, k=k, tol=1e-8, maxiter=2000)
+    if precond:
+        kw["M"] = pc.chebyshev(A, degree=3) if precond == "chebyshev" else pc.jacobi(A)
+    if method in ("cacg", "camrr"):
+        kw["spectral_bounds"] = pc.lanczos_bounds(A)
+    before = stencil.stencil_matvec_2d.launches
+    res = krylov_tpu_torch.solve_batched(A, B, **kw)
+    batched = stencil.stencil_matvec_2d.launches - before
+    solo_launches = []
+    for j in range(4):
+        before = stencil.stencil_matvec_2d.launches
+        solo = krylov_tpu_torch.solve_device(A, B[j], **kw)
+        solo_launches.append(stencil.stencil_matvec_2d.launches - before)
+        m = int(solo.index) + 1
+        assert (int(res.iterations[j]), int(res.index[j])) == (int(solo.iterations), int(solo.index))
+        assert bool(solo.converged) and bool(res.converged[j])
+        assert torch.equal(res.nosl_trace[j, :m], solo.nosl_trace[:m])
+        assert torch.equal(res.residual_trace[j, :m], solo.residual_trace[:m])
+        assert torch.equal(res.x[j], solo.x)
+    assert batched == max(solo_launches)
+
+
+@pytest.mark.cuda
+def test_trace_solve_names_the_hand_kernels(cuda, tmp_path):
+    """diagnostics.profiling.trace_solve on the card: the trace's kernel
+    events name the resident K2 kernel of a cold fused MrR solve, and K1
+    beside it for a warm start (x0 shifted through K1)."""
+    import glob
+    import json
+
+    from krylov_tpu_torch.diagnostics import profiling
+
+    A = fixtures.laplace2d(64, constant=True, device=cuda)
+    b = _rhs(A.shape[0], 37, cuda)
+    names = []
+    for run, x0 in (("cold", None), ("warm", 0.5 * b)):
+        d = tmp_path / run
+        x, info = profiling.trace_solve(A, b, str(d), method="mrr", tol=1e-8, x0=x0)
+        assert info["converged"] and x.device.type == "cuda"
+        (path,) = glob.glob(str(d / "*.pt.trace.json"))
+        with open(path) as f:
+            names.append({e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"})
+    assert any("mrr_resident_kernel" in n for n in names[0])
+    assert any("mrr_resident_kernel" in n for n in names[1]) and any("stencil2d_kernel" in n for n in names[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method, k", [("cg", 0), ("mrr", 0), ("kskipmrr", 4), ("adaptivekskipmrr", 8),
                                        ("camrr", 4)])
 def test_chunked_on_cuda_equals_unbroken(cuda, method, k):

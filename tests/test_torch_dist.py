@@ -125,6 +125,8 @@ CASES.update({
     "batched2-cg-poisson1d-P4": _case(4, "poisson1d", kind="batched", nrhs=2, maxiter=500),
     "batched2-pcg-jacobi-poisson1d-P2": _case(2, "poisson1d", "pcg", precond="jacobi", kind="batched", nrhs=2,
                                               maxiter=500),
+    "batched3-pcg-jacobi-lap2d-P2": _case(2, "lap2d", "pcg", precond="jacobi", kind="batched", nrhs=3, maxiter=1000),
+    "batched3-cacg4-lap2d-P2": _case(2, "lap2d", "cacg", 4, kind="batched", nrhs=3, maxiter=1000),
     "refine2-cg-lap2d-f32-P2": _case(2, "lap2d-f32", tol=1e-11, refine=2, maxiter=None),
     "device-cg-poisson1d-P4": _case(4, "poisson1d", kind="device", maxiter=500),
 })
@@ -482,17 +484,13 @@ def test_every_rank_reports_the_same(worlds, name):
 @pytest.mark.parametrize("name", PROBED)
 def test_all_reduces_an_iteration(worlds, name):
     """One all-reduce per psum of the JAX loop body, an (outer) iteration;
-    a batch of a method that batches makes no more than one system.  The
-    others (pcg here) run a batch member by member, as the single-device
-    solve_batched does (ROADMAP queue 1, item 7c), where the JAX package
-    vmaps them: one system's count a member."""
-    from krylov_tpu_torch.api import _BATCHED_METHODS
-
+    a batch, which runs as one (batch, n_local) loop for every method as
+    the JAX package's vmap does, makes no more than one system: each
+    reduction sums the whole batch's products in one all-reduce."""
     case = CASES[name]
     (c1, i1), (c2, i2) = worlds.ranks(case["P"])[0]["cases"][name]["probe"]
-    members = case["nrhs"] if case["nrhs"] and case["method"] not in _BATCHED_METHODS else 1
     assert i2 > i1
-    assert (c2 - c1) == ALLREDUCES[case["method"]] * (i2 - i1) * members, (c1, i1, c2, i2)
+    assert (c2 - c1) == ALLREDUCES[case["method"]] * (i2 - i1), (c1, i1, c2, i2)
 
 
 @pytest.mark.parametrize("system, P", MATVECS)

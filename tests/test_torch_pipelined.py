@@ -116,7 +116,8 @@ def test_float32_with_float64_scalars_converges(method):
 
 @pytest.mark.parametrize("method", ["pcg", "pipelined_cg"])
 def test_solve_batched_with_M_matches_solo(method):
-    """solve_batched runs the preconditioned methods member by member: each
+    """solve_batched runs the preconditioned methods as one (batch, n)
+    loop, the Chebyshev preconditioner applied to the whole block: each
     member is the solo solve, bit for bit."""
     A = fixtures.laplace2d(16)
     M = precond.chebyshev(A, degree=3)
