@@ -40,8 +40,10 @@ right-hand sides on the batched pipelined and CA loops, each member held
 bitwise against its solo solve (phase 17); ``solve(mesh=)`` and
 ``solve_batched(mesh=)`` in an NCCL world of one (phase 16); last, in a
 process of its own, the profiler's traces of the main path and
-``phase_times`` (phase 18).  It prints a JSON line of the kernels and
-last a JSON line with the device.
+``phase_times`` (phase 18); last, the port's bench, ``python -m
+krylov_tpu_torch.bench``, in a subprocess, with its defaults (float64 MrR)
+and with k-skip MrR k=4 (phase 20).  It prints a JSON line of the kernels
+and last a JSON line with the device.
 
 Imports no JAX.  Any failed check raises, so the exit code is nonzero; with
 no CUDA device it exits 1 before printing a result.
@@ -164,6 +166,12 @@ EXAMPLE_MARKERS = {
     "production_long_solve": (("matches unbroken solve", None), ("resumed: converged=True", None)),
     "distributed_solve": (("true relative residual", None),),
 }
+# Phase 20, the port's bench (python -m krylov_tpu_torch.bench) as a
+# subprocess: its arguments and the checked count of its float64 solve
+# (PERF.md section 2), its time limit and its own budget, in seconds
+BENCH_RUNS = {(): 934, ("--method", "kskipmrr", "--k", "4"): 936}
+BENCH_TIMEOUT = 300
+BENCH_BUDGET = 240
 # runs one example as its own module's __main__, then prints the launch
 # counts of the hand kernels in its process as a last line
 EXAMPLE_RUNNER = """
@@ -241,17 +249,6 @@ def kskip_flops(method: str, k: int, nnz: int, n: int, outer: int) -> float:
     outer iteration."""
     step = 6 if method == "kskipcg" else 10
     return outer * ((3 * k + 2) * 2 * nnz + (6 * k + 6) * 2 * n + (k + 1) * step * n)
-
-
-def laplace2d_csr_f64(nx):
-    """Plain scipy 2-D 5-point Dirichlet Laplacian, A = I (x) T + T (x) I
-    with T = tridiag(-1, 2, -1): built independently of the port."""
-    import numpy as np
-    import scipy.sparse as sp
-
-    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx), dtype=np.float64)
-    I = sp.identity(nx, dtype=np.float64, format="csr")
-    return (sp.kron(I, T) + sp.kron(T, I)).tocsr()
 
 
 def numpy_mrr(A, b, tol, maxiter, x0=None):
@@ -1366,6 +1363,49 @@ def profiling_run(tmp: str) -> dict:
     return json.loads(lines[-1].removeprefix("launches "))
 
 
+def bench_phase(k1_us) -> None:
+    """20. ``python -m krylov_tpu_torch.bench``, the port's bench, in a
+    subprocess after every other phase, once a run of BENCH_RUNS, each
+    within BENCH_TIMEOUT seconds (and its own budget of BENCH_BUDGET): its
+    JSON line is printed, and it must exit 0, take the run's checked count,
+    reach a true residual below tol on its checked solve and its median
+    trial, launch its three timed solves on the resident route, and read
+    K1's device time from its CUDA graph within 4x of ``k1_us``, phase 6's
+    profiler reading."""
+    import math
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    failures = []
+    for args, want in BENCH_RUNS.items():
+        label = " ".join(args) or "(defaults)"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "krylov_tpu_torch.bench", "--budget", str(BENCH_BUDGET), *args],
+                              capture_output=True, text=True, cwd=root, timeout=BENCH_TIMEOUT)
+        lines = proc.stdout.strip().splitlines()
+        phase(f"bench {label}: exit {proc.returncode}, {time.perf_counter() - t0:.2f} s (subprocess wall)")
+        phase(lines[-1] if lines else "(no output)")
+        if proc.returncode != 0 or not lines:
+            phase(proc.stderr[-4000:])
+            failures.append(f"bench {label}: exit {proc.returncode}")
+            continue
+        e = json.loads(lines[-1])["extra"]
+        us = e["spmv_us_device"]
+        checks = {
+            f"checked count {e['checked_iterations']}, want {want}": e["checked_iterations"] == want,
+            f"true residuals {e['checked_residual_true']:.6e} (checked), {e['residual_true']:.6e} (median trial)":
+                max(e["checked_residual_true"], e["residual_true"]) < TOL,
+            f"route {e['route']}": e["route"] == {"resident": 3, "streaming": 0},
+            f"spmv_us_device {us} against phase 6's K1 {us_text(k1_us)}":
+                k1_us is not None and isinstance(us, float) and math.isfinite(us) and k1_us / 4 <= us <= 4 * k1_us,
+        }
+        for text, ok in checks.items():
+            if not ok:
+                phase(f"  FAILED: bench {label}: {text}")
+                failures.append(f"bench {label}: {text}")
+    raise_failures("phase 20", failures)
+
+
 def start_examples() -> dict:
     """19, started: each example of ``krylov_tpu_torch.examples`` as its own
     subprocess on the card (``--device cuda``), through EXAMPLE_RUNNER,
@@ -1731,6 +1771,7 @@ def smoke(tmp: str, started: list) -> int:
     import numpy as np
 
     import krylov_tpu_torch
+    from krylov_tpu_torch.bench import laplace2d_csr_f64
     from krylov_tpu_torch.kernels import _build, fused, fused_kskip, stencil
     from krylov_tpu_torch.sparse import fixtures
 
@@ -2132,6 +2173,8 @@ def smoke(tmp: str, started: list) -> int:
     k1_launches += sharded_phase(ops, b_np, A_csr, hyb, tmp, stencil, B21)
     mark("18 profiling")
     prof = profiling_run(tmp)
+    mark("20 bench")
+    bench_phase(spmv[f64][2])
     mark("done")
 
     # the k-skip bounds for the timed solves (the median of their outer
