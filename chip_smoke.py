@@ -3,12 +3,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, then drives two paths of
+against its plain PyTorch version on the card (K4, the resident stencil
+pass inside K2/K3/K5/K6, alone through its probe: the pass specialised on
+the term count bitwise the masked one, phase 3b; each resident launch
+counted by the specialisation it took), then drives two paths of
 ``krylov_tpu_torch.solve`` on the 2-D 5-point Laplacian at N = 250,000
 (constant-weight stencil form) in float64 and float32: MrR and CG (and a
 float64 MrR warm-started from the float32 answer), which run K2/K3 on their
 resident route, then k-skip CG (k=4), k-skip MrR (k=4) and adaptive k-skip
-MrR (k=8), which run K5/K6 on theirs.  K2/K3's streaming route is held
+MrR (k=8), which run K5/K6 on theirs, each printing a SHA-256 digest of
+its x and trace (``python3 chip_smoke.py --digests`` prints those lines
+alone, for a checkout of another commit to compare); then degenerate
+systems, an exact warm start and b = 0, for every method and both fused
+routes, and batches with a zero member (phase 5c).  K2/K3's streaming route is held
 against its plain version on ``laplace2d(1500)`` (N = 2.25M), above the
 resident route's capacity; K5/K6's streaming route is forced at N = 250k,
 held beside the resident one against the same plain run (of the first
@@ -56,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 NX = 500  # N = 250,000: the main-path system
 TOL = 1e-5
@@ -117,6 +125,19 @@ KSKIP_FULL = {  # (method, k, dtype): limits at N = 250k over SEEDS (streaming: 
 # (iterations, outer iterations = len(residual) - 1) in float64; in float32
 # it gave 1460, 3001 (not converged) and 1083 (final k 3), not held here.
 KSKIP_RUNS = {"kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8}
+# the main-path fused solves whose x and trace digests phases 5 and 5b
+# print (and chip_smoke.py --digests alone): (method, k)
+DIGEST_RUNS = (("mrr", 0), ("cg", 0), *KSKIP_RUNS.items())
+# K4, the resident stencil pass: its specialisations (the NS of
+# kernels/csrc/resident.cuh, 0 the masked pass), and the systems of phase
+# 3b on which the specialised pass is held bitwise against the masked one
+K4_PASSES = (0, 5, 7)
+K4_SYSTEMS = {"laplace2d(500)": ("laplace2d", (NX,)), "laplace3d(16)": ("laplace3d", (16,)),
+              "laplace3d(64)": ("laplace3d", (64,)), "laplace2d(503, 493)": ("laplace2d", (NX + 3, NX - 7))}
+# Phase 5c, degenerate systems on the main-path system in float64: the
+# methods and their k (s for cacg/camrr)
+DEGENERATE_RUNS = {"cg": 0, "mrr": 0, "kskipcg": 4, "kskipmrr": 4, "adaptivekskipmrr": 8, "cacg": 4, "camrr": 4,
+                   "pcg": 0, "chronopoulos_gear": 0, "gropp": 0, "pipelined_cg": 0}
 KSKIP_F64 = {"kskipcg": (1055, 211), "kskipmrr": (936, 188), "adaptivekskipmrr": (937, 105)}
 # Phase 11, the preconditioned, pipelined and CA solves on the eager loops:
 # (method, preconditioner, k) and, in float64, (iterations, outer
@@ -199,6 +220,9 @@ MAXITER_STREAM = 300  # the streaming phase's fixed iteration count
 # float32 outside the tensor cores, and HBM bandwidth
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# shared-memory bytes an H100 SM serves a clock: K4's bound, whose operands
+# are on chip (the mirror in shared memory, the weights in the arguments)
+SMEM_BYTES_PER_CLOCK = 128
 NRHS = 8  # right-hand sides of the batched phase (bench.py's amortised stage)
 # batched eager CG on the HYB against solo solves: the dot products and the
 # matvec's row sums reduce in other kernels on a (batch, n) block than on
@@ -524,23 +548,26 @@ def kernels_us(fn, reps: int):
 
 
 def conv2d_yardstick(A, x):
-    """K1's one-call yardstick, timed here and called nowhere in the port:
-    ``torch.nn.functional.conv2d`` of the constant 2-D stencil as a 3x3
-    weight with padding=1 (cuDNN's TF32 off) on the same ``x``.  Returns
-    (ms a call by CUDA events over 200 calls, device us a call from the
-    profiler, max |y_conv - y_K1| / max |y_K1|)."""
+    """The one-call yardstick of K1 and K4, timed here and called nowhere in
+    the port: ``torch.nn.functional.conv2d`` (``conv3d`` for a 3-D grid) of
+    the constant stencil as a 3x3 (3x3x3) weight with padding=1 (cuDNN's
+    TF32 off) on the same ``x``.  Returns (ms a call by CUDA events over 200
+    calls, device us a call from the profiler, max |y_conv - y_K1| / max
+    |y_K1|)."""
     import torch
 
     from krylov_tpu_torch.kernels import stencil
 
-    w = torch.zeros((1, 1, 3, 3), dtype=A.dtype, device=x.device)
-    for (d0, d1), c in zip(A.stencil, A.coef):
-        w[0, 0, 1 + d0, 1 + d1] = c
+    dims = len(A.grid)
+    w = torch.zeros((1, 1) + (3,) * dims, dtype=A.dtype, device=x.device)
+    for d, c in zip(A.stencil, A.coef):
+        w[(0, 0, *(1 + di for di in d))] = c
     xi = x.reshape(1, 1, *A.grid)
     torch.backends.cudnn.allow_tf32 = False
+    op = torch.nn.functional.conv2d if dims == 2 else torch.nn.functional.conv3d
 
     def conv():
-        return torch.nn.functional.conv2d(xi, w, padding=1)
+        return op(xi, w, padding=1)
 
     conv()  # warm-up: cuDNN picks its algorithm
     ms, y = cuda_ms(conv, reps=200)
@@ -559,9 +586,59 @@ def true_rel(A_csr, b, x) -> float:
 def reset(fns) -> None:
     for fn in fns:
         fn.launches = 0
-        for route in ("resident", "streaming"):
-            if hasattr(fn, f"launches_{route}"):
-                setattr(fn, f"launches_{route}", 0)
+        for name in ("launches_resident", "launches_streaming", *(f"launches_ns{ns}" for ns in K4_PASSES)):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
+
+
+def pass_counts(fns) -> dict:
+    """``{name: {ns: resident launches}}`` of the K2/K3/K5/K6 wrappers, by
+    the specialisation of K4 each resident launch took."""
+    return {fn.__name__: {ns: getattr(fn, f"launches_ns{ns}") for ns in K4_PASSES} for fn in fns}
+
+
+def check_passes(label: str, fns, before: dict, want: int) -> dict:
+    """Every resident launch of ``fns`` since ``before`` (pass_counts) took
+    K4's specialisation ``want``; returns the launches by specialisation."""
+    now = pass_counts(fns)
+    delta = {name: {ns: now[name][ns] - before[name][ns] for ns in K4_PASSES} for name in now}
+    phase(f"{label}: resident launches by K4 specialisation NS {delta}")
+    for fn in fns:
+        d = delta[fn.__name__]
+        if sum(d.values()) < 1 or d[want] != sum(d.values()):
+            raise AssertionError(f"{label}: {fn.__name__} launched K4's specialisations {d}, not NS = {want} alone")
+    return delta
+
+
+def digest_line(label: str, x, info) -> str:
+    """SHA-256 of the bytes of x and of the residual trace of a solve."""
+    import hashlib
+
+    x_hash = hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    t_hash = hashlib.sha256(info["residual"].tobytes()).hexdigest()
+    return f"digest {label}: x sha256 {x_hash}, trace sha256 {t_hash}"
+
+
+def main_path_digests() -> int:
+    """``chip_smoke.py --digests``: the main-path fused solves of phases 5
+    and 5b alone (the same systems, b, tol and maxiter) and their digest
+    lines, so that a checkout of another commit, whose package this file
+    then imports, prints lines to hold against the full run's."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch.sparse import fixtures
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    b_np = np.random.default_rng(0).standard_normal(NX * NX)
+    for dt in (torch.float64, torch.float32):
+        A = fixtures.laplace2d(NX, dtype=dt, constant=True, device="cuda")
+        for m, k in DIGEST_RUNS:
+            phase(digest_line(f"{m} {dt}", *krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)))
+    return 0
 
 
 def route_counts(fns) -> dict:
@@ -718,8 +795,10 @@ def irregular_system(dev):
 def batched(ops, hyb, dev, fused) -> None:
     """8. solve_batched of NRHS right-hand sides, counters from this run
     only.  Fused route (MrR on the main-path stencil, float64 and float32):
-    one K2 launch per member, back to back with no host sync in between
-    (run under torch.cuda.set_sync_debug_mode("error")); each member equals
+    one K2 launch per member, back to back with no host sync in between:
+    under torch.cuda.set_sync_debug_mode("warn") the batch makes one
+    synchronizing call, the front door's read of which members are zero,
+    before its first launch; each member equals
     a solo fused solve of the same b: the same kernel on the same values.
     Eager route (CG on the phase-9 HYB, float64): one batched loop; each
     member against a solo eager solve, whose dot products reduce in another
@@ -736,11 +815,17 @@ def batched(ops, hyb, dev, fused) -> None:
         tol = torch.tensor(TOL, dtype=dt, device=dev)
 
         def run():
-            torch.cuda.set_sync_debug_mode("error")  # a host sync inside raises
+            torch.cuda.set_sync_debug_mode("warn")  # each host sync warns
             try:
-                return krylov_tpu_torch.solve_batched(ops[dt], B, method="mrr", tol=tol, maxiter=MAXITER)
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    res = krylov_tpu_torch.solve_batched(ops[dt], B, method="mrr", tol=tol, maxiter=MAXITER)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            if len(syncs) != 1:
+                raise AssertionError(f"batched mrr {dt}: {len(syncs)} host syncs, not the front door's one: {syncs}")
+            return res
 
         run()  # warm-up
         t_batch, res = cuda_ms(run)
@@ -1743,6 +1828,166 @@ def cli_phase(run, A_csr) -> None:
         raise AssertionError(f"cli info: exit {rc}, report {report}")
 
 
+def k4_phase(dev) -> dict:
+    """3b. K4, the resident stencil pass of K2/K3/K5/K6, alone
+    (``fused.stencil_pass_probe``, its launches counted nowhere): on each
+    system of K4_SYSTEMS in float64 and float32, the specialised pass
+    (NS = 5 on the 2-D grids, 7 on the collapsed 3-D ones), in both its
+    forms (predicated; split, 2 points at a time), holds the
+    masked pass (NS = 0) bitwise on the same mirror over 3 passes, and the
+    plain stencil to K1's tolerance.  Then its µs a pass on the main-path
+    plan and on laplace3d(64) (NS = 7), as grid_sweep times it: (time of
+    2000 passes - time of 200) / 1800, median of 3, CUDA events; and its
+    bound, the shared-memory bytes of the largest band (NS loads of the
+    element a point) at SMEM_BYTES_PER_CLOCK, at the SM clock nvidia-smi
+    reads while a long probe runs.  Returns, in float64, ``{(ns, split):
+    (max |y - y_plain|, ms a pass, plain ms, bound, conv ms, MHz)}``, the
+    main-path plan for NS 0 and 5 and laplace3d(64) for 7."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch.kernels import fused, stencil
+    from krylov_tpu_torch.sparse import fixtures
+
+    out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, (fixture, shape) in K4_SYSTEMS.items():
+        for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            A = getattr(fixtures, fixture)(*shape, dtype=dt, constant=True, device=dev)
+            coef2, st2, g2, sub = A.collapse_to_2d()
+            ns = fused.pass_terms(st2, True)
+            x = torch.from_numpy(np.random.default_rng(14).standard_normal(A.shape[0])).to(dev, dt)
+            kw = dict(stencil=st2, grid=g2, sub=sub)
+            y0, sums0, _ = fused.stencil_pass_probe(coef2, x, ns_pass=0, reps=3, **kw)
+            same = True
+            for split in (False, True):
+                y, sums, _ = fused.stencil_pass_probe(coef2, x, ns_pass=ns, split=split, reps=3, **kw)
+                same = same and torch.equal(y, y0) and torch.equal(sums, sums0)
+            y_ref = stencil.stencil_matvec_2d_reference(coef2, x, **kw)
+            err = float((y0 - y_ref).abs().max())
+            phase(f"K4 {label} {dt}: NS = {ns}, predicated and split, bitwise the masked pass (NS = 0) "
+                  f"over 3 passes: {same}; max |y - y_plain| {err:.3e} ({rel_err(y0, y_ref):.3e} of max |y|, tol "
+                  f"{rtol:g})")
+            if not (same and rel_err(y0, y_ref) <= rtol):
+                raise AssertionError(f"K4 NS = {ns} on {label} {dt} is not the masked pass bitwise or not the plain "
+                                     f"stencil")
+            if dt != torch.float64 or label not in ("laplace2d(500)", "laplace3d(64)"):
+                continue
+            plain_ms = cuda_ms(lambda: stencil.stencil_matvec_2d_reference(coef2, x, **kw), reps=20)[0]
+            conv_ms = conv2d_yardstick(A, x)[0]
+            _, rows, _, _ = fused.resident_bands(g2, st2, sms, fused.MAX_BLOCKS)
+            fused.stencil_pass_probe(coef2, x, ns_pass=ns, reps=1_000_000, **kw)  # under a second; the clock meanwhile
+            mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                                       capture_output=True, text=True, check=True).stdout.split()[0])
+            torch.cuda.synchronize()
+            clocks = rows * g2[1] * len(st2) * dt.itemsize / SMEM_BYTES_PER_CLOCK
+            bnd = (clocks / (mhz * 1e3), "bytes")
+            for ns_, split in ((0, False), (ns, False), (ns, True)) if ns == 5 else ((ns, False), (ns, True)):
+                def launch(reps):
+                    fused.stencil_pass_probe(coef2, x, ns_pass=ns_, split=split, reps=reps, **kw)
+
+                launch(10)  # warm-up
+                us = (statistics.median(cuda_ms(lambda: launch(2000))[0] for _ in range(3))
+                      - statistics.median(cuda_ms(lambda: launch(200))[0] for _ in range(3))) / 1800 * 1e3
+                out[ns_, split] = (err, us * 1e-3, plain_ms, bnd, conv_ms, mhz)
+                form = "masked" if ns_ == 0 else "split" if split else "predicated"
+                phase(f"K4 NS = {ns_} ({form}) {label} float64: {us:.3f} us a pass (probe, (2000 - 200 passes) / "
+                      f"1800, median of 3); plain stencil {plain_ms * 1e3:.3f} us; bound {bnd[0] * 1e3:.3f} us "
+                      f"(shared-memory bytes of the largest band, {rows} rows, {len(st2)} loads a point, at "
+                      f"{SMEM_BYTES_PER_CLOCK} B a clock and {mhz:.0f} MHz, nvidia-smi during the probe); "
+                      f"{'conv2d' if label.startswith('laplace2d') else 'conv3d'} {conv_ms * 1e3:.3f} us a call")
+    return out
+
+
+def degenerate_phase(ops, A_csr, B, fused, fused_kskip, stencil) -> dict:
+    """5c. Degenerate systems on the main-path system in float64 (ROADMAP
+    queue 3, F1 and F2).  Every method of DEGENERATE_RUNS started at its
+    solution (b = A x0 through K1) returns x0 bitwise, converged after at
+    most one iteration (Chronopoulos–Gear after none), the fused methods on
+    K2/K3/K5/K6's resident route and forced to stream, one launch each; with
+    b = 0 every method, on both fused routes and eager, returns x = 0, 0
+    iterations and converged, and launches no fused kernel and no K1.  Then
+    NRHS right-hand sides with member 3 zero: fused MrR (one K2 launch a
+    non-zero member) and eager CG (the K1 launches of the batch without the
+    zero member), every other member bitwise the batch without it.
+    Returns the fused launches of the warm starts, by wrapper."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import precond
+
+    A = ops[torch.float64]
+    fused_fns = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipcg_solve_2d,
+                 fused_kskip.fused_kskipmrr_solve_2d)
+    counted = (stencil.stencil_matvec_2d, *fused_fns)
+    bounds = precond.lanczos_bounds(A)
+    x0 = torch.from_numpy(np.random.default_rng(23).standard_normal(NX * NX)).to(A.device)
+    b_exact, b_zero = A.matvec(x0), torch.zeros_like(x0)
+    failures, warm_launches = [], {fn.__name__: 0 for fn in fused_fns}
+    for m, k in DEGENERATE_RUNS.items():
+        kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER)
+        if m in ("cacg", "camrr"):
+            kw["spectral_bounds"] = bounds
+        fusable = m in ("cg", "mrr", "kskipcg", "kskipmrr", "adaptivekskipmrr")
+        for route in (("resident", "streaming", "eager") if fusable else ("eager",)):
+            fused.ROUTE = None if route == "eager" else route
+            try:
+                run = dict(kw, fused=False) if route == "eager" else kw
+                before = {fn.__name__: fn.launches for fn in counted}
+                before_route = {fn.__name__: getattr(fn, f"launches_{route}", 0) for fn in fused_fns}
+                x, info = krylov_tpu_torch.solve(A, b_exact, x0=x0, **run)
+                warm = {fn.__name__: fn.launches - before[fn.__name__] for fn in fused_fns}
+                on_route = sum(getattr(fn, f"launches_{route}", 0) - before_route[fn.__name__] for fn in fused_fns)
+                for name, v in warm.items():
+                    warm_launches[name] += v
+                ok_warm = (torch.equal(x, x0) and info["converged"] and info["iterations"] <= (
+                    0 if m == "chronopoulos_gear" else 1) and (route == "eager" or on_route == sum(warm.values()) == 1))
+                before = {fn.__name__: fn.launches for fn in counted}
+                xz, infoz = krylov_tpu_torch.solve(A, b_zero, x0=x0, **run)
+                zero_launches = {name: fn.launches - before[name] for name, fn in zip(before, counted)}
+            finally:
+                fused.ROUTE = None
+            ok_zero = (bool((xz == 0).all()) and xz.dtype == x0.dtype and infoz["converged"]
+                       and infoz["iterations"] == 0 and list(infoz["residual"]) == [0.0]
+                       and not any(zero_launches.values()))
+            phase(f"degenerate {m}{f' k={k}' if k else ''} {route}: exact warm start x bitwise x0 "
+                  f"{torch.equal(x, x0)}, iterations {info['iterations']}, converged {info['converged']}, fused "
+                  f"launches {sum(warm.values())}; b = 0: x = 0 {bool((xz == 0).all())}, iterations "
+                  f"{infoz['iterations']}, converged {infoz['converged']}, residual {infoz['residual'].tolist()}, "
+                  f"launches {zero_launches}")
+            if not (ok_warm and ok_zero):
+                failures.append(f"degenerate {m} {route}: warm start ok {ok_warm}, b = 0 ok {ok_zero}")
+    Bz = B.clone()
+    Bz[3] = 0
+    keep = torch.tensor([j for j in range(B.shape[0]) if j != 3], device=B.device)
+    tol = torch.tensor(TOL, dtype=B.dtype, device=B.device)
+    for m, on_fused, fn in (("mrr", True, fused.fused_mrr_solve_2d), ("cg", False, stencil.stencil_matvec_2d)):
+        kw = dict(method=m, tol=tol, maxiter=MAXITER, fused=None if on_fused else False)
+        before = fn.launches
+        res = krylov_tpu_torch.solve_batched(A, Bz, **kw)
+        launched = fn.launches - before
+        before = fn.launches
+        alone = krylov_tpu_torch.solve_batched(A, B.index_select(0, keep), **kw)
+        launched_alone = fn.launches - before
+        same = all(torch.equal(res.x[j], alone.x[i]) and int(res.iterations[j]) == int(alone.iterations[i])
+                   and torch.equal(res.residual_trace[j, : int(alone.index[i]) + 1],
+                                   alone.residual_trace[i, : int(alone.index[i]) + 1])
+                   for i, j in enumerate(keep.tolist()))
+        zero_ok = (bool((res.x[3] == 0).all()) and int(res.iterations[3]) == 0 and bool(res.converged[3])
+                   and float(res.residual_trace[3, 0]) == 0.0)
+        true_res = max(true_rel(A_csr, B[j].cpu().numpy(), res.x[j]) for j in keep.tolist())
+        phase(f"degenerate batch {m} {'fused' if on_fused else 'eager'}, {B.shape[0]} RHS with member 3 zero: "
+              f"iterations {res.iterations.tolist()}, the others bitwise the batch without it {same}, member 3 x = 0 "
+              f"and converged at 0 iterations {zero_ok}; {fn.__name__} launches {launched} (batch without member 3: "
+              f"{launched_alone}); host f64 true res max {true_res:.3e}")
+        if not (same and zero_ok and launched == launched_alone and true_res < TOL
+                and (not on_fused or launched == B.shape[0] - 1)):
+            failures.append(f"degenerate batch {m}: a zero member changed the batch")
+    raise_failures("phase 5c", failures)
+    return warm_launches
+
+
 def main() -> int:
     """:func:`smoke`, then the driver subprocess of phase 15 stopped if it
     still runs (a phase before its check failed) and its directory
@@ -1834,16 +2079,22 @@ def smoke(tmp: str, started: list) -> int:
                 if not err <= rtol:
                     raise AssertionError(f"K1 on an (8, n) block disagrees with its plain version on {label} {dt}")
 
+    mark("3b K4")
+    k4 = k4_phase(dev)
+    k4_launches = dict.fromkeys(K4_PASSES, 0)  # resident launches by K4's specialisation, phases 4, 4b, 5, 5b
+
     mark("4 K2/K3 small")
     # 4. K2/K3 against their plain versions on small grids, float64, on the
-    # resident route
+    # resident route; each system's launches take K4's specialisation for
+    # its geometry (the masked pass for the grid form)
     k23 = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d)
     reset(k23)
-    for make, label in (
-        (lambda: fixtures.laplace2d(64, device=dev), "laplace2d(64)"),
-        (lambda: fixtures.laplace2d(64, constant=True, device=dev), "laplace2d(64, constant)"),
-        (lambda: fixtures.laplace3d(16, constant=True, device=dev), "laplace3d(16, constant)"),
+    for make, label, ns in (
+        (lambda: fixtures.laplace2d(64, device=dev), "laplace2d(64)", 0),
+        (lambda: fixtures.laplace2d(64, constant=True, device=dev), "laplace2d(64, constant)", 5),
+        (lambda: fixtures.laplace3d(16, constant=True, device=dev), "laplace3d(16, constant)", 7),
     ):
+        before = pass_counts(k23)
         A = make()
         coef2, st2, g2, sub = A.collapse_to_2d()
         b = torch.from_numpy(np.random.default_rng(12).standard_normal(A.shape[0])).to(dev)
@@ -1855,6 +2106,8 @@ def smoke(tmp: str, started: list) -> int:
             compare_solves(f"K{'3' if m == 'cg' else '2'} {m} {label} f64 ({p.route}, {p.blocks} blocks)",
                            kern(coef2, b, 1e-8, b_norm, **kw), plain(coef2, b, 1e-8, b_norm, **kw),
                            **TOLS["float64"])
+        for d in check_passes(f"K2/K3 {label}", k23, before, ns).values():
+            k4_launches[ns] += d[ns] if ns != 5 else 0  # NS = 5's count is the main path's (5, 5b)
     if any(res < 3 or stream for res, stream in route_counts(k23).values()):
         raise AssertionError(f"phase 4 did not run K2/K3 on the resident route: {route_counts(k23)}")
 
@@ -1865,14 +2118,17 @@ def smoke(tmp: str, started: list) -> int:
     # against the float64 plain version; then the adaptive rollback case in
     # both
     kernel_id = {"kskipcg": "K6", "kskipmrr": "K5", "adaptivekskipmrr": "K5 adaptive"}
+    k56 = (fused_kskip.fused_kskipcg_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
+    reset(k56)
     failures = []
     for dt, tol in ((f64, 1e-8), (f32, 1e-5)):
         name = str(dt).removeprefix("torch.")
-        for make, label in (
-            (lambda: fixtures.laplace2d(64, dtype=dt, device=dev), "laplace2d(64)"),
-            (lambda: fixtures.laplace2d(64, dtype=dt, constant=True, device=dev), "laplace2d(64, constant)"),
-            (lambda: fixtures.laplace3d(16, dtype=dt, constant=True, device=dev), "laplace3d(16, constant)"),
+        for make, label, ns in (
+            (lambda: fixtures.laplace2d(64, dtype=dt, device=dev), "laplace2d(64)", 0),
+            (lambda: fixtures.laplace2d(64, dtype=dt, constant=True, device=dev), "laplace2d(64, constant)", 5),
+            (lambda: fixtures.laplace3d(16, dtype=dt, constant=True, device=dev), "laplace3d(16, constant)", 7),
         ):
+            before = pass_counts(k56)
             A = make()
             for seed in (12, 13):
                 b = torch.from_numpy(np.random.default_rng(seed).standard_normal(A.shape[0])).to(dev, dt)
@@ -1885,6 +2141,8 @@ def smoke(tmp: str, started: list) -> int:
                         held(failures, compare_kskip, f"{kernel_id[m]} {route} {m} k={k} {label} {name} seed {seed}"
                              + (f", maxiter {maxiter} against float64" if first else ""),
                              got, want, **KSKIP_SMALL_TOLS[name, k])
+            for d in (held(failures, check_passes, f"K5/K6 {label} {name}", k56, before, ns) or {}).values():
+                k4_launches[ns] += d[ns] if ns != 5 else 0
         adv = advection(dev)
         A = type(adv)(adv.coef.to(dt), adv.stencil, adv.grid)
         for seed in (3, 4):
@@ -1918,6 +2176,12 @@ def smoke(tmp: str, started: list) -> int:
     results["mrr warm", f64] = krylov_tpu_torch.solve(ops[f64], b_np, method="mrr", x0=x0_np,
                                                       tol=TOL, maxiter=MAXITER)
     check_launched("main path", counted)
+    for d in check_passes("main path K2/K3", counted[1:], {f.__name__: dict.fromkeys(K4_PASSES, 0)
+                                                           for f in counted[1:]}, 5).values():
+        k4_launches[5] += d[5]
+    for m, k in DIGEST_RUNS[:2]:
+        for dt in (f64, f32):
+            phase(digest_line(f"{m} {dt}", *results[m, dt]))
     routes = route_counts(counted[1:])
     phase(f"main path K2/K3 launches by route (resident, streaming): {routes}")
     if any(res < 1 or stream for res, stream in routes.values()):
@@ -1955,6 +2219,12 @@ def smoke(tmp: str, started: list) -> int:
         for m, k in KSKIP_RUNS.items():
             kres[m, dt] = krylov_tpu_torch.solve(ops[dt], b_np, method=m, k=k, tol=TOL, maxiter=MAXITER)
     check_launched("k-skip path", counted_k)
+    for d in check_passes("k-skip path K5/K6", counted_k, {f.__name__: dict.fromkeys(K4_PASSES, 0)
+                                                            for f in counted_k}, 5).values():
+        k4_launches[5] += d[5]
+    for m, k in DIGEST_RUNS[2:]:
+        for dt in (f64, f32):
+            phase(digest_line(f"{m} {dt}", *kres[m, dt]))
     kroutes = route_counts(counted_k)
     phase(f"k-skip path K5/K6 launches by route (resident, streaming): {kroutes}")
     if any(res < 1 or stream for res, stream in kroutes.values()):
@@ -1989,6 +2259,10 @@ def smoke(tmp: str, started: list) -> int:
             raise AssertionError(f"{m} f64 did not converge to the true residual (true {true_res:.3e})")
         if base == "adaptivekskipmrr" and info["final_k"] != KSKIP_RUNS[base]:
             raise AssertionError(f"{m} f64 ended at k {info['final_k']}, the JAX package at 8")
+
+    mark("5c degenerate systems")
+    B21 = torch.from_numpy(np.random.default_rng(21).standard_normal((NRHS, NX * NX))).to(dev)
+    degenerate_phase(ops, A_csr, B21, fused, fused_kskip, stencil)
 
     mark("6 K2/K3 timed")
     # 6. K2/K3 against their plain versions at the main-path shape, timed:
@@ -2165,7 +2439,6 @@ def smoke(tmp: str, started: list) -> int:
     ckpt_launches = checkpoint_phase(ops[f64], b_np, A_csr, fused_kskip)
     mark("14 batched k-skip")
     k1_launches += chunk_launches["K1"] + batched_kskip(ops[f64], A_csr, hyb, dev, stencil)
-    B21 = torch.from_numpy(np.random.default_rng(21).standard_normal((NRHS, NX * NX))).to(dev)
     mark("17 batched eager")
     k1_launches += batched_eager(ops, A_csr, B21, stencil)
     mark("16 sharded")
@@ -2230,6 +2503,21 @@ def smoke(tmp: str, started: list) -> int:
             err = max(kerr[m, 4, "float64", route], kerr[(*witness, "float64", route)])
             kernels.append(entry(f"{fn} {route}", kskip_src[route], f"krylov_tpu/kernels/fused_kskip.py:{line}",
                                  launches, err, kms[m, 4, "float64", route], kms[m, 4, "float64", "plain"], kbound[m]))
+    # K4, the resident stencil pass inside K2/K3/K5/K6, by specialisation:
+    # its launches are the resident launches that took it (NS = 5: the main
+    # path, phases 5 and 5b; 7 and 0: the collapsed 3-D and grid-form
+    # systems of phases 4 and 4b); its times are phase 3b's probe, a pass
+    # over the main-path plan (NS = 5, 0) or laplace3d(64) (NS = 7), in the
+    # predicated form (the float64 main path's K2/K3/K6 take it; phase 3b
+    # prints the others), and its bound the shared-memory bytes of a pass,
+    # where its operands are
+    for ns in (5, 7, 0):
+        err, ms_, plain_ms, bnd, conv_ms, mhz = k4[ns, False]
+        kernels.append(dict(entry(f"stencil_pass NS={ns} (K4, the resident pass of K2/K3/K5/K6)",
+                                  "krylov_tpu_torch/kernels/csrc/resident.cuh", "krylov_tpu/kernels/fused.py:47",
+                                  k4_launches[ns], err, ms_, plain_ms, bnd, conv_ms),
+                            bound_of=f"shared-memory bytes of the largest band at {SMEM_BYTES_PER_CLOCK} B a clock "
+                                     f"and {mhz:.0f} MHz"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2237,4 +2525,6 @@ def smoke(tmp: str, started: list) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profiling_child(sys.argv[2]) if sys.argv[1:2] == ["--profiling"] else main())
+    if sys.argv[1:2] == ["--profiling"]:
+        sys.exit(profiling_child(sys.argv[2]))
+    sys.exit(main_path_digests() if sys.argv[1:2] == ["--digests"] else main())

@@ -215,6 +215,69 @@ def _prepare(A, b, x0, maxiter):
     return b, x0, n if maxiter is None else maxiter
 
 
+def _zero_rows(b: torch.Tensor) -> list:
+    """Which systems of ``b`` (a vector, or a ``(batch, n)`` block) have
+    ``||b|| = 0``, read on the host: one device-to-host transfer."""
+    return (torch.linalg.vector_norm(b, dim=-1) == 0).reshape(-1).tolist()
+
+
+def _zero_result(b: torch.Tensor, method: str, k: int, sdt, use_fused: bool, restarts: int = 0) -> SolveResult:
+    """The result of systems whose ``b`` is 0, which the front door returns
+    without running a kernel or a loop (scipy's rule: ``x = 0``, converged,
+    no iteration): ``x`` zero in ``b``'s dtype and on its device, a one-slot
+    residual trace holding 0, ``iterations`` and ``index`` 0, and the
+    fields the route would set (the count dtype of the route, the adaptive
+    ``k_trace = [k]`` and ``final_k = k``, ``trace_truncated`` False on the
+    fused route, ``true_residual`` 0 after ``restarts=``).  ``b`` may carry
+    a leading batch axis."""
+    batch, dev = b.shape[:-1], b.device
+    count = torch.int32 if use_fused else torch.int64
+    adaptive = method == "adaptivekskipmrr"
+    return SolveResult(
+        x=torch.zeros_like(b),
+        residual_trace=torch.zeros(batch + (1,), dtype=sdt or b.dtype, device=dev),
+        nosl_trace=torch.zeros(batch + (1,), dtype=torch.int32, device=dev),
+        iterations=torch.zeros(batch, dtype=count, device=dev),
+        index=torch.zeros(batch, dtype=count, device=dev),
+        converged=torch.ones(batch, dtype=torch.bool, device=dev),
+        k_trace=torch.full(batch + (1,), k, dtype=torch.int32, device=dev) if adaptive else None,
+        final_k=torch.full(batch, k, dtype=count, device=dev) if adaptive else None,
+        true_residual=torch.zeros(batch, dtype=b.dtype, device=dev) if restarts else None,
+        trace_truncated=torch.zeros(batch, dtype=torch.bool, device=dev) if use_fused else None,
+    )
+
+
+def _skip_zero_members(run, B: torch.Tensor, X0, zero: list, method: str, k: int, sdt,
+                       use_fused: bool) -> SolveResult:
+    """``run(B, X0)`` on the members of the batch whose ``b`` is not 0, the
+    zero members' results (:func:`_zero_result`) put back into their rows.
+    The members that run form a batch of their own, each keeping the bits
+    of its solo solve, and it runs as long as its longest member."""
+    keep = [j for j, z in enumerate(zero) if not z]
+    if len(keep) == len(zero):
+        return run(B, X0)
+    if not keep:
+        return _zero_result(B, method, k, sdt, use_fused)
+    idx = torch.tensor(keep, device=B.device)
+    sub = run(B.index_select(0, idx), None if X0 is None else X0.index_select(0, idx))
+    rows = torch.ones(len(zero), dtype=torch.bool, device=B.device)
+    rows[idx] = False  # the zero members
+    fields = {}
+    for f in dataclasses.fields(SolveResult):
+        v = getattr(sub, f.name)
+        if not isinstance(v, torch.Tensor):
+            fields[f.name] = v
+            continue
+        full = torch.zeros((len(zero),) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+        full.index_copy_(0, idx, v)
+        fields[f.name] = full
+    fields["converged"][rows] = True
+    if fields["k_trace"] is not None:
+        fields["k_trace"][rows, :2] = k
+        fields["final_k"][rows] = k
+    return SolveResult(**fields)
+
+
 def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M=None,
               bounds=None, carry=None, ctx=None) -> SolveResult:
     """One solve: the fused kernels, or the eager loop of ``method`` with
@@ -395,6 +458,8 @@ def solve_device(
     A, b, x0, maxiter, use_fused, basis_norm = _plan(
         A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
     )
+    if _zero_rows(b)[0]:
+        return _zero_result(b, method, k, scalar_dtype, use_fused, restarts)
     bounds = _resolve_bounds(A, method, spectral_bounds)
     return _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, restarts, M,
                        bounds)
@@ -477,32 +542,39 @@ def solve(
         start_banner(_METHOD_NAMES[method], k if method in _KSKIP_METHODS else None)
 
     on_cuda = A.device.type == "cuda"
-    compile_time = None
-    if on_cuda and _build.build_seconds is None and (use_fused or isinstance(A, StencilMatrix)):
-        _build.library()  # the fused kernels, or K1 for the eager loops
-        compile_time = _build.build_seconds
-    bounds = _resolve_bounds(A, method, spectral_bounds)  # set-up, before the timed solve
-    if mesh is not None:
-        from krylov_tpu_torch.dist import solve_sharded
-
-        result, elapsed = solve_sharded(
-            A, b, x0, tol=tol, method=method, maxiter=maxiter_eff, k=k, M=M, mesh=mesh, scalar_dtype=scalar_dtype,
-            basis_norm=basis_norm_eff, spectral_bounds=bounds, return_times=True)
-        info = build_info(result, elapsed)
-    elif chunked:
-        # the chunks run fused only where the caller forced it: the carry
-        # methods chunk exactly on their eager loops otherwise
-        result, info = _solve_chunked(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, fused is True,
-                                      basis_norm_eff, M, bounds, chunk_iters)
+    compile_time = bounds = None
+    # b = 0: x = 0 at once (the mesh path decides on its all-reduced norm)
+    if mesh is None and _zero_rows(b)[0]:
+        result = _zero_result(b, method, k, scalar_dtype, use_fused, restarts)
+        info = build_info(result, 0.0)
+        if chunked:
+            info["chunks"] = 0
     else:
-        if on_cuda:
-            torch.cuda.synchronize(A.device)
-        t0 = time.perf_counter()
-        result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
-                             restarts, M, bounds)
-        if on_cuda:
-            torch.cuda.synchronize(A.device)
-        info = build_info(result, time.perf_counter() - t0)
+        if on_cuda and _build.build_seconds is None and (use_fused or isinstance(A, StencilMatrix)):
+            _build.library()  # the fused kernels, or K1 for the eager loops
+            compile_time = _build.build_seconds
+        bounds = _resolve_bounds(A, method, spectral_bounds)  # set-up, before the timed solve
+        if mesh is not None:
+            from krylov_tpu_torch.dist import solve_sharded
+
+            result, elapsed = solve_sharded(
+                A, b, x0, tol=tol, method=method, maxiter=maxiter_eff, k=k, M=M, mesh=mesh,
+                scalar_dtype=scalar_dtype, basis_norm=basis_norm_eff, spectral_bounds=bounds, return_times=True)
+            info = build_info(result, elapsed)
+        elif chunked:
+            # the chunks run fused only where the caller forced it: the carry
+            # methods chunk exactly on their eager loops otherwise
+            result, info = _solve_chunked(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, fused is True,
+                                          basis_norm_eff, M, bounds, chunk_iters)
+        else:
+            if on_cuda:
+                torch.cuda.synchronize(A.device)
+            t0 = time.perf_counter()
+            result = _run_single(A, b, x0, tol, method, maxiter_eff, k, scalar_dtype, use_fused, basis_norm_eff,
+                                 restarts, M, bounds)
+            if on_cuda:
+                torch.cuda.synchronize(A.device)
+            info = build_info(result, time.perf_counter() - t0)
     if compile_time:
         info["compile_time"] = compile_time
     x = result.x
@@ -521,10 +593,13 @@ def _refine(A, b, x, info: dict, refine: int, tol: float, options: dict) -> torc
     """Host-float64 iterative refinement of ``x`` (the ``refine=`` path of
     :func:`krylov_tpu.api.solve`), merging each correction solve into
     ``info``.  Returns ``x`` as a float64 tensor on ``A``'s device."""
-    A_host = to_device(A, "cpu")  # one copy; the float64 matvecs read it
     b64 = host64(b)
     b_norm = np.linalg.norm(b64)
     x64 = host64(x)
+    if b_norm == 0:  # x is the front door's 0, exact
+        info.update(converged=True, true_residual=0.0, refinements=0)
+        return torch.from_numpy(x64).to(A.device)
+    A_host = to_device(A, "cpu")  # one copy; the float64 matvecs read it
     refinements = 0
     true_rel = float(np.linalg.norm(b64 - host_matvec64(A_host, x64)) / b_norm)
     for _ in range(refine):
@@ -606,13 +681,20 @@ def solve_batched(
 
         return solve_sharded(A, B, X0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
                              scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds)
+    zero = _zero_rows(B)  # one host read for the batch, before any launch
     if not use_fused:
-        return _run_base(A, B, X0, tol, method, maxiter, k, scalar_dtype, False, basis_norm, M,
-                         _resolve_bounds(A, method, spectral_bounds))
-    return _stack_members([
-        _run_base(A, B[j], None if X0 is None else X0[j], tol, method, maxiter, k, scalar_dtype, True, basis_norm)
-        for j in range(B.shape[0])
-    ])
+        bounds = None if all(zero) else _resolve_bounds(A, method, spectral_bounds)
+
+        def run(B_, X0_):
+            return _run_base(A, B_, X0_, tol, method, maxiter, k, scalar_dtype, False, basis_norm, M, bounds)
+    else:
+        def run(B_, X0_):
+            return _stack_members([
+                _run_base(A, B_[j], None if X0_ is None else X0_[j], tol, method, maxiter, k, scalar_dtype, True,
+                          basis_norm)
+                for j in range(B_.shape[0])
+            ])
+    return _skip_zero_members(run, B, X0, zero, method, k, scalar_dtype, use_fused)
 
 
 def _stack_members(members: list) -> SolveResult:

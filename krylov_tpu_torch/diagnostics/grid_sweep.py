@@ -18,7 +18,17 @@ a cooperative grid that only syncs gives the time of one grid sync:
 block size and kind of sync of ``SYNC_GRIDS`` (the scratch's zeroing launch
 is in both times and cancels); and one that only runs a piece of the
 resident K5/K6's outer iteration gives its time the same way, at each
-case of ``KSKIP_PIECES`` on the ``--nx`` grid.
+case of ``KSKIP_PIECES`` on the ``--nx`` grid.  Last, K4 alone: the
+resident stencil pass on the resident plan of the ``--nx`` grid
+(:func:`krylov_tpu_torch.kernels.fused.stencil_pass_probe`), a
+``__syncthreads`` after each pass, timed the same way in float64 and
+float32, the masked pass (NS = 0) beside the specialised one, in its
+predicated form and its split form (2 points at a time, as K6 takes it in
+float32), on the same mirror, with the bands' clock cycles a pass
+(slowest and median band), the SM clock that ``nvidia-smi`` reads while the probe runs, and the bound at
+that clock: the shared-memory bytes of the largest band's loads (NS a
+point) at 128 bytes a clock.  ``--blocks "" --resident "" --k ""`` skips
+the solves.
 """
 
 from __future__ import annotations
@@ -98,6 +108,40 @@ def kskip_piece_us(mode: int, blocks: int, count: int, nx: int) -> float:
     return probe_us(launch)
 
 
+SMEM_BYTES_PER_CLOCK = 128  # shared-memory bandwidth of an H100 SM
+
+
+def k4_line(A, dtype, nx: int) -> None:
+    """Prints K4's µs a pass on A's resident plan, masked (NS = 0) and
+    specialised, with the band clocks, the SM clock under load and the
+    bound."""
+    coef2, st2, g2, sub = A.collapse_to_2d()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(g2[0] * g2[1])).to("cuda", dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bands, rows, ppt, _ = fused.resident_bands(g2, st2, sms, fused.MAX_BLOCKS)
+    kw = dict(stencil=st2, grid=g2, sub=sub)
+    ns5 = fused.pass_terms(st2, coef2.ndim == 1)
+    for ns, split in ((0, False), (ns5, False), (ns5, True)):
+        def launch(reps):
+            fused.stencil_pass_probe(coef2, x, ns_pass=ns, split=split, reps=reps, **kw)
+
+        us = probe_us(launch)
+        _, _, cycles = fused.stencil_pass_probe(coef2, x, ns_pass=ns, split=split, reps=200_000, **kw)  # ~0.5 s
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True).stdout.split()[0])
+        per_pass = cycles.double() / 200_000
+        terms = len(st2)
+        bound_clocks = rows * g2[1] * terms * dtype.itemsize / SMEM_BYTES_PER_CLOCK
+        form = "masked" if ns == 0 else "split" if split else "predicated"
+        print(f"K4 resident pass NS={ns} ({form}) {str(dtype).removeprefix('torch.')}, {bands} bands of <= {rows} "
+              f"rows of the "
+              f"{nx} grid, {ppt} points a thread: {us:.3f} us a pass (probe, a __syncthreads after each pass); "
+              f"band clocks a pass max {float(per_pass.max()):.1f}, median {float(per_pass.median()):.1f} "
+              f"(band {int(per_pass.argmax())} slowest); SM clock {mhz:.0f} MHz under the probe; bound "
+              f"{bound_clocks:.0f} clocks = {bound_clocks / mhz:.3f} us (shared-memory bytes of the largest band, "
+              f"{terms} loads a point at {SMEM_BYTES_PER_CLOCK} B a clock)", flush=True)
+
+
 def _ints(text: str):
     return [int(v) for v in text.split(",") if v]
 
@@ -154,6 +198,8 @@ def main() -> None:
         print(f"K5/K6 {KSKIP_MODES[mode].format(count)}, {blocks} bands of the {args.nx} x {args.nx} grid: "
               f"{kskip_piece_us(mode, blocks, count, args.nx):.3f} us (cooperative kernel that only does that)",
               flush=True)
+    for dtype in (torch.float64, torch.float32):
+        k4_line(fixtures.laplace2d(args.nx, dtype=dtype, constant=True, device="cuda"), dtype, args.nx)
 
 
 if __name__ == "__main__":

@@ -92,7 +92,7 @@ def solve_sharded(
     stripped: ``gather=False`` returns this rank's rows of the unpadded
     ``x`` instead.  The traces are the same on every rank.  With
     ``return_times=True`` returns ``(result, exec_seconds)``."""
-    from krylov_tpu_torch.api import _CACG_METHODS, _resolve_bounds, _run_base
+    from krylov_tpu_torch.api import _CACG_METHODS, _resolve_bounds, _run_base, _skip_zero_members, _zero_result
 
     (axis,) = mesh.mesh_dim_names
     group = mesh.get_group()
@@ -110,11 +110,14 @@ def solve_sharded(
     op = shard_operator(A_p, mesh)
     m_op = shard_preconditioner(pad_preconditioner(M, n_devices) if pad else M, mesh)
     ctx = Context(axis=axis, scalar_dtype=scalar_dtype, group=group)
-    bounds = None
-    if method in _CACG_METHODS:
-        bounds = _same_bounds(_resolve_bounds(A, method, spectral_bounds), ctx, device)
     n = op.local_n
     b_l, x0_l = (v[..., rank * n: (rank + 1) * n].contiguous() for v in (b_p, x0_p))
+    # the front door's b = 0 test on the all-reduced norm, so that every
+    # rank takes the same branch; a zero member runs no loop
+    zero = (ctx.norm(b_l) == 0).reshape(-1).tolist()
+    bounds = None
+    if method in _CACG_METHODS and not all(zero):
+        bounds = _same_bounds(_resolve_bounds(A, method, spectral_bounds), ctx, device)
 
     on_cuda = device.type == "cuda"
     dist.barrier(group=group)
@@ -123,7 +126,13 @@ def solve_sharded(
     t0 = time.perf_counter()
     run = dict(tol=tol, method=method, maxiter=maxiter, k=k, scalar_dtype=scalar_dtype, use_fused=False,
                basis_norm=basis_norm, M=m_op, bounds=bounds, ctx=ctx)
-    result = _run_base(op, b_l, x0_l, **run)
+    if batched:
+        result = _skip_zero_members(lambda B_, X0_: _run_base(op, B_, X0_, **run), b_l, x0_l, zero, method, k,
+                                    scalar_dtype, False)
+    elif zero[0]:
+        result = _zero_result(b_l, method, k, scalar_dtype, False)
+    else:
+        result = _run_base(op, b_l, x0_l, **run)
     if on_cuda:
         torch.cuda.synchronize(device)
     exec_s = time.perf_counter() - t0

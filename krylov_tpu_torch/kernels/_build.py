@@ -21,12 +21,13 @@ from pathlib import Path
 
 _CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu", "fused_kskip_resident.cu")
+SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu", "fused_kskip_resident.cu",
+           "resident_probe.cu")
 HEADERS = ("stencil.cuh", "reduce.cuh", "resident.cuh")
-# sources compiled once for each of their parts (-DKSKIP_PART=p), each
+# sources compiled once for each of their parts (-DKRYLOV_PART=p), each
 # part holding some of the kernel instances, so that no one nvcc holds the
 # build up
-PARTS = {"fused_kskip_resident.cu": 4}
+PARTS = {"fused_resident.cu": 3, "fused_kskip_resident.cu": 12}
 MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
 # compile flags of every source; the link adds -shared
 FLAGS = (
@@ -78,7 +79,7 @@ def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         units = [(s, [], f"{Path(s).stem}.o") for s in SOURCES if s not in PARTS]
-        units += [(s, [f"-DKSKIP_PART={p}"], f"{Path(s).stem}_{p}.o") for s, n in PARTS.items() for p in range(n)]
+        units += [(s, [f"-DKRYLOV_PART={p}"], f"{Path(s).stem}_{p}.o") for s, n in PARTS.items() for p in range(n)]
         objs = [str(Path(tmp) / o) for _, _, o in units]
         _run([nvcc(), *FLAGS, *defs, "-c", "-o", o, str(_CSRC / s)] for (s, defs, _), o in zip(units, objs))
         lib = str(Path(tmp) / "lib.so")
@@ -97,7 +98,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.krylov_fused_workspace.restype = i
     lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
     lib.krylov_fused_solve.restype = i
-    lib.krylov_resident_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
+    # ..., maxiter, trace_len, ns_pass (K4's specialisation), weights, stream
+    lib.krylov_resident_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_resident_solve.restype = i
     lib.krylov_sync_probe.argtypes = [i, i, i, i, p, p]
     lib.krylov_sync_probe.restype = i
@@ -108,10 +110,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.krylov_kskip_workspace.restype = i
     lib.krylov_kskip_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, *geom, i, i, p]
     lib.krylov_kskip_solve.restype = i
-    lib.krylov_kskip_resident_solve.argtypes = [i] * 10 + [p] * 10 + [*geom, i, i, p]
+    lib.krylov_kskip_resident_solve.argtypes = [i] * 10 + [p] * 10 + [*geom, i, i, i, p, p]
     lib.krylov_kskip_resident_solve.restype = i
     lib.krylov_kskip_probe.argtypes = [i] * 7 + [p, p, p]
     lib.krylov_kskip_probe.restype = i
+    # dtype, ns_pass, split, blocks, ppt, h, coef, x, y, sum, cycles, geometry, weights, reps, stream
+    lib.krylov_stencil_probe.argtypes = [i, i, i, i, i, i, p, p, p, p, p, *geom, p, i, p]
+    lib.krylov_stencil_probe.restype = i
     lib.krylov_error_string.argtypes = [i]
     lib.krylov_error_string.restype = ctypes.c_char_p
     return lib

@@ -75,15 +75,15 @@
 // and a reader sees either t - 2 or t in a word it waits on.  Each wait
 // traps after kWaitLimitNs, so a fault ends the launch with an error.
 //
-// kernels/_build.py compiles this file once for each KSKIP_PART of 0..3,
+// kernels/_build.py compiles this file once for each KRYLOV_PART of 0..11,
 // all at once, so that no one nvcc holds the build up: part P instantiates
-// the kernels of one (dtype, method) pair (kskip_resident_partP), and part
-// 0 also holds the launcher and the probe.  Compiled without KSKIP_PART it
-// holds every part.
+// the kernels of one (dtype, method) pair and one specialisation of K4's
+// pass (kskip_resident_partP), and part 0 also holds the launcher and the
+// probe.  Compiled without KRYLOV_PART it holds every part.
 #include "resident.cuh"
 
-#ifndef KSKIP_PART
-#define KSKIP_PART -1
+#ifndef KRYLOV_PART
+#define KRYLOV_PART -1
 #endif
 
 namespace {
@@ -320,9 +320,9 @@ __device__ __forceinline__ Layout<T> layout(unsigned char* dyn, const StencilGeo
 // (Exchange, 6 nb + 6 words), then the bundle's (BundleExchange, 2 (6 k_max
 // + 6)(nb + 1) words); all zero at launch.  ktrace and adaptive are unused
 // (K5's signature, so one launcher serves both).
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __global__ void __launch_bounds__(kResThreads, 1)
-kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __restrict__ b,
+kskipcg_resident_kernel(StencilGeom g, Terms<T> tm, int h, const T* __restrict__ coef, const T* __restrict__ b,
                         const T* __restrict__ scal, T* __restrict__ x_out, T* trace, int* nosl,
                         int* ktrace, int* stats, Word* xbuf, Word* partials, int k, int k_max,
                         int adaptive, int maxiter, int trace_len) {
@@ -347,20 +347,19 @@ kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const 
 
     // r = p = b, x = 0, the carried A p
     T rr[PPT], pr[PPT], ap1[PPT];
-    unsigned mask[PPT];
+    Points<PPT> pt = band_points<PPT, NS>(g, bd);
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
         const int e = bd.p0 + threadIdx.x + q * kResThreads;
         const bool in = e < bd.p1;
         rr[q] = in ? b[e] : T(0);
         pr[q] = rr[q];
-        mask[q] = in ? term_mask(g, e) : 0u;
         if (in) xs[e - bd.p0] = T(0);
     }
     mirror_from(ma, b, g, bd);
     mirror_from(mb, b, g, bd);
     __syncthreads();
-    stencil_band(g, coef, mb, bd, mask, ap1);
+    stencil_pass<T, PPT, NS, kPassShape<6, T, PPT, NS>>(g, coef, tm, mb, bd, pt, ap1);
     __syncthreads();
     put_band(hx, bd, mb, 0, ap1);
     halo_wait(hx, bd, 1, mb, mb);
@@ -381,8 +380,8 @@ kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const 
             const bool grow = s < k, pass = s + 1 < k;  // pass: stage s+1 stencils them
             T ar1[PPT], apn[PPT];
             if (grow) {
-                stencil_band(g, coef, ma, bd, mask, ar1);
-                stencil_band(g, coef, mb, bd, mask, apn);
+                stencil_pass<T, PPT, NS, kPassShape<6, T, PPT, NS>>(g, coef, tm, ma, bd, pt, ar1);
+                stencil_pass<T, PPT, NS, kPassShape<6, T, PPT, NS>>(g, coef, tm, mb, bd, pt, apn);
             }
             if (pass) {
                 __syncthreads();
@@ -437,7 +436,7 @@ kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const 
 #pragma unroll
                 for (int q = 0; q < PPT; ++q) v[q] = ap1[q];
             } else {
-                stencil_band(g, coef, mb, bd, mask, v);
+                stencil_pass<T, PPT, NS, kPassShape<6, T, PPT, NS>>(g, coef, tm, mb, bd, pt, v);
                 __syncthreads();
             }
 #pragma unroll
@@ -453,7 +452,7 @@ kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const 
             if (t == k) put_band(hx, bd, ma, 1, rr);
             halo_wait(hx, bd, t == k ? 2 : 1, mb, ma);
         }
-        stencil_band(g, coef, mb, bd, mask, ap1);  // the carried A p
+        stencil_pass<T, PPT, NS, kPassShape<6, T, PPT, NS>>(g, coef, tm, mb, bd, pt, ap1);  // the carried A p
         __syncthreads();
         put_band(hx, bd, mb, 0, ap1);
         halo_wait(hx, bd, 1, mb, mb);
@@ -484,9 +483,9 @@ kskipcg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const 
 
 // K5: r and y to the mirrors (when share_ry), then the carried A r, into
 // ar1 and the Ar mirror.
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __device__ __forceinline__ void kskipmrr_carry(const StencilGeom& g, const T* __restrict__ coef,
-                                               const Band& bd, const unsigned (&mask)[PPT], Halo& hx,
+                                               const Terms<T>& tm, const Band& bd, Points<PPT>& pt, Halo& hx,
                                                const Layout<T>& L, bool share_ry, const T (&rr)[PPT],
                                                const T (&yr)[PPT], T (&ar1)[PPT]) {
     if (share_ry) {
@@ -494,7 +493,7 @@ __device__ __forceinline__ void kskipmrr_carry(const StencilGeom& g, const T* __
         put_band(hx, bd, L.m1, 1, yr);
         halo_wait(hx, bd, 2, L.m0, L.m1);
     }
-    stencil_band(g, coef, L.m0, bd, mask, ar1);
+    stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, L.m0, bd, pt, ar1);
     __syncthreads();
     put_band(hx, bd, L.m0, 0, ar1);
     halo_wait(hx, bd, 1, L.m0, L.m0);
@@ -503,9 +502,9 @@ __device__ __forceinline__ void kskipmrr_carry(const StencilGeom& g, const T* __
 // K5's stream at kq: stage s holds Ar[s], Ar[s+1], Ay[s] in registers and
 // Ar[s+1], Ay[s] in the mirrors; it forms Ar[s+2] and Ay[s+1].  Then the
 // bundle alpha | beta | delta in every block's L.bundle.
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __device__ __forceinline__ void kskipmrr_stream(const StencilGeom& g, const T* __restrict__ coef,
-                                                const Band& bd, const unsigned (&mask)[PPT], Halo& hx,
+                                                const Terms<T>& tm, const Band& bd, Points<PPT>& pt, Halo& hx,
                                                 BundleExchange& bx, const Layout<T>& L, int kq,
                                                 const T (&rr)[PPT], const T (&yr)[PPT],
                                                 const T (&ar1)[PPT]) {
@@ -525,8 +524,8 @@ __device__ __forceinline__ void kskipmrr_stream(const StencilGeom& g, const T* _
         const bool grow = s < kq, pass = s + 1 < kq;  // pass: stage s+1 stencils them
         T arn[PPT], ayn[PPT];
         if (grow) {
-            stencil_band(g, coef, ma, bd, mask, arn);
-            stencil_band(g, coef, my, bd, mask, ayn);
+            stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, ma, bd, pt, arn);
+            stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, my, bd, pt, ayn);
         }
         if (pass) {
             __syncthreads();
@@ -563,9 +562,9 @@ __device__ __forceinline__ void kskipmrr_stream(const StencilGeom& g, const T* _
 
 // Whole k-skip MrR solve of A x = b from x0 = 0, adaptive (rollback and k
 // decrement) when `adaptive` is nonzero.  Buffers as in the CG kernel.
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __global__ void __launch_bounds__(kResThreads, 1)
-kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __restrict__ b,
+kskipmrr_resident_kernel(StencilGeom g, Terms<T> tm, int h, const T* __restrict__ coef, const T* __restrict__ b,
                          const T* __restrict__ scal, T* __restrict__ x_out, T* trace, int* nosl,
                          int* ktrace, int* stats, Word* xbuf, Word* partials, int k, int k_max,
                          int adaptive, int maxiter, int trace_len) {
@@ -591,19 +590,18 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
     const T b_norm = scal[1];
 
     T rr[PPT], yr[PPT], ar1[PPT];
-    unsigned mask[PPT];
+    Points<PPT> pt = band_points<PPT, NS>(g, bd);
 
     // init half-step from r0 = b: zeta = <r,Ar>/<Ar,Ar>
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
         const int e = bd.p0 + threadIdx.x + q * kResThreads;
         rr[q] = e < bd.p1 ? b[e] : T(0);
-        mask[q] = e < bd.p1 ? term_mask(g, e) : 0u;
         yr[q] = T(0);
     }
     mirror_from(ma, b, g, bd);
     __syncthreads();
-    stencil_band(g, coef, ma, bd, mask, ar1);
+    stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, ma, bd, pt, ar1);
     T s3[3] = {T(0), T(0), T(0)};
 #pragma unroll
     for (int q = 0; q < PPT; ++q) {
@@ -636,13 +634,13 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
             }
         }
     }
-    kskipmrr_carry(g, coef, bd, mask, hx, L, true, rr, yr, ar1);
+    kskipmrr_carry<T, PPT, NS>(g, coef, tm, bd, pt, hx, L, true, rr, yr, ar1);
 
     T pre_res = res0;
     int kk = k, i = 1, index = 1;
     bool conv = false;
     while (i < maxiter) {
-        kskipmrr_stream(g, coef, bd, mask, hx, bx, L, kk, rr, yr, ar1);
+        kskipmrr_stream<T, PPT, NS>(g, coef, tm, bd, pt, hx, bx, L, kk, rr, yr, ar1);
         T res = sqrt(L.bundle[0]) / b_norm;  // <r, r> = alpha[0]
         if (lead) trace[min(index, trace_len - 1)] = res;
         bool accept = true;  // copy x to pre_x before this iteration's steps
@@ -660,7 +658,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
                 }
                 put_band(hx, bd, ma, 0, a);
                 halo_wait(hx, bd, 1, ma, ma);
-                stencil_band(g, coef, ma, bd, mask, a);
+                stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, ma, bd, pt, a);
 #pragma unroll
                 for (int q = 0; q < PPT; ++q) {
                     const int e = bd.p0 + threadIdx.x + q * kResThreads;
@@ -669,7 +667,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
                 __syncthreads();
                 put_band(hx, bd, ma, 0, rr);
                 halo_wait(hx, bd, 1, ma, ma);
-                stencil_band(g, coef, ma, bd, mask, a);
+                stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, ma, bd, pt, a);
                 T s2[2] = {T(0), T(0)};
 #pragma unroll
                 for (int q = 0; q < PPT; ++q) {
@@ -691,7 +689,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
                         xs[local] = sub(pxs[local], z);
                     }
                 }
-                kskipmrr_carry(g, coef, bd, mask, hx, L, true, rr, yr, ar1);
+                kskipmrr_carry<T, PPT, NS>(g, coef, tm, bd, pt, hx, L, true, rr, yr, ar1);
                 kk = kk > 1 ? kk - 1 : kk;
                 ++i;
                 ++index;
@@ -699,7 +697,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
                     nosl[min(index, trace_len - 1)] = i;
                     ktrace[min(index, trace_len - 1)] = kk;
                 }
-                kskipmrr_stream(g, coef, bd, mask, hx, bx, L, kk, rr, yr, ar1);
+                kskipmrr_stream<T, PPT, NS>(g, coef, tm, bd, pt, hx, bx, L, kk, rr, yr, ar1);
                 res = sqrt(L.bundle[0]) / b_norm;
                 if (lead) trace[min(index, trace_len - 1)] = res;
             } else {
@@ -727,7 +725,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
 #pragma unroll
                 for (int q = 0; q < PPT; ++q) a[q] = ar1[q];
             } else {
-                stencil_band(g, coef, ma, bd, mask, a);
+                stencil_pass<T, PPT, NS, kPassShape<5, T, PPT, NS>>(g, coef, tm, ma, bd, pt, a);
                 __syncthreads();
             }
 #pragma unroll
@@ -747,7 +745,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
             if (t == kk) put_band(hx, bd, L.m1, 1, yr);
             halo_wait(hx, bd, t == kk ? 2 : 1, ma, L.m1);
         }
-        kskipmrr_carry(g, coef, bd, mask, hx, L, false, rr, yr, ar1);
+        kskipmrr_carry<T, PPT, NS>(g, coef, tm, bd, pt, hx, L, false, rr, yr, ar1);
 
         if (lead) {
             nosl[min(index + 1, trace_len - 1)] = i + kk + 1;
@@ -777,7 +775,7 @@ kskipmrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const
     }
 }
 
-#if KSKIP_PART <= 0
+#if KRYLOV_PART <= 0
 // A cooperative grid that runs one piece of the resident K5/K6's outer
 // iteration alone, reps times, on the bands of a (g0, g1) grid with h halo
 // rows: mode 0 the neighbour exchange of `count` (1 or 2) vectors of
@@ -813,40 +811,66 @@ kskip_probe_kernel(int mode, int g0, int g1, int h, int count, int reps, Word* x
 
 }  // namespace
 
-// The kernel of (dtype, method) pair P at ppt points a thread (1, 2, 4 or
-// 8; else null): part 0 float64 k-skip CG, 1 float64 k-skip MrR, 2 float32
-// k-skip CG, 3 float32 k-skip MrR.  Each is defined in the compilation of
-// its part.
-const void* kskip_resident_part0(int ppt);
-const void* kskip_resident_part1(int ppt);
-const void* kskip_resident_part2(int ppt);
-const void* kskip_resident_part3(int ppt);
+// The kernel of part P at ppt points a thread (1, 2, 4 or 8; else null):
+// the (dtype, method) pair P / 3 (0 float64 k-skip CG, 1 float64 k-skip
+// MrR, 2 float32 k-skip CG, 3 float32 k-skip MrR) with K4's specialisation
+// P % 3 (0: NS = 0, 1: NS = 5, 2: NS = 7; pass_index).  Each is defined in
+// the compilation of its part.
+#define KSKIP_RESIDENT_DECL(P) const void* kskip_resident_part##P(int ppt);
+KSKIP_RESIDENT_DECL(0) KSKIP_RESIDENT_DECL(1) KSKIP_RESIDENT_DECL(2) KSKIP_RESIDENT_DECL(3)
+KSKIP_RESIDENT_DECL(4) KSKIP_RESIDENT_DECL(5) KSKIP_RESIDENT_DECL(6) KSKIP_RESIDENT_DECL(7)
+KSKIP_RESIDENT_DECL(8) KSKIP_RESIDENT_DECL(9) KSKIP_RESIDENT_DECL(10) KSKIP_RESIDENT_DECL(11)
+#undef KSKIP_RESIDENT_DECL
 
-#define KSKIP_RESIDENT_PART(P, T, KERNEL)                                      \
+#define KSKIP_RESIDENT_PART(P, T, KERNEL, NS)                                  \
     const void* kskip_resident_part##P(int ppt) {                              \
         switch (ppt) {                                                         \
-            case 1: return reinterpret_cast<const void*>(&KERNEL<T, 1>);       \
-            case 2: return reinterpret_cast<const void*>(&KERNEL<T, 2>);       \
-            case 4: return reinterpret_cast<const void*>(&KERNEL<T, 4>);       \
-            case 8: return reinterpret_cast<const void*>(&KERNEL<T, 8>);       \
+            case 1: return reinterpret_cast<const void*>(&KERNEL<T, 1, NS>);   \
+            case 2: return reinterpret_cast<const void*>(&KERNEL<T, 2, NS>);   \
+            case 4: return reinterpret_cast<const void*>(&KERNEL<T, 4, NS>);   \
+            case 8: return reinterpret_cast<const void*>(&KERNEL<T, 8, NS>);   \
             default: return nullptr;                                           \
         }                                                                      \
     }
 
-#if KSKIP_PART < 0 || KSKIP_PART == 0
-KSKIP_RESIDENT_PART(0, double, kskipcg_resident_kernel)
+#if KRYLOV_PART < 0 || KRYLOV_PART == 0
+KSKIP_RESIDENT_PART(0, double, kskipcg_resident_kernel, 0)
 #endif
-#if KSKIP_PART < 0 || KSKIP_PART == 1
-KSKIP_RESIDENT_PART(1, double, kskipmrr_resident_kernel)
+#if KRYLOV_PART < 0 || KRYLOV_PART == 1
+KSKIP_RESIDENT_PART(1, double, kskipcg_resident_kernel, 5)
 #endif
-#if KSKIP_PART < 0 || KSKIP_PART == 2
-KSKIP_RESIDENT_PART(2, float, kskipcg_resident_kernel)
+#if KRYLOV_PART < 0 || KRYLOV_PART == 2
+KSKIP_RESIDENT_PART(2, double, kskipcg_resident_kernel, 7)
 #endif
-#if KSKIP_PART < 0 || KSKIP_PART == 3
-KSKIP_RESIDENT_PART(3, float, kskipmrr_resident_kernel)
+#if KRYLOV_PART < 0 || KRYLOV_PART == 3
+KSKIP_RESIDENT_PART(3, double, kskipmrr_resident_kernel, 0)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 4
+KSKIP_RESIDENT_PART(4, double, kskipmrr_resident_kernel, 5)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 5
+KSKIP_RESIDENT_PART(5, double, kskipmrr_resident_kernel, 7)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 6
+KSKIP_RESIDENT_PART(6, float, kskipcg_resident_kernel, 0)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 7
+KSKIP_RESIDENT_PART(7, float, kskipcg_resident_kernel, 5)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 8
+KSKIP_RESIDENT_PART(8, float, kskipcg_resident_kernel, 7)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 9
+KSKIP_RESIDENT_PART(9, float, kskipmrr_resident_kernel, 0)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 10
+KSKIP_RESIDENT_PART(10, float, kskipmrr_resident_kernel, 5)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 11
+KSKIP_RESIDENT_PART(11, float, kskipmrr_resident_kernel, 7)
 #endif
 
-#if KSKIP_PART <= 0
+#if KRYLOV_PART <= 0
 // One resident k-skip solve (method 0 = k-skip CG, 1 = k-skip MrR; dtype
 // the element size in bytes) on `blocks` bands of the (g0, g1) grid, each
 // of ppt * 512 points at most and h = max |d0| halo rows, with smem_bytes
@@ -861,7 +885,7 @@ extern "C" int krylov_kskip_resident_solve(int method, int dtype, int blocks, in
                                            const void* b, const void* scal, void* x, void* trace, void* nosl,
                                            void* ktrace, void* stats, void* xbuf, void* partials, int ns,
                                            int g0, int g1, int g2, int is_const, const int* disp, int maxiter,
-                                           int trace_len, void* stream) {
+                                           int trace_len, int ns_pass, const double* weights, void* stream) {
     StencilGeom g;
     if (!make_geom(ns, g0, g1, g2, is_const, disp, &g) || (method != 0 && method != 1) ||
         (dtype != 4 && dtype != 8) || threads != kResThreads || blocks < 1 || blocks > g0 ||
@@ -870,19 +894,26 @@ extern "C" int krylov_kskip_resident_solve(int method, int dtype, int blocks, in
     const long long rows = (g0 + blocks - 1) / blocks;
     const long long need = (2 * (rows + 2 * h) * g1 + band_arrays(method) * rows * g1 + scalar_elems(k_max)) *
                            (long long)dtype;
-    if (rows * g1 > (long long)ppt * kResThreads || (blocks > 1 && g0 / blocks < h) || smem_bytes < need)
+    const int spec = pass_index(g, ns_pass, weights);
+    if (rows * g1 > (long long)ppt * kResThreads || (blocks > 1 && g0 / blocks < h) || smem_bytes < need ||
+        spec < 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int part = (dtype == 8 ? 0 : 2) + method;
-    const void* kernel = part == 0 ? kskip_resident_part0(ppt)
-                         : part == 1 ? kskip_resident_part1(ppt)
-                         : part == 2 ? kskip_resident_part2(ppt)
-                                     : kskip_resident_part3(ppt);
+    using Part = const void* (*)(int);
+    static const Part parts[12] = {
+        kskip_resident_part0, kskip_resident_part1, kskip_resident_part2,  kskip_resident_part3,
+        kskip_resident_part4, kskip_resident_part5, kskip_resident_part6,  kskip_resident_part7,
+        kskip_resident_part8, kskip_resident_part9, kskip_resident_part10, kskip_resident_part11,
+    };
+    const void* kernel = parts[((dtype == 8 ? 0 : 2) + method) * 3 + spec](ppt);
     if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    void* args[] = {&g,    &h,     &coef, &b,        &scal, &x,     &trace,    &nosl,   &ktrace,
-                    &stats, &xbuf, &partials, &k, &k_max, &adaptive, &maxiter, &trace_len};
+    Terms<double> tmd = make_terms<double>(g, weights);
+    Terms<float> tmf = make_terms<float>(g, weights);
+    void* tm = dtype == 8 ? static_cast<void*>(&tmd) : static_cast<void*>(&tmf);
+    void* args[] = {&g,     tm,    &h,        &coef, &b,     &scal,     &x,       &trace,    &nosl, &ktrace,
+                    &stats, &xbuf, &partials, &k,    &k_max, &adaptive, &maxiter, &trace_len};
     err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kResThreads), args, smem_bytes,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -28,8 +28,9 @@
 //    the end.  The stencil's input (r for MrR, p for CG) is mirrored in
 //    dynamic shared memory: the block's band of rows and h = max |d0| halo
 //    rows on either side.  Grid coefficients are read through __ldg.  Which
-//    terms of a point stay on the grid is worked out once, as a mask, and a
-//    pass loads every term of a thread's points before it adds any.
+//    terms of a point stay on the grid is worked out once, as a mask; the
+//    pass itself is K4 (stencil_pass, resident.cuh), specialised on the
+//    term count as a template argument (NS, the launcher's pick).
 // 2. Three grid syncs an iteration.  Here two.  Blocks exchange only the h
 //    edge rows of their band (published to a small global buffer between
 //    the syncs, read after the second), and each block recomputes its halo
@@ -78,6 +79,14 @@
 // value is overwritten before every reader has it, and one set of edge
 // words suffices.
 #include "resident.cuh"
+
+// kernels/_build.py compiles this file once for each KRYLOV_PART of 0..2,
+// all at once: part P instantiates the kernels of K4's specialisation P
+// (resident_partP), and part 0 also holds the launcher and the sync probe.
+// Compiled without KRYLOV_PART it holds every part.
+#ifndef KRYLOV_PART
+#define KRYLOV_PART -1
+#endif
 
 namespace {
 
@@ -180,9 +189,9 @@ __device__ __forceinline__ void halo_apply(const Word* xbuf, const Band& bd, lon
 // so it waits in shared memory and leaves the registers to r, p and v).
 // xbuf: 2 h g1 words a block; partials: 2 sets of kResSums words a block
 // and 2 more sets; both zero at launch.
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __global__ void __launch_bounds__(kResThreads, 1)
-cg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __restrict__ b,
+cg_resident_kernel(StencilGeom g, Terms<T> tm, int h, const T* __restrict__ coef, const T* __restrict__ b,
                    const T* __restrict__ scal, T* __restrict__ x_out, T* trace, int* stats,
                    Word* xbuf, Word* partials, int maxiter, int trace_len) {
     extern __shared__ __align__(16) unsigned char dyn[];
@@ -196,13 +205,12 @@ cg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __
     const T b_norm = scal[1];
 
     T rr[PPT], pr[PPT], vr[PPT];
-    unsigned mask[PPT];
+    Points<PPT> pt = band_points<PPT, NS>(g, bd);
     T gam[1] = {T(0)};
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
         const int e = bd.p0 + threadIdx.x + k * kResThreads;
         const T be = e < bd.p1 ? b[e] : T(0);
-        mask[k] = e < bd.p1 ? term_mask(g, e) : 0u;
         rr[k] = be;
         pr[k] = be;
         if (e < bd.p1) xs[e - bd.p0] = T(0);
@@ -223,7 +231,7 @@ cg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __
         conv = res < tol;
     }
     while (!conv && i < maxiter) {
-        stencil_band(g, coef, ps, bd, mask, vr);
+        stencil_pass<T, PPT, NS, kPassShape<3, T, PPT, NS>>(g, coef, tm, ps, bd, pt, vr);
         T sig[1] = {T(0)};  // <p, Ap>
 #pragma unroll
         for (int k = 0; k < PPT; ++k)
@@ -277,9 +285,9 @@ cg_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __
 // Whole MrR solve of A x = b from x0 = 0.  Dynamic shared memory: the r
 // mirror, (rows + 2h) g1 entries, the halo copy of y, 2 h g1, then x and z,
 // rows g1 each (only ever updated; the registers hold r, y and Ar).
-template <typename T, int PPT>
+template <typename T, int PPT, int NS>
 __global__ void __launch_bounds__(kResThreads, 1)
-mrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* __restrict__ b,
+mrr_resident_kernel(StencilGeom g, Terms<T> tm, int h, const T* __restrict__ coef, const T* __restrict__ b,
                     const T* __restrict__ scal, T* __restrict__ x_out, T* trace, int* stats,
                     Word* xbuf, Word* partials, int maxiter, int trace_len) {
     extern __shared__ __align__(16) unsigned char dyn[];
@@ -296,17 +304,16 @@ mrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* _
 
     // start half-iteration on r0 = b: zeta = <r,Ar>/<Ar,Ar>
     T rr[PPT], yr[PPT], ar[PPT];
-    unsigned mask[PPT];
+    Points<PPT> pt = band_points<PPT, NS>(g, bd);
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
         const int e = bd.p0 + threadIdx.x + k * kResThreads;
         rr[k] = e < bd.p1 ? b[e] : T(0);
-        mask[k] = e < bd.p1 ? term_mask(g, e) : 0u;
         yr[k] = T(0);
     }
     mirror_from(rs, b, g, bd);
     __syncthreads();
-    stencil_band(g, coef, rs, bd, mask, ar);
+    stencil_pass<T, PPT, NS, kPassShape<2, T, PPT, NS>>(g, coef, tm, rs, bd, pt, ar);
     T st[3] = {T(0), T(0), T(0)};  // <b,b>, <b,Ab>, <Ab,Ab>
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
@@ -344,7 +351,7 @@ mrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* _
     int i = 1;
     bool conv = false;
     while (i < maxiter) {
-        stencil_band(g, coef, rs, bd, mask, ar);
+        stencil_pass<T, PPT, NS, kPassShape<2, T, PPT, NS>>(g, coef, tm, rs, bd, pt, ar);
         T mn[3] = {T(0), T(0), T(0)};  // <y,y>, <y,Ar>, and <r,r> for the test
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
@@ -421,23 +428,23 @@ mrr_resident_kernel(StencilGeom g, int h, const T* __restrict__ coef, const T* _
     }
 }
 
-template <typename T, int PPT>
-const void* resident_kernel_ppt(int method) {
-    return method == 0 ? reinterpret_cast<const void*>(&cg_resident_kernel<T, PPT>)
-                       : reinterpret_cast<const void*>(&mrr_resident_kernel<T, PPT>);
-}
-
-template <typename T>
-const void* resident_kernel(int method, int ppt) {
+template <typename T, int NS>
+const void* resident_kernel_ns(int method, int ppt) {
     switch (ppt) {
-        case 1: return resident_kernel_ppt<T, 1>(method);
-        case 2: return resident_kernel_ppt<T, 2>(method);
-        case 4: return resident_kernel_ppt<T, 4>(method);
-        case 8: return resident_kernel_ppt<T, 8>(method);
+#define RESIDENT_PPT(P)                                                                       \
+        case P:                                                                               \
+            return method == 0 ? reinterpret_cast<const void*>(&cg_resident_kernel<T, P, NS>) \
+                               : reinterpret_cast<const void*>(&mrr_resident_kernel<T, P, NS>);
+        RESIDENT_PPT(1)
+        RESIDENT_PPT(2)
+        RESIDENT_PPT(4)
+        RESIDENT_PPT(8)
+#undef RESIDENT_PPT
         default: return nullptr;
     }
 }
 
+#if KRYLOV_PART <= 0
 // A cooperative grid that only syncs, reps times: mode 0 through
 // cooperative groups' grid.sync(), mode 1 through grid_allsum of one
 // float64 (the resident kernels' sync).  partials: 2 kResSums words a
@@ -453,8 +460,35 @@ __global__ void sync_probe_kernel(int reps, int mode, Word* partials) {
     double v[1] = {double(threadIdx.x == 0)};
     for (int i = 0; i < reps; ++i) grid_allsum(ex, v, wsum);
 }
+#endif
 
 }  // namespace
+
+// The kernel of K4's specialisation P (0: NS = 0, 1: NS = 5, 2: NS = 7;
+// pass_index) for dtype (the element size), method and ppt (1, 2, 4 or 8;
+// else null).  Each is defined in the compilation of its part.
+const void* resident_part0(int dtype, int method, int ppt);
+const void* resident_part1(int dtype, int method, int ppt);
+const void* resident_part2(int dtype, int method, int ppt);
+
+#define RESIDENT_PART(P, NS)                                                                           \
+    const void* resident_part##P(int dtype, int method, int ppt) {                                     \
+        return dtype == 8 ? resident_kernel_ns<double, NS>(method, ppt)                                \
+               : dtype == 4 ? resident_kernel_ns<float, NS>(method, ppt)                               \
+                            : nullptr;                                                                 \
+    }
+
+#if KRYLOV_PART < 0 || KRYLOV_PART == 0
+RESIDENT_PART(0, 0)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 1
+RESIDENT_PART(1, 5)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 2
+RESIDENT_PART(2, 7)
+#endif
+
+#if KRYLOV_PART <= 0
 
 // One resident solve (method 0 = CG, 1 = MrR; dtype the element size in
 // bytes) on blocks bands of the (g0, g1) grid, each of ppt * 512 points at
@@ -468,22 +502,26 @@ extern "C" int krylov_resident_solve(int method, int dtype, int blocks, int thre
                                      const void* scal, void* x, void* trace, void* stats,
                                      void* xbuf, void* partials, int ns, int g0, int g1, int g2,
                                      int is_const, const int* disp, int maxiter, int trace_len,
-                                     void* stream) {
+                                     int ns_pass, const double* weights, void* stream) {
     StencilGeom g;
     if (!make_geom(ns, g0, g1, g2, is_const, disp, &g) || (method != 0 && method != 1) ||
         threads != kResThreads || blocks < 1 || blocks > g0 || blocks > kResMaxBlocks || h < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const long long rows = (g0 + blocks - 1) / blocks;
-    if (rows * g1 > (long long)ppt * kResThreads || (blocks > 1 && g0 / blocks < h))
+    const int part = pass_index(g, ns_pass, weights);
+    if (rows * g1 > (long long)ppt * kResThreads || (blocks > 1 && g0 / blocks < h) || part < 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel = dtype == 8 ? resident_kernel<double>(method, ppt)
-                         : dtype == 4 ? resident_kernel<float>(method, ppt)
-                                      : nullptr;
+    const void* kernel = part == 0 ? resident_part0(dtype, method, ppt)
+                         : part == 1 ? resident_part1(dtype, method, ppt)
+                                     : resident_part2(dtype, method, ppt);
     if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    void* args[] = {&g, &h, &coef, &b, &scal, &x, &trace, &stats, &xbuf, &partials,
+    Terms<double> tmd = make_terms<double>(g, weights);
+    Terms<float> tmf = make_terms<float>(g, weights);
+    void* tm = dtype == 8 ? static_cast<void*>(&tmd) : static_cast<void*>(&tmf);
+    void* args[] = {&g, tm, &h, &coef, &b, &scal, &x, &trace, &stats, &xbuf, &partials,
                     &maxiter, &trace_len};
     err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kResThreads), args, smem_bytes,
                                       static_cast<cudaStream_t>(stream));
@@ -504,3 +542,4 @@ extern "C" int krylov_sync_probe(int blocks, int threads, int reps, int mode, vo
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -23,7 +23,7 @@ constexpr int kResWarps = kResThreads / 32;
 constexpr int kResSums = 3;       // most sums in one grid_allsum
 constexpr int kGather = 5;        // partials a lane of a reducing warp loads
 constexpr int kResMaxBlocks = 32 * kGather;  // kernels/fused.py RESIDENT_MAX_BLOCKS
-static_assert(KRYLOV_MAX_TERMS <= 32, "a point's terms are a 32-bit mask");
+static_assert(KRYLOV_MAX_TERMS <= 30, "a point's terms are the low bits of a 32-bit mask");
 
 // Pointwise arithmetic the compiler may not contract into FMAs.
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -149,11 +149,12 @@ __device__ __forceinline__ unsigned term_mask(const StencilGeom& g, int e) {
 
 // The stencil at the thread's PPT points, y[k] = sum_s coef_s(e) * x[e +
 // (d0_s, d1_s)] over the terms of mask[k], added in stencil order, with x
-// read from the block's shared-memory mirror xs.  The terms are a loop at
+// read from the block's shared-memory mirror xs: the masked pass, for any
+// stencil (K4's NS = 0; stencil_pass below).  The terms are a loop at
 // run time, unrolled by two: unrolled in full, the compiler hoists every
 // (term, point) address out of the solve's loop and spills them.  Each
 // term's loads for all points go out before its products.  A term off the
-// grid loads the point's own entry and adds nothing; a point past the band
+// grid loads the band's first entry and adds nothing; a point past the band
 // has mask 0 and gets 0.
 template <typename T, int PPT>
 __device__ __forceinline__ void stencil_band(const StencilGeom& g, const T* __restrict__ coef,
@@ -194,6 +195,198 @@ __device__ __forceinline__ void stencil_band(const StencilGeom& g, const T* __re
             if (mask[k] >> s & 1u) y[k] = add(y[k], mul(cv[k], xv[k]));
     }
 }
+
+// K4, the resident stencil pass (replaces the stencil application of
+// krylov_tpu/kernels/fused.py::_apply_stencil inside K2/K3/K5/K6).  Its
+// data are on chip, the mirror in shared memory, so its bound is the
+// shared-memory bytes: NS loads a point, 128 bytes a clock an SM.  What
+// the masked pass above spends beside those loads, and what the pass
+// specialised on the term count NS does about it:
+//  - a weight loaded a term a pass, and the offset d0 g1 + d1 formed: both
+//    arrive as kernel arguments (Terms), uniform operands;
+//  - the term loop at run time, unrolled by two: NS is a template argument,
+//    so the loop unrolls in full;
+//  - a select a term and a point for the load's index: a term off the grid
+//    is not loaded at all, its load and its add predicated on the term's
+//    bit (kPredicated); or, where the registers allow, a slice k of a warp
+//    whose 32 points all have every term on the grid (kSliceFull; at
+//    N = 250k all but the slices that hold a row's ends or a grid edge)
+//    loads its terms with no test and G points' loads go out before their
+//    adds (SHAPE = G), the other slices predicated.
+// The second form spends fewer instructions but more registers, and most
+// resident kernels sit at the 128-register cap, where it spills.  Each
+// kernel takes the form kPassShape names for it, and the masked pass's own
+// body (kMasked) where no specialised form both ran faster and spilled no
+// more.  The term addresses and the term tests are formed each pass
+// from a base and masks the optimiser cannot see through (the masks in
+// place, so no copy takes a register): hoisted out of the solve loop, the
+// PPT x NS of each would hold registers for the whole solve and spill.
+// Every point adds its terms from 0 in stencil order with the _rn mul and
+// add, skipping a term off the grid, as the masked pass does, so the two
+// give the same bits (tests/test_torch_cuda.py, chip_smoke.py).  NS = 0
+// is the masked pass, for the grid-coefficient form and other term
+// counts; kernels/fused.py::pass_terms picks NS.
+
+// The constant form's weights and flat offsets d0 g1 + d1, by value in the
+// kernel's arguments (filled once by the launcher, from the host copy of
+// the weights that K1 keeps), read by the specialised pass.
+template <typename T>
+struct Terms {
+    T w[KRYLOV_MAX_TERMS];
+    int off[KRYLOV_MAX_TERMS];
+};
+
+// The launcher's Terms: offsets from the geometry, weights (ns doubles,
+// or null for the grid form) cast to T.
+template <typename T>
+inline Terms<T> make_terms(const StencilGeom& g, const double* weights) {
+    Terms<T> tm{};
+    for (int s = 0; s < g.ns; ++s) {
+        tm.off[s] = g.d0[s] * g.g1 + g.d1[s];
+        tm.w[s] = weights ? static_cast<T>(weights[s]) : T(0);
+    }
+    return tm;
+}
+
+// The index of the launch's specialisation among those the build holds (0:
+// NS = 0, 1: NS = 5, 2: NS = 7), or -1 where the pass cannot take ns_pass:
+// NS > 0 needs the constant form with NS terms and its weights.
+inline int pass_index(const StencilGeom& g, int ns_pass, const double* weights) {
+    if (ns_pass == 0) return 0;
+    if ((ns_pass != 5 && ns_pass != 7) || !g.is_const || g.ns != ns_pass || weights == nullptr) return -1;
+    return ns_pass == 5 ? 1 : 2;
+}
+
+// A thread's PPT points, worked out once before the solve loop: mask[k]
+// holds point k's terms on the grid (bit s: term s; none past the band) and
+// two flags of the warp's slice k, the same in every lane: kSliceFull (every
+// lane's point k has all its terms on the grid) and kSliceLive (some lane's
+// point k lies in the band).  The flags ride in bits no term uses, so they
+// take no register of their own; the masked pass (NS = 0) gets none.  Every
+// thread of the block must call it.
+// The specialised pass takes the masks by reference and marks them
+// rewritten each pass (stencil_pass), so a kernel keeps its Points
+// mutable.
+constexpr unsigned kSliceFull = 1u << 31;
+constexpr unsigned kSliceLive = 1u << 30;
+
+template <int PPT>
+struct Points {
+    unsigned mask[PPT];
+};
+
+template <int PPT, int NS>
+__device__ __forceinline__ Points<PPT> band_points(const StencilGeom& g, const Band& bd) {
+    Points<PPT> pt;
+    const unsigned all = (1u << g.ns) - 1u;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+        const int e = bd.p0 + threadIdx.x + k * kResThreads;
+        const unsigned m = e < bd.p1 ? term_mask(g, e) : 0u;
+        pt.mask[k] = m;
+        if constexpr (NS > 0)  // the masked pass reads no flag
+            pt.mask[k] |= (__all_sync(0xffffffffu, m == all) ? kSliceFull : 0u) |
+                          (__any_sync(0xffffffffu, m != 0u) ? kSliceLive : 0u);
+    }
+    return pt;
+}
+
+// The forms of the specialised pass (stencil_pass's SHAPE): kPredicated,
+// one point at a time, each term's load and add predicated on its bit; G
+// in 1..PPT, G points at a time, a slice whose points have every term on
+// the grid loading them with no test, their G x NS loads before their adds;
+// or kMasked, the masked pass's body (stencil_band, which reads no flag
+// bit: they lie above every term's).
+constexpr int kPredicated = 0;
+constexpr int kMasked = -1;
+
+// K4: y[k] at the thread's PPT points from the mirror xs, specialised on
+// NS terms (5, 7; 0: the masked pass) in the form SHAPE.
+template <typename T, int PPT, int NS, int SHAPE>
+__device__ __forceinline__ void stencil_pass(const StencilGeom& g, const T* __restrict__ coef, const Terms<T>& tm,
+                                             const T* xs, const Band& bd, Points<PPT>& pt, T (&y)[PPT]) {
+    if constexpr (NS == 0 || SHAPE == kMasked) {
+        stencil_band(g, coef, xs, bd, pt.mask, y);
+    } else {
+        int base = bd.hg + static_cast<int>(threadIdx.x);
+        unsigned(&m)[PPT] = pt.mask;
+        asm volatile("" : "+r"(base));  // formed anew each pass (see above)
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) asm volatile("" : "+r"(m[k]));
+        if constexpr (SHAPE == kPredicated) {
+#pragma unroll
+            for (int k = 0; k < PPT; ++k) {
+                const int q = base + k * kResThreads;
+                T acc = T(0);
+                if (m[k] & kSliceLive) {
+#pragma unroll
+                    for (int s = 0; s < NS; ++s)
+                        if (m[k] >> s & 1u) acc = add(acc, mul(tm.w[s], xs[q + tm.off[s]]));
+                }
+                y[k] = acc;
+            }
+        } else {
+            constexpr int G = SHAPE < PPT ? SHAPE : PPT;
+            static_assert(G >= 1 && PPT % G == 0, "stencil_pass: G must divide PPT");
+#pragma unroll
+            for (int k0 = 0; k0 < PPT; k0 += G) {
+                T xv[G][NS];
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    const int k = k0 + j;
+                    const int q = base + k * kResThreads;
+                    if (m[k] & kSliceFull) {
+#pragma unroll
+                        for (int s = 0; s < NS; ++s) xv[j][s] = xs[q + tm.off[s]];
+                    } else if (m[k] & kSliceLive) {
+#pragma unroll
+                        for (int s = 0; s < NS; ++s)
+                            if (m[k] >> s & 1u) xv[j][s] = xs[q + tm.off[s]];
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    const int k = k0 + j;
+                    T acc = T(0);
+                    if (m[k] & kSliceFull) {
+#pragma unroll
+                        for (int s = 0; s < NS; ++s) acc = add(acc, mul(tm.w[s], xv[j][s]));
+                    } else if (m[k] & kSliceLive) {
+#pragma unroll
+                        for (int s = 0; s < NS; ++s)
+                            if (m[k] >> s & 1u) acc = add(acc, mul(tm.w[s], xv[j][s]));
+                    }
+                    y[k] = acc;
+                }
+            }
+        }
+    }
+}
+
+// The form of K4's pass in kernel K (2, 3, 5, 6: K2/K3/K5/K6) at (T, PPT,
+// NS), from readings on an H100 (PERF.md, the K4 findings).  The main
+// path's instances (4 points a thread, NS 5) take a specialised form only
+// where their solves beat the masked pass's in 9 of 10 alternating pairs,
+// the medians further apart than the masked pass's own quartiles
+// (diagnostics/resident_timing.py --against), else kMasked.  The others
+// take kPredicated, but kMasked where it spilled more than the masked pass
+// (nvcc -Xptxas -v).
+constexpr int pass_shape(int K, bool f64, int ppt, int ns) {
+    if (ppt == 4 && ns == 5) {
+        switch (K) {
+            case 5: return kMasked;
+            case 6: return f64 ? kPredicated : 2;
+            default: return f64 ? kPredicated : kMasked;
+        }
+    }
+    const bool spills_more = (K == 3 && f64 && ppt == 8) || (K == 6 && !f64 && ppt == 8) ||
+                             (K == 5 && f64 && (ppt == 2 || (ns == 7 && ppt == 4))) ||
+                             (K == 5 && !f64 && (ppt == 1 || (ns == 7 && ppt >= 4)));
+    return spills_more ? kMasked : kPredicated;
+}
+
+template <int K, typename T, int PPT, int NS>
+constexpr int kPassShape = pass_shape(K, sizeof(T) == 8, PPT, NS);
 
 template <typename T, int K>
 __device__ __forceinline__ void warp_allsum(T (&v)[K]) {

@@ -21,7 +21,9 @@ Each returns ``(x, trace, iters, conv)``: ``trace`` has
 ``min(maxiter, TRACE_CAP) + 1`` slots and a solve running past the cap
 keeps iterating, recording its residuals in the last slot.  Each wrapper
 counts its launches in ``launches``, and by route in ``launches_resident``
-and ``launches_streaming``.
+and ``launches_streaming``; its resident launches also by the
+specialisation of K4, the stencil pass inside them (:func:`pass_terms`), in
+``launches_ns0``, ``launches_ns5`` and ``launches_ns7``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from krylov_tpu_torch.kernels import _build
 from krylov_tpu_torch.kernels.stencil import (
     geometry,
+    host_weights,
     require_cuda,
     stencil_matvec_2d_reference,
 )
@@ -58,8 +61,27 @@ RESIDENT_SMEM = 232_448 - 1024
 STREAM_THREADS = 256  # kThreads in reduce.cuh
 STREAM_BLOCKS_PER_SM = 4  # the streaming grid (PERF.md: the grid-size sweep)
 
+# term counts of the specialised resident stencil pass, K4 (the NS of
+# stencil_pass in csrc/resident.cuh; 0 is the masked pass)
+PASS_TERMS = (5, 7)
+
 _METHOD_CODE = {"cg": 0, "mrr": 1}
 _workspace = {}
+
+
+def pass_terms(stencil, is_const: bool) -> int:
+    """K4's specialisation for a stencil on the collapsed grid: its term
+    count where the constant form has 5 terms (the 2-D 5-point stencil) or
+    7 (the collapsed 3-D 7-point one), else 0, the masked pass (the
+    grid-coefficient form, other counts)."""
+    return len(stencil) if is_const and len(stencil) in PASS_TERMS else 0
+
+
+def pass_args(coef, b, stencil, grid, sub) -> tuple:
+    """``(ns_pass, weights)`` of a resident launch: K4's specialisation and,
+    for a specialised one, the constant weights on the host (else None)."""
+    ns_pass = pass_terms(stencil, coef.ndim == 1)
+    return ns_pass, host_weights(coef, b, stencil, grid, sub) if ns_pass else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +188,8 @@ def resident_buffers(p: Plan, grid) -> Tuple[int, int]:
 
 
 def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
-    """Launch the route of the plan; returns ``((x, trace, iters, conv), route)``."""
+    """Launch the route of the plan; returns ``((x, trace, iters, conv),
+    route, ns_pass)``."""
     require_cuda(f"fused_{method}_solve_2d", coef, b, stencil, grid)
     lib = _build.library()
     dt, dev = b.dtype, b.device
@@ -182,14 +205,17 @@ def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
         ])
         geom = geometry(stencil, grid, sub, coef.ndim == 1)
         stream = torch.cuda.current_stream().cuda_stream
+        ns_pass = None
         if p.route == "resident":
             xbuf_words, partial_words = resident_buffers(p, grid)
             xbuf = torch.zeros(2 * xbuf_words, dtype=torch.int64, device=dev)
             partials = torch.zeros(2 * partial_words, dtype=torch.int64, device=dev)
+            ns_pass, weights = pass_args(coef, b, stencil, grid, sub)
             err = lib.krylov_resident_solve(
                 _METHOD_CODE[method], b.element_size(), p.blocks, p.threads, p.ppt, p.halo, p.smem,
                 coef.data_ptr(), b.data_ptr(), scal.data_ptr(), x.data_ptr(), trace.data_ptr(),
-                stats.data_ptr(), xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, stream,
+                stats.data_ptr(), xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, ns_pass,
+                weights, stream,
             )
         else:
             blocks, work_elems, partial_elems = workspace(method, dt, b.numel(), p.blocks)
@@ -202,12 +228,58 @@ def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
                 *geom, maxiter, trace_len, stream,
             )
     _build.check(err, f"fused_{method}_solve_2d ({p.route} route)")
-    return (x, trace, stats[0], stats[1].bool()), p.route
+    return (x, trace, stats[0], stats[1].bool()), p.route, ns_pass
 
 
-def _count(fn, route: str) -> None:
+def stencil_pass_probe(coef, x, *, stencil, grid, sub=None, ns_pass: Optional[int] = None, split: bool = False,
+                       reps: int = 1):
+    """K4 alone on the card (``csrc/resident_probe.cu``): ``reps`` resident
+    stencil passes over ``x`` on the bands of the resident plan of this
+    grid (:func:`resident_bands`, ``MAX_BLOCKS`` applied), each block's
+    band and halo rows mirrored in shared memory, a ``__syncthreads`` after
+    each pass as in the solves.  ``ns_pass`` is K4's specialisation (None:
+    :func:`pass_terms`'s; 0: the masked pass); ``split`` takes its split
+    form of 2 points at a time, as K6 takes it in float32
+    (``csrc/resident.cuh``: the test-free loads of slices whose terms are
+    all on the grid), instead of the predicated one.  Returns ``(y, sums, cycles)``: the last pass's
+    ``A x``, the sum of the passes at every point, and each band's clock
+    cycles over the passes (int64).  Its
+    launches count toward no wrapper: it measures and checks K4, which the
+    solves launch."""
+    require_cuda("stencil_pass_probe", coef, x, stencil, grid)
+    dev = x.device
+    with torch.cuda.device(dev):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        bands, _, ppt, h = resident_bands(grid, stencil, sms, MAX_BLOCKS)
+        if ppt == 0:
+            raise ValueError(f"stencil_pass_probe: grid {grid} does not fit the resident plan")
+        if ns_pass is None:
+            ns_pass = pass_terms(stencil, coef.ndim == 1)
+        weights = host_weights(coef, x, stencil, grid, sub) if ns_pass else None
+        y, sums = torch.empty_like(x), torch.empty_like(x)
+        cycles = torch.zeros(bands, dtype=torch.int64, device=dev)
+        err = _build.library().krylov_stencil_probe(
+            x.element_size(), ns_pass, int(split), bands, ppt, h, coef.data_ptr(), x.data_ptr(), y.data_ptr(),
+            sums.data_ptr(), cycles.data_ptr(), *geometry(stencil, grid, sub, coef.ndim == 1), weights, reps,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, f"stencil_pass_probe (NS = {ns_pass}{', split' if split else ''})")
+    return y, sums, cycles
+
+
+def _count(fn, route: str, ns_pass) -> None:
+    """One launch of ``fn`` on ``route``; a resident one also under its K4
+    specialisation ``ns_pass``."""
     fn.launches += 1
     setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
+    if route == "resident":
+        setattr(fn, f"launches_ns{ns_pass}", getattr(fn, f"launches_ns{ns_pass}") + 1)
+
+
+def reset_counts(fn) -> None:
+    """Set every launch count of the fused wrapper ``fn`` to 0."""
+    for name in COUNTS:
+        setattr(fn, name, 0)
 
 
 def _scalars(b, tol, b_norm):
@@ -297,8 +369,8 @@ def fused_cg_solve_2d(
         return fused_cg_solve_2d_reference(
             coef, b, tol, b_norm, stencil=stencil, grid=grid, maxiter=maxiter, sub=sub
         )
-    out, route = _launch("cg", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
-    _count(fused_cg_solve_2d, route)
+    out, route, ns_pass = _launch("cg", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
+    _count(fused_cg_solve_2d, route, ns_pass)
     return out
 
 
@@ -311,10 +383,12 @@ def fused_mrr_solve_2d(
         return fused_mrr_solve_2d_reference(
             coef, b, tol, b_norm, stencil=stencil, grid=grid, maxiter=maxiter, sub=sub
         )
-    out, route = _launch("mrr", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
-    _count(fused_mrr_solve_2d, route)
+    out, route, ns_pass = _launch("mrr", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
+    _count(fused_mrr_solve_2d, route, ns_pass)
     return out
 
 
+# the launch counts of each fused wrapper (K2/K3 here, K5/K6 in fused_kskip)
+COUNTS = ("launches", "launches_resident", "launches_streaming", *(f"launches_ns{n}" for n in (0, *PASS_TERMS)))
 for _fn in (fused_cg_solve_2d, fused_mrr_solve_2d):
-    _fn.launches = _fn.launches_resident = _fn.launches_streaming = 0
+    reset_counts(_fn)

@@ -21,8 +21,10 @@ a CPU tensor the wrappers run the plain PyTorch versions beside them, which
 are the eager loops of :mod:`krylov_tpu_torch.solvers` on the stencil
 operator.  Both solve from x0 = 0 (the caller shifts for x0).  ``k`` is a
 runtime value in ``[0, k_max]``.  Each wrapper counts its launches in
-``launches``, and by route in ``launches_resident`` and
-``launches_streaming``.
+``launches``, by route in ``launches_resident`` and
+``launches_streaming``, and its resident launches by K4's specialisation in
+``launches_ns0``, ``launches_ns5`` and ``launches_ns7``
+(:func:`krylov_tpu_torch.kernels.fused.pass_terms`).
 
 Traces have ``min(maxiter, TRACE_CAP) + 2`` slots, indexed by the outer
 iteration; a solve past the cap keeps iterating and records in the last
@@ -152,7 +154,7 @@ def resident_buffers(p: fused.Plan, grid, k_max: int) -> Tuple[int, int]:
 
 def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adaptive, sub):
     """Launch the route of the plan; returns ``((x, trace, nosl, ktrace,
-    stats), route)``."""
+    stats), route, ns_pass)``."""
     name = f"fused_{method}_solve_2d"
     require_cuda(name, coef, b, stencil, grid)
     lib = _build.library()
@@ -172,14 +174,16 @@ def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adap
         geom = geometry(stencil, grid, sub, coef.ndim == 1)
         outs = (x.data_ptr(), trace.data_ptr(), nosl.data_ptr(), ktrace.data_ptr(), stats.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
+        ns_pass = None
         if p.route == "resident":
             xbuf_words, partial_words = resident_buffers(p, grid, k_max)
             xbuf = torch.zeros(2 * xbuf_words, dtype=torch.int64, device=dev)
             partials = torch.zeros(2 * partial_words, dtype=torch.int64, device=dev)
+            ns_pass, weights = fused.pass_args(coef, b, stencil, grid, sub)
             err = lib.krylov_kskip_resident_solve(
                 _METHOD_CODE[method], b.element_size(), p.blocks, p.threads, p.ppt, p.halo, p.smem, k, k_max,
                 int(adaptive), coef.data_ptr(), b.data_ptr(), scal.data_ptr(), *outs,
-                xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, stream,
+                xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, ns_pass, weights, stream,
             )
         else:
             _, work_elems, partial_elems, smem = workspace(method, dt, b.numel(), k_max)
@@ -191,7 +195,7 @@ def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adap
                 *geom, maxiter, trace_len, stream,
             )
     _build.check(err, f"{name} ({p.route} route)")
-    return (x, trace, nosl, ktrace, stats), p.route
+    return (x, trace, nosl, ktrace, stats), p.route, ns_pass
 
 
 def _plain(loop, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, sub):
@@ -266,10 +270,10 @@ def fused_kskipcg_solve_2d(
         return fused_kskipcg_solve_2d_reference(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max, sub=sub
         )
-    (x, trace, nosl, _, stats), route = _launch(
+    (x, trace, nosl, _, stats), route, ns_pass = _launch(
         "kskipcg", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, False, sub
     )
-    fused._count(fused_kskipcg_solve_2d, route)
+    fused._count(fused_kskipcg_solve_2d, route, ns_pass)
     return x, trace, nosl, stats[0], stats[1].bool(), stats[2]
 
 
@@ -285,12 +289,12 @@ def fused_kskipmrr_solve_2d(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max,
             adaptive=adaptive, sub=sub,
         )
-    (x, trace, nosl, ktrace, stats), route = _launch(
+    (x, trace, nosl, ktrace, stats), route, ns_pass = _launch(
         "kskipmrr", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, adaptive, sub
     )
-    fused._count(fused_kskipmrr_solve_2d, route)
+    fused._count(fused_kskipmrr_solve_2d, route, ns_pass)
     return x, trace, nosl, ktrace, stats[0], stats[1].bool(), stats[2], stats[3]
 
 
 for _fn in (fused_kskipcg_solve_2d, fused_kskipmrr_solve_2d):
-    _fn.launches = _fn.launches_resident = _fn.launches_streaming = 0
+    fused.reset_counts(_fn)

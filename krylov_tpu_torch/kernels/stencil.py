@@ -109,6 +109,16 @@ def _params(coef: torch.Tensor, x: torch.Tensor, stencil, grid, sub) -> tuple:
     return entry[1:4]
 
 
+def host_weights(coef: torch.Tensor, x: torch.Tensor, stencil, grid, sub) -> ctypes.Array:
+    """The constant form's weights as doubles on the host, from the struct
+    K1 keeps for ``coef`` (:func:`_params`: read from the card once per
+    coefficient tensor and version), for the C entry points that take them
+    as an argument (K4's specialised pass).  The struct stays in ``_PARAMS``
+    until a later call of :func:`_params` clears the cache, so pass it on
+    before the next one."""
+    return _K1Params.from_address(_params(coef, x, stencil, grid, sub)[0]).weights
+
+
 def stencil_matvec_2d_reference(
     coef: torch.Tensor, x: torch.Tensor, *, stencil: Tuple[Tuple[int, int], ...],
     grid: Tuple[int, int], sub=None,

@@ -101,12 +101,16 @@ def chronopoulos_gear_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None,
     u = _apply_M(ctx, M, r)
     w = ctx.matvec(A, u)
     gamma, delta, rr = ctx.dot_bundle([(r, u), (w, u), (r, r)])
-    alpha = gamma / delta
+    # safe_div: an exact warm start (r0 = 0) gives 0 / 0 here
+    alpha = safe_div(gamma, delta)
     beta = torch.zeros_like(gamma)
     p = torch.zeros_like(r)
     s = torch.zeros_like(r)
     trace, i, conv = _start(b, maxiter, sdt)
     trace[..., 0] = torch.sqrt(rr) / b_norm
+    # the loop tests the residual after each step; r0 is tested here, so a
+    # start already below tol keeps x0 and takes no step
+    conv = trace[..., 0] < tol
     for step in range(maxiter):
         p_n = u + scale(beta, p)
         s_n = w + scale(beta, s)

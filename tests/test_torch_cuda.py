@@ -811,3 +811,80 @@ def test_sharded_stencil_boundary_planes_on_card(cuda, name, dtype):
         bottom = x[:, s0 + n: s0 + n + plane].contiguous() if rank < P - 1 else None
         assert torch.equal(stencil_boundary(op, x_l, stencil_bulk(op, x_l), top, bottom), want[:, s0: s0 + n])
     assert stencil.stencil_matvec_2d.launches == before + P + 2 * (P - 1)
+
+
+# K4, the resident stencil pass: systems whose resident plans cover the
+# specialisations and the band shapes (the main-path plan, 132 bands of 3
+# or 4 rows at 4 points a thread; the collapsed 3-D grids at 1 and 8 points
+# a thread; an uneven split whose bands differ in rows)
+K4_CASES = {
+    "laplace2d(500)": lambda **kw: fixtures.laplace2d(500, constant=True, **kw),
+    "laplace3d(16)": lambda **kw: fixtures.laplace3d(16, constant=True, **kw),
+    "laplace3d(64)": lambda **kw: fixtures.laplace3d(64, constant=True, **kw),
+    "laplace2d(503, 493)": lambda **kw: fixtures.laplace2d(503, 493, constant=True, **kw),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+def test_k4_specialised_pass_equals_masked_pass(cuda, name, dtype, rtol):
+    """The pass specialised on the term count (5 for the 2-D stencil, 7 for
+    the collapsed 3-D one), in its predicated and its split form, gives the
+    bits of the masked pass (NS = 0) on the same mirror, over several
+    passes; all hold the plain stencil to K1's tolerance."""
+    A = K4_CASES[name](dtype=dtype, device=cuda)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    ns = fused.pass_terms(stencil2, True)
+    assert ns == (7 if name.startswith("laplace3d") else 5)
+    x = _rhs(A.shape[0], 18, cuda, dtype)
+    kw = dict(stencil=stencil2, grid=grid2, sub=sub, reps=3)
+    y0, sums0, _ = fused.stencil_pass_probe(coef2, x, ns_pass=0, **kw)
+    for split in (False, True):
+        y, sums, cycles = fused.stencil_pass_probe(coef2, x, ns_pass=ns, split=split, **kw)
+        assert torch.equal(y, y0) and torch.equal(sums, sums0)
+        assert bool((cycles > 0).all())
+    y_ref = stencil.stencil_matvec_2d_reference(coef2, x, stencil=stencil2, grid=grid2, sub=sub)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=rtol * float(y_ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, ns", [("2d", 0), ("2d-const", 5), ("3d-const", 7)])
+@pytest.mark.parametrize("method", ["cg", "mrr", "kskipcg", "kskipmrr"])
+def test_resident_launches_count_k4_specialisation(cuda, method, name, ns):
+    """Each resident launch counts under the specialisation its launcher
+    picked from the geometry, and the solve keeps the masked pass's
+    bits."""
+    A = OPERATORS[name](device=cuda)
+    b = _rhs(A.shape[0], 19, cuda)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    kw = dict(stencil=stencil2, grid=grid2, maxiter=A.shape[0], sub=sub)
+    if method.startswith("kskip"):
+        fn = getattr(fused_kskip, f"fused_{method}_solve_2d")
+        args = (coef2, b, 1e-8, torch.linalg.vector_norm(b), 2)
+        kw["k_max"] = 2
+    else:
+        fn = KERNEL[method]
+        args = (coef2, b, 1e-8, torch.linalg.vector_norm(b))
+    before = {name_: getattr(fn, name_) for name_ in fused.COUNTS}
+    fn(*args, **kw)
+    after = {name_: getattr(fn, name_) - v for name_, v in before.items()}
+    assert after == {**{name_: 0 for name_ in fused.COUNTS}, "launches": 1, "launches_resident": 1,
+                     f"launches_ns{ns}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "mrr", "kskipmrr", "chronopoulos_gear"])
+def test_degenerate_systems_on_cuda(cuda, method):
+    """b = 0 launches no fused kernel and returns zeros on the card; an
+    exact warm start returns x0 bitwise."""
+    A = fixtures.laplace2d(24, constant=True, device=cuda)
+    x0 = _rhs(A.shape[0], 20, cuda)
+    k = 4 if method == "kskipmrr" else 0
+    fns = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
+    before = [fn.launches for fn in fns]
+    x, info = krylov_tpu_torch.solve(A, torch.zeros_like(x0), method=method, x0=x0, k=k)
+    assert [fn.launches for fn in fns] == before
+    assert x.is_cuda and bool((x == 0).all()) and info["converged"] and info["iterations"] == 0
+    x, info = krylov_tpu_torch.solve(A, A.matvec(x0), method=method, x0=x0, k=k)
+    assert torch.equal(x, x0) and info["converged"] and info["iterations"] <= 1

@@ -258,6 +258,38 @@ def _errors(mesh, fx):
     return out
 
 
+# b = 0 under mesh= (scipy's rule at the port's front door): each method
+# with its k, on SYSTEMS["lap2d"]; and a CG batch of three whose member 1
+# is zero, beside the batch without it
+DEGENERATE_METHODS = {"cg": 0, "kskipmrr": 2, "chronopoulos_gear": 0}
+DEGENERATE_TOL, DEGENERATE_MAXITER = 1e-9, 200
+
+
+def _degenerate(mesh, fx, cv):
+    """The zero-b cases of DEGENERATE_METHODS (solve from x0 = 1, and
+    solve_device) and the batch with a zero member, as this rank saw them;
+    every rank takes the same branch from the all-reduced norm, or the
+    others would wait in a collective."""
+    from krylov_tpu_torch.context import all_reduce
+
+    A = SYSTEMS["lap2d"](fx, cv)
+    n = A.shape[0]
+    out = {}
+    for method, k in DEGENERATE_METHODS.items():
+        kw = dict(method=method, k=k, tol=DEGENERATE_TOL, maxiter=DEGENERATE_MAXITER, mesh=mesh)
+        calls = all_reduce.calls
+        x, info = krylov_tpu_torch.solve(A, np.zeros(n), x0=np.ones(n), **kw)
+        out[method] = dict(x=x.numpy(), info=_record(info), all_reduces=all_reduce.calls - calls,
+                           device=_result(krylov_tpu_torch.solve_device(A, torch.zeros(n, dtype=torch.float64),
+                                                                         **kw)))
+    B = np.random.default_rng(5).standard_normal((3, n))
+    B[1] = 0
+    kw = dict(method="cg", tol=DEGENERATE_TOL, maxiter=DEGENERATE_MAXITER, mesh=mesh)
+    out["batch"] = _result(krylov_tpu_torch.solve_batched(A, B, **kw))
+    out["batch_without"] = _result(krylov_tpu_torch.solve_batched(A, B[[0, 2]], **kw))
+    return out
+
+
 def _rank_main(world: int, rank: int, store: str, out_dir: str) -> None:
     import torch.distributed as dist
 
@@ -277,6 +309,7 @@ def _rank_main(world: int, rank: int, store: str, out_dir: str) -> None:
         for system, P in MATVECS:
             if P == world:
                 record["matvecs"][system] = _run_matvec(system, mesh, fixtures, convert)
+        record["degenerate"] = _degenerate(mesh, fixtures, convert)
         record["dryrun"] = dryrun_multichip(mesh)
     finally:
         dist.destroy_process_group()
@@ -491,6 +524,39 @@ def test_all_reduces_an_iteration(worlds, name):
     (c1, i1), (c2, i2) = worlds.ranks(case["P"])[0]["cases"][name]["probe"]
     assert i2 > i1
     assert (c2 - c1) == ALLREDUCES[case["method"]] * (i2 - i1), (c1, i1, c2, i2)
+
+
+@pytest.mark.parametrize("P", (2, 4))
+@pytest.mark.parametrize("method", sorted(DEGENERATE_METHODS))
+def test_zero_rhs_under_mesh(worlds, method, P):
+    """b = 0 returns x = 0 (whatever x0), 0 iterations, converged and a
+    trace of one 0 on every rank, through solve and solve_device, after the
+    same all-reduces on every rank."""
+    ranks = [r["degenerate"][method] for r in worlds.ranks(P)]
+    n = ranks[0]["x"].shape[0]
+    for got in ranks:
+        assert got["all_reduces"] == ranks[0]["all_reduces"]
+        assert got["x"].shape == (n,) and not got["x"].any()
+        info = got["info"]
+        assert info["converged"] is True and info["iterations"] == 0
+        np.testing.assert_array_equal(info["residual"], [0.0])
+        dev = got["device"]
+        assert dev["x"].shape == (n // P,) and not dev["x"].any()
+        assert dev["converged"].all() and not dev["iterations"].any() and not dev["index"].any()
+        assert not dev["residual_trace"][..., 0].any()
+
+
+@pytest.mark.parametrize("P", (2, 4))
+def test_batch_with_a_zero_member_under_mesh(worlds, P):
+    """The zero member of a batch gets x = 0 after 0 iterations, converged;
+    the others are bitwise the batch without it, on every rank."""
+    for r in worlds.ranks(P):
+        res, alone = r["degenerate"]["batch"], r["degenerate"]["batch_without"]
+        assert not res["x"][1].any() and res["iterations"][1] == 0 and res["converged"][1]
+        assert not res["residual_trace"][1, 0]
+        for field in ("x", "iterations", "converged", "residual_trace", "index"):
+            np.testing.assert_array_equal(res[field][[0, 2]], alone[field], err_msg=field)
+        assert alone["iterations"].min() > 0
 
 
 @pytest.mark.parametrize("system, P", MATVECS)

@@ -150,6 +150,25 @@ def test_resident_scratch_sizes():
     assert fused.resident_buffers(p, (500, 500)) == (132 * 2 * 500, 6 * 132 + 6)
 
 
+STENCIL_9PT = tuple((d0, d1) for d0 in (-1, 0, 1) for d1 in (-1, 0, 1))
+
+
+@pytest.mark.parametrize("make, want", [
+    (lambda: fixtures.laplace2d(8, constant=True, device="cpu"), 5),
+    (lambda: fixtures.laplace3d(4, constant=True, device="cpu"), 7),
+    (lambda: fixtures.laplace2d(8, device="cpu"), 0),
+    (lambda: fixtures.laplace3d(4, device="cpu"), 0),
+    (lambda: krylov_tpu_torch.sparse.StencilMatrix(torch.ones(9, dtype=torch.float64), STENCIL_9PT, (8, 8)), 0),
+    (lambda: krylov_tpu_torch.sparse.StencilMatrix(torch.ones(13, dtype=torch.float64), STENCIL_2ROW, (8, 8)), 0),
+], ids=["2-D 5-point", "collapsed 3-D 7-point", "2-D grid coefficients", "3-D grid coefficients", "9-point",
+        "13-point"])
+def test_pass_terms_from_the_geometry(make, want):
+    """K4's specialisation, as the launchers pick it from the collapsed
+    geometry: the constant form's 5 or 7 terms, else the masked pass."""
+    coef2, stencil2, _, _ = make().collapse_to_2d()
+    assert fused.pass_terms(stencil2, coef2.ndim == 1) == want
+
+
 def test_band_rows_split_as_evenly_as_possible():
     assert fused.band_rows(10, 4) == [(0, 3), (3, 3), (6, 2), (8, 2)]
     # 500 rows on 132 bands: 104 bands of 4 rows, then 28 of 3
