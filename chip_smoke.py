@@ -216,6 +216,25 @@ KSKIP_ROUTES = ("resident", "streaming")  # K5/K6's routes, each held against th
 T0 = time.perf_counter()
 NX_STREAM = 1500  # N = 2.25M: above the resident route's capacity in float64
 MAXITER_STREAM = 300  # the streaming phase's fixed iteration count
+# Phase 6e, BASELINE row 5 (benchmarks/baseline_configs.py): adaptive k-skip
+# MrR k = 8 on laplace3d(216, constant=True), N = 10,077,696, through
+# solve_device and solve with these arguments and b =
+# default_rng(0).standard_normal(N); far above the resident route's
+# capacity, so K5 streams.  ROW5_JAX: the JAX package's float64
+# (iterations, outer iterations, final k) on that b, from
+# krylov_tpu.solve_device(laplace3d(216, constant=True), b, **ROW5) on the
+# CPU with x64 (JAX_PLATFORMS=cpu, its eager loop there; 69 s on 8 cores):
+# true residual 9.4686e-05, so the restarts= pass did not run; the last
+# recurred residuals 1.1408e-04, 9.4686e-05
+ROW5_NX = 216
+ROW5 = dict(method="adaptivekskipmrr", k=8, tol=1e-4, restarts=1, maxiter=4000)
+ROW5_JAX = (271, 31, 8)
+# laplace3d(ROW5_MID), N = 1M, streams in both dtypes: K5/K6's streaming
+# route held against its plain version there (float64 whole solves of
+# ROW5_MID_RUNS under KSKIP_FULL's limits; float32 first outer iterations
+# at k = 4 against the float64 plain version)
+ROW5_MID = 100
+ROW5_MID_RUNS = (("adaptivekskipmrr", 8), ("kskipcg", 4))
 # published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float64 and
 # float32 outside the tensor cores, and HBM bandwidth
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
@@ -547,13 +566,13 @@ def kernels_us(fn, reps: int):
     return total / reps if total else None
 
 
-def conv2d_yardstick(A, x):
+def conv2d_yardstick(A, x, reps: int = 200, profile_reps: int = 50):
     """The one-call yardstick of K1 and K4, timed here and called nowhere in
     the port: ``torch.nn.functional.conv2d`` (``conv3d`` for a 3-D grid) of
     the constant stencil as a 3x3 (3x3x3) weight with padding=1 (cuDNN's
-    TF32 off) on the same ``x``.  Returns (ms a call by CUDA events over 200
-    calls, device us a call from the profiler, max |y_conv - y_K1| / max
-    |y_K1|)."""
+    TF32 off) on the same ``x``.  Returns (ms a call by CUDA events over
+    ``reps`` calls, device us a call from the profiler over
+    ``profile_reps`` (None for 0), max |y_conv - y_K1| / max |y_K1|)."""
     import torch
 
     from krylov_tpu_torch.kernels import stencil
@@ -570,9 +589,9 @@ def conv2d_yardstick(A, x):
         return op(xi, w, padding=1)
 
     conv()  # warm-up: cuDNN picks its algorithm
-    ms, y = cuda_ms(conv, reps=200)
+    ms, y = cuda_ms(conv, reps=reps)
     y_k1 = stencil.stencil_matvec_2d(A.coef, x, stencil=A.stencil, grid=A.grid)
-    return ms, kernels_us(conv, 50), rel_err(y.reshape(-1), y_k1)
+    return ms, kernels_us(conv, profile_reps) if profile_reps else None, rel_err(y.reshape(-1), y_k1)
 
 
 def true_rel(A_csr, b, x) -> float:
@@ -586,7 +605,8 @@ def true_rel(A_csr, b, x) -> float:
 def reset(fns) -> None:
     for fn in fns:
         fn.launches = 0
-        for name in ("launches_resident", "launches_streaming", *(f"launches_ns{ns}" for ns in K4_PASSES)):
+        for name in ("launches_resident", "launches_streaming", *(f"launches_ns{ns}" for ns in K4_PASSES),
+                     *(f"launches_streaming_ns{ns}" for ns in K4_PASSES)):
             if hasattr(fn, name):
                 setattr(fn, name, 0)
 
@@ -691,18 +711,246 @@ def kskip_streaming(ops, b_np, A_csr, fused, fused_kskip) -> dict:
     return {name: stream for name, (_, stream) in routes.items()}
 
 
+def kskip_sweep_words(method: str, k: int, adaptive: bool) -> int:
+    """Words a point that one outer iteration of K5 (``"kskipmrr"``) or K6
+    (``"kskipcg"``) at ``k`` moves on the streaming route, where every sweep
+    goes to device memory (``csrc/fused_kskip.cu``; a stencil's neighbours
+    count as cache hits): k stream stages reading 3 vectors and writing 2,
+    the last reading 3; k + 1 steps (MrR: r, y, z, x read and y, z, r, x
+    written, step 0 also reading A r and, adaptive, writing pre_x; CG: p, x,
+    r read and x, r, p written, step 0 also reading A p); one pass forming
+    the carried A r (A p)."""
+    stream = 5 * k + 3
+    if method == "kskipcg":
+        return stream + 6 * (k + 1) + 1 + 2
+    return stream + 8 * (k + 1) + 1 + int(adaptive) + 2
+
+
+def laplace3d_rel(b, x, n: int) -> float:
+    """||b - A x|| / ||b|| in float64 on the host for the constant 7-point
+    ``laplace3d(n)`` (6 on the diagonal, -1 to each of the six neighbours,
+    Dirichlet boundaries), with numpy slices instead of a scipy matrix of
+    70M entries."""
+    import numpy as np
+
+    x3 = x.double().cpu().numpy().reshape(n, n, n)
+    y = 6.0 * x3
+    for ax in range(3):
+        lo, hi = [slice(None)] * 3, [slice(None)] * 3
+        lo[ax], hi[ax] = slice(1, None), slice(None, -1)
+        y[tuple(lo)] -= x3[tuple(hi)]
+        y[tuple(hi)] -= x3[tuple(lo)]
+    b64 = np.asarray(b, dtype=np.float64)
+    return float(np.linalg.norm(b64 - y.reshape(-1)) / np.linalg.norm(b64))
+
+
+def row5_phase(dev, fused_kskip, stencil) -> dict:
+    """6e. BASELINE row 5 on the card (ROW5): ``solve_device`` and ``solve``
+    of ``laplace3d(ROW5_NX, constant=True)`` in float64 and float32, K5
+    counters from this run only.  Holds: every K5 launch on the streaming
+    route; converged with the host-f64 true residual below tol; in float64
+    the count, nosl, khistory and final k of the eager loop (``fused=False``,
+    which the CPU tests hold to the JAX package) and ROW5_JAX's.  Times
+    ``solve_device`` (CUDA events, median of 3 fresh b after a warm-up) on
+    both routes, with the outer iterations and the bytes model of the
+    streaming sweeps (:func:`kskip_sweep_words`), and K1 once at this N
+    against its plain version.  Then K5/K6's streaming route against its
+    plain version on ``laplace3d(ROW5_MID)``.  A failed check is printed
+    and the phase raises once all its readings are out.  Returns the main
+    path's K5 launches, by route, the mid-size readings of the ``kernels``
+    line, ``{(method, k): (err, ms, plain ms, outer, nnz, n)}``, and the
+    streaming pass's float64 readings at row 5 (max |err|, ms, plain ms,
+    bound, conv3d ms)."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch.sparse import fixtures
+
+    k5 = fused_kskip.fused_kskipmrr_solve_2d
+    n3 = ROW5_NX
+    n = n3 ** 3
+    b_np = np.random.default_rng(0).standard_normal(n)
+    failures, launches, launches_ns7 = [], [0, 0], 0
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        A = fixtures.laplace3d(n3, dtype=dt, constant=True, device=dev)
+        coef2, st2, g2, sub = A.collapse_to_2d()
+        p = fused_kskip.device_plan("kskipmrr", g2, st2, dt, ROW5["k"])
+        reset((k5, stencil.stencil_matvec_2d))
+        res = krylov_tpu_torch.solve_device(A, b_np, **ROW5)
+        x, info = krylov_tpu_torch.solve(A, b_np, **ROW5)
+        routes = (k5.launches_resident, k5.launches_streaming)
+        launches[0] += routes[0]
+        launches[1] += routes[1]
+        launches_ns7 += k5.launches_streaming_ns7
+        if k5.launches_streaming_ns7 != routes[1]:
+            failures.append(f"row 5 {name}: {routes[1] - k5.launches_streaming_ns7} streaming launches did not take "
+                            f"the pass specialised on 7 terms")
+        idx = int(res.index)
+        got_dev = (int(res.iterations), idx, res.nosl_trace[:idx + 1].tolist(), res.k_trace[:idx + 1].tolist(),
+                   int(res.final_k))
+        got = (info["iterations"], len(info["residual"]) - 1, info["nosl"].tolist(), info["khistory"].tolist(),
+               info["final_k"])
+        rel_dev, rel = laplace3d_rel(b_np, res.x, n3), laplace3d_rel(b_np, x, n3)
+        phase(f"row 5 {name} N={n}: plan {p.route}, {p.blocks} blocks of {p.threads}; K5 launches (resident, "
+              f"streaming) {routes}, K1 {stencil.stencil_matvec_2d.launches}; solve: iters {got[0]}, outer {got[1]}, "
+              f"final k {got[4]}, converged {info['converged']}, recurred res {info['residual'][-1]:.6e}, device "
+              f"true res {info['true_residual']:.6e}, host f64 true res {rel:.6e}, solve() wall "
+              f"{info['time'] * 1e3:.3f} ms; solve_device: iters {got_dev[0]}, outer {got_dev[1]}, host f64 true res "
+              f"{rel_dev:.6e}; khistory {got[3]}")
+        if routes[0] or routes[1] < 2:
+            failures.append(f"row 5 {name}: K5 launches by route {routes}, not streaming alone")
+        if got_dev != got:
+            failures.append(f"row 5 {name}: solve_device and solve disagree ({got_dev[:2]} against {got[:2]})")
+        if not (info["converged"] and rel < ROW5["tol"] and rel_dev < ROW5["tol"] and x.shape == (n,)):
+            failures.append(f"row 5 {name}: not converged to the host f64 true residual ({rel:.3e}, {rel_dev:.3e})")
+        xe, ie = krylov_tpu_torch.solve(A, b_np, **ROW5, fused=False)
+        eager = (ie["iterations"], len(ie["residual"]) - 1, ie["nosl"].tolist(), ie["khistory"].tolist(),
+                 ie["final_k"])
+        rel_e = laplace3d_rel(b_np, xe, n3)
+        phase(f"row 5 {name} eager loop (fused=False): iters {eager[0]}, outer {eager[1]}, final k {eager[4]}, "
+              f"converged {ie['converged']}, host f64 true res {rel_e:.6e}, solve() wall {ie['time'] * 1e3:.3f} ms; "
+              f"the same count, nosl, khistory and final k as the fused solve: {eager == got}")
+        if dt == torch.float64:
+            if eager != got:
+                failures.append(f"row 5 float64: fused {got[:2]} final k {got[4]}, eager {eager[:2]} final k "
+                                f"{eager[4]} (or nosl/khistory differ)")
+            if (got[0], got[1], got[4]) != ROW5_JAX:
+                failures.append(f"row 5 float64: {(got[0], got[1], got[4])}, the JAX package {ROW5_JAX}")
+        # time to solution on each route, fresh b
+        b_dev = {s: torch.from_numpy(np.random.default_rng(s).standard_normal(n)).to(dev, dt) for s in SEEDS}
+        for label, kw in (("fused (K5 streaming)", {}), ("eager (K1)", dict(fused=False))):
+            krylov_tpu_torch.solve_device(A, b_dev[SEEDS[0]], **ROW5, **kw)  # warm-up
+            runs = []
+            for s in SEEDS:
+                before = k5.launches
+                t, r = cuda_ms(lambda: krylov_tpu_torch.solve_device(A, b_dev[s], **ROW5, **kw))
+                runs.append((t, int(r.index), int(r.iterations), r.k_trace[:int(r.index) + 1].tolist(),
+                             k5.launches - before))
+            runs.sort()
+            t, outer, iters, kh, k5_calls = runs[1]
+            words = sum(kskip_sweep_words("kskipmrr", kk, True) for kk in kh[1:])
+            nbytes = words * n * dt.itemsize
+            phase(f"row 5 {name} time to solution, {label}: {t:.3f} ms a solve (median of seeds {SEEDS}, CUDA events "
+                  f"around solve_device; all {[round(r[0], 3) for r in runs]}), {iters} iterations, {outer} outer, "
+                  f"{t / outer * 1e3:.1f} us an outer iteration, K5 launches {k5_calls}; bytes model of the streaming "
+                  f"sweeps {nbytes / 1e9:.3f} GB ({words} words a point over the outer iterations), "
+                  f"{nbytes / (t * 1e-3) / 1e9:.1f} GB/s, {nbytes / PEAK_BYTES * 1e3 / t:.3f} of {PEAK_BYTES / 1e12} "
+                  f"TB/s (bound {nbytes / PEAK_BYTES * 1e3:.3f} ms)")
+        # K1 once at this N: the restarts= defect's SpMV
+        xk = torch.from_numpy(np.random.default_rng(13).standard_normal(n)).to(dev, dt)
+        kw = dict(stencil=st2, grid=g2, sub=sub)
+        y = stencil.stencil_matvec_2d(coef2, xk, **kw)
+        err = rel_err(y, stencil.stencil_matvec_2d_reference(coef2, xk, **kw))
+        t_k = cuda_ms(lambda: stencil.stencil_matvec_2d(coef2, xk, **kw), reps=50)[0]
+        us = device_us(lambda: stencil.stencil_matvec_2d(coef2, xk, **kw), "stencil2d_kernel", 20)
+        bnd = bound(2 * A.nnz, 2 * n * dt.itemsize, name)
+        phase(f"row 5 K1 NS 7 {name} N={n}, nnz {A.nnz}: max rel err {err:.3e} against its plain version; "
+              f"{t_k * 1e3:.3f} us a call (CUDA events over 50 calls, {A.nnz / (t_k * 1e-3) / 1e9:.3f} Gnnz/s), "
+              f"device {us_text(us)}" + ("" if us is None else f" ({A.nnz / (us * 1e-6) / 1e9:.3f} Gnnz/s)")
+              + f"; bound {bnd[0] * 1e3:.3f} us ({bnd[1]})")
+        if not err <= (1e-12 if dt == torch.float64 else 1e-5):
+            failures.append(f"row 5 K1 {name}: disagrees with its plain version ({err:.3e})")
+        # K5's streaming stencil pass alone (fused_kskip.sweep_probe): the pass
+        # specialised on 7 terms bitwise the masked one, each against the
+        # plain stencil; µs a pass (22 passes less 2, a grid sync after each,
+        # median of 3: a call also copies the probe's 11 work vectors)
+        y_ref = stencil.stencil_matvec_2d_reference(coef2, xk, **kw)
+        ys = {ns: fused_kskip.sweep_probe(coef2, xk, "pass", 1, ns_pass=ns, **kw)[1] for ns in (7, 0)}
+        same = torch.equal(ys[7], ys[0])
+        us_pass = {}
+        for ns in (7, 0):
+            few, many = ([cuda_ms(lambda: fused_kskip.sweep_probe(coef2, xk, "pass", 1, ns_pass=ns, reps=r, **kw))[0]
+                          for _ in range(3)] for r in (2, 22))
+            us_pass[ns] = (statistics.median(many) - statistics.median(few)) / 20 * 1e3
+        t_plain = cuda_ms(lambda: stencil.stencil_matvec_2d_reference(coef2, xk, **kw), reps=3)[0]
+        pass_err = float((ys[7] - y_ref).abs().max())
+        conv_ms = conv2d_yardstick(A, xk, reps=3, profile_reps=0)[0]
+        phase(f"row 5 streaming pass (K4's streaming form in K5/K6) {name}: NS 7 bitwise the masked pass {same}, "
+              f"max rel err {rel_err(ys[7], y_ref):.3e} against the plain stencil; {us_pass[7]:.3f} us a pass "
+              f"(NS 0, the masked pass: {us_pass[0]:.3f} us; probe, 22 passes less 2); plain {t_plain * 1e3:.3f} us; "
+              f"conv3d {conv_ms * 1e3:.3f} us a call (CUDA events over 3 calls, cuDNN TF32 off); bound "
+              f"{bnd[0] * 1e3:.3f} us ({bnd[1]})")
+        if not (same and rel_err(ys[7], y_ref) <= (1e-12 if dt == torch.float64 else 1e-5)):
+            failures.append(f"row 5 streaming pass {name}: NS 7 not bitwise the masked pass, or off the plain stencil")
+        if dt == torch.float64:
+            stream_pass = (pass_err, us_pass[7] * 1e-3, t_plain, bnd, conv_ms)
+        del A, coef2, x, xe, res, b_dev, xk, y, y_ref, ys
+        torch.cuda.empty_cache()
+
+    # the streaming route against its plain version at N = 1M
+    mid = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        A = fixtures.laplace3d(ROW5_MID, dtype=dt, constant=True, device=dev)
+        b = torch.from_numpy(np.random.default_rng(SEEDS[0]).standard_normal(A.shape[0])).to(dev, dt)
+        runs = ROW5_MID_RUNS if dt == torch.float64 else (("adaptivekskipmrr", 4), ("kskipcg", 4))
+        for m, k in runs:
+            first = dt == torch.float32
+            maxiter = first_outer(m, k, 1) if first else ROW5["maxiter"]
+            fn = k5 if m != "kskipcg" else fused_kskip.fused_kskipcg_solve_2d
+            tp, want = cuda_ms(lambda: kskip_call(m, k, A, b, ROW5["tol"], maxiter, plain=True, plain64=first))
+            before = (fn.launches_resident, fn.launches_streaming)
+            t_runs = [cuda_ms(lambda: kskip_call(m, k, A, b, ROW5["tol"], maxiter)) for _ in range(3)]
+            tk, got = sorted(t_runs, key=lambda r: r[0])[1][0], t_runs[-1][1]
+            routed = (fn.launches_resident - before[0], fn.launches_streaming - before[1])
+            label = (f"{'K6' if m == 'kskipcg' else 'K5'} streaming {m} k={k} laplace3d({ROW5_MID}, constant) {name}"
+                     + (f", maxiter {maxiter} against float64" if first else ""))
+            err = held(failures, compare_kskip, label, got, want, **KSKIP_FULL[m, k, name])
+            outer = int(got[6])
+            words = kskip_sweep_words(m.removeprefix("adaptive"), k, m == "adaptivekskipmrr")
+            model = outer * words * A.shape[0] * dt.itemsize / PEAK_BYTES * 1e3
+            phase(f"  {label}: kernel {tk:.3f} ms (median of 3, CUDA events), plain {tp:.3f} ms; {outer} outer; "
+                  f"launches (resident, streaming) {routed}; bytes model of the sweeps {model:.3f} ms")
+            if routed != (0, 3):
+                failures.append(f"{label}: launches by route {routed}, not streaming alone")
+            if not first and err is not None:
+                mid[m, k] = (err, tk, tp, outer, A.nnz, A.shape[0])
+        del A, b
+    raise_failures("phase 6e", failures)
+    return {"launches": launches, "launches_ns7": launches_ns7, "mid": mid, "pass": stream_pass}
+
+
+def row5_only() -> int:
+    """``chip_smoke.py --row5``: the device line, the build and phase 6e
+    alone."""
+    import torch
+
+    from krylov_tpu_torch.kernels import _build, fused_kskip, stencil
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    mark("2 build")
+    _build.library()
+    mark("6e row 5")
+    row5_phase(torch.device("cuda"), fused_kskip, stencil)
+    mark("done")
+    return 0
+
+
 def streaming(dev, fused) -> dict:
     """6c. K2/K3's streaming route against its plain version on
     laplace2d(NX_STREAM, constant) in float64 (N = 2.25M, above the
     resident route's capacity), MAXITER_STREAM iterations with tol 0, b from
-    seed 14; launch counters from this run only.  Returns, by method,
-    (launches, max |x - x_plain|, kernel ms, plain ms, bound)."""
+    seed 14; launch counters from this run only.  Each launch takes the
+    pass specialised on 5 terms, and its x, trace and count are bitwise
+    those of the same solve of the grid-coefficient form, which takes the
+    masked pass (digests printed).  Returns, by method, (launches,
+    max |x - x_plain|, kernel ms, plain ms, bound)."""
+    import hashlib
+
     import numpy as np
     import torch
 
     from krylov_tpu_torch.sparse import fixtures
 
     A = fixtures.laplace2d(NX_STREAM, constant=True, device=dev)
+    A_grid = fixtures.laplace2d(NX_STREAM, device=dev)  # the grid form: the masked pass, the same values
     n = A.shape[0]
     b = torch.from_numpy(np.random.default_rng(14).standard_normal(n)).to(dev)
     b_norm = torch.linalg.vector_norm(b)
@@ -722,8 +970,16 @@ def streaming(dev, fused) -> dict:
         err = compare_solves(f"K{'3' if m == 'cg' else '2'} {m} streaming laplace2d({NX_STREAM}, constant) f64, "
                              f"maxiter {MAXITER_STREAM}, {p.blocks} blocks", got, want, **TOLS["float64"])
         launches = routes[kern.__name__][1]
-        if launches != 1 or routes[kern.__name__][0]:
-            raise AssertionError(f"the streaming phase did not launch {m} on the streaming route: {routes}")
+        if launches != 1 or routes[kern.__name__][0] or kern.launches_streaming_ns5 != 1:
+            raise AssertionError(f"the streaming phase did not launch {m} on the streaming route with the pass "
+                                 f"specialised on 5 terms: {routes}, NS 5 {kern.launches_streaming_ns5}")
+        masked = kern(A_grid.coef, b, 0.0, b_norm, **dict(kw, stencil=A_grid.stencil))
+        same = all(torch.equal(u, v) for u, v in zip(got, masked))
+        phase(f"  {m} streaming, the pass specialised on 5 terms against the masked pass (grid form): x, trace and "
+              f"count bitwise equal {same}; x sha256 {hashlib.sha256(got[0].cpu().numpy().tobytes()).hexdigest()}, "
+              f"trace sha256 {hashlib.sha256(got[1].cpu().numpy().tobytes()).hexdigest()}")
+        if not same:
+            raise AssertionError(f"streaming {m}: the specialised pass changed the solve's bits")
         out[m] = (launches, err, tk, tp,
                   bound(fused_flops(m, A.nnz, n, int(got[2])), 2 * n * 8, "float64"))
         phase(f"streaming {m} float64 N={n}: kernel {tk:.3f} ms, plain {tp:.3f} ms for {int(got[2])} iterations "
@@ -2422,6 +2678,8 @@ def smoke(tmp: str, started: list) -> int:
     stream = streaming(dev, fused)
     mark("6d k-skip path streaming")
     kstream = kskip_streaming(ops[f64], b_np, A_csr, fused, fused_kskip)
+    mark("6e row 5")
+    row5 = row5_phase(dev, fused_kskip, stencil)
     mark("7 fidelity")
     fidelity(ops, b_np, A_csr, fused, stencil)
     mark("8-9 irregular and batched")
@@ -2496,13 +2754,33 @@ def smoke(tmp: str, started: list) -> int:
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
     for m, fn, line, witness in (("kskipmrr", "fused_kskipmrr_solve_2d", 528, ("adaptivekskipmrr", 8)),
                                  ("kskipcg", "fused_kskipcg_solve_2d", 629, ("kskipcg", 4))):
-        for route in KSKIP_ROUTES:
-            launches = (kroutes[fn][0] if route == "resident" else kstream[fn]) + more(fn, KSKIP_ROUTES.index(route))
-            if route == "resident" and fn == "fused_kskipmrr_solve_2d":  # the fused chunks and the resume
-                launches += chunk_launches[fn] + ckpt_launches
-            err = max(kerr[m, 4, "float64", route], kerr[(*witness, "float64", route)])
-            kernels.append(entry(f"{fn} {route}", kskip_src[route], f"krylov_tpu/kernels/fused_kskip.py:{line}",
-                                 launches, err, kms[m, 4, "float64", route], kms[m, 4, "float64", "plain"], kbound[m]))
+        launches = kroutes[fn][0] + more(fn, 0)
+        if fn == "fused_kskipmrr_solve_2d":  # the fused chunks and the resume
+            launches += chunk_launches[fn] + ckpt_launches
+        err = max(kerr[m, 4, "float64", "resident"], kerr[(*witness, "float64", "resident")])
+        kernels.append(entry(f"{fn} resident", kskip_src["resident"], f"krylov_tpu/kernels/fused_kskip.py:{line}",
+                             launches, err, kms[m, 4, "float64", "resident"], kms[m, 4, "float64", "plain"],
+                             kbound[m]))
+        # the streaming route: launched by phases 6d and 6e (row 5, K5), timed
+        # and held against its plain version on laplace3d(ROW5_MID) in float64
+        # (the witness), its bound beside that of its sweeps' bytes model
+        err, ms_, plain_ms, outer, nnz, n = row5["mid"][witness]
+        launches = kstream[fn] + more(fn, 1) + (row5["launches"][1] if m == "kskipmrr" else 0)
+        sweeps = outer * kskip_sweep_words(m, witness[1], witness[0] == "adaptivekskipmrr") * n * 8 / PEAK_BYTES * 1e3
+        kernels.append(dict(entry(f"{fn} streaming", kskip_src["streaming"], f"krylov_tpu/kernels/fused_kskip.py:{line}",
+                                  launches, err, ms_, plain_ms, bound(kskip_flops(witness[0], witness[1], nnz, n, outer),
+                                                                      2 * n * 8, "float64")),
+                            shape=f"{witness[0]} k={witness[1]} laplace3d({ROW5_MID}, constant) float64",
+                            sweep_bytes_bound_ms=sweeps))
+    # K4's streaming form inside K5/K6 (csrc/stencil.cuh StreamSweep): its
+    # launches are the streaming K5/K6 launches that took the pass
+    # specialised on 7 terms, the row-5 path's (phase 6e) and the mid-size
+    # checks'; its time the probe's µs a pass at row 5 in float64 (phase 6e)
+    err, ms_, plain_ms, bnd, conv_ms = row5["pass"]
+    kernels.append(dict(entry("stream_pass NS=7 (K4's streaming form, the pass of streaming K5/K6)",
+                              "krylov_tpu_torch/kernels/csrc/stencil.cuh", "krylov_tpu/kernels/fused.py:47",
+                              row5["launches_ns7"], err, ms_, plain_ms, bnd, conv_ms),
+                        shape=f"laplace3d({ROW5_NX}, constant) float64, one pass"))
     # K4, the resident stencil pass inside K2/K3/K5/K6, by specialisation:
     # its launches are the resident launches that took it (NS = 5: the main
     # path, phases 5 and 5b; 7 and 0: the collapsed 3-D and grid-form
@@ -2527,4 +2805,6 @@ def smoke(tmp: str, started: list) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--profiling"]:
         sys.exit(profiling_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--row5"]:
+        sys.exit(row5_only())
     sys.exit(main_path_digests() if sys.argv[1:2] == ["--digests"] else main())

@@ -29,6 +29,21 @@ float32), on the same mirror, with the bands' clock cycles a pass
 that clock: the shared-memory bytes of the largest band's loads (NS a
 point) at 128 bytes a clock.  ``--blocks "" --resident "" --k ""`` skips
 the solves.
+
+    python -m krylov_tpu_torch.diagnostics.grid_sweep --stream 216,100 [--k 8]
+
+times, instead, the pieces of the streaming K5's outer iteration on
+``laplace3d(nx, constant=True)`` for each nx, in float64 and float32, at
+each k of ``--k`` (:func:`krylov_tpu_torch.kernels.fused_kskip.sweep_probe`
+on the streaming grid): the k + 1 stream stages with the bundle
+reduction, the k + 1 steps with the A r pass, the 2k + 3 grid syncs alone,
+the bundle reduction alone and one stencil pass, each with the masked pass
+(NS = 0, the grid-stride form) and the pass of the stencil (NS = 7); a
+piece's time is (time of 12 repetitions - time of 2) / 10, median of 3
+(syncs and bundle: 2000 and 200), beside the bytes its sweeps move (every
+vector read or written once a sweep, neighbours as cache hits), their rate
+and its share of 3.35 TB/s, and the SM clock that ``nvidia-smi`` reads
+after it.
 """
 
 from __future__ import annotations
@@ -142,6 +157,46 @@ def k4_line(A, dtype, nx: int) -> None:
               f"{terms} loads a point at {SMEM_BYTES_PER_CLOCK} B a clock)", flush=True)
 
 
+# words a point each streaming probe mode moves at k (fused_kskip.sweep_probe):
+# k stages of 3 reads and 2 writes and a last of 3 reads; k + 1 steps of 4
+# reads and 4 writes, step 0 also reading A r and writing pre_x, and the
+# A r pass (1 read, 1 write); the pass alone 1 read and 1 write
+STREAM_WORDS = {"stream": lambda k: 5 * k + 3, "steps": lambda k: 8 * (k + 1) + 2 + 2, "pass": lambda k: 2}
+PEAK_BYTES = 3.35e12  # HBM3 of an H100 SXM (NVIDIA's data sheet)
+
+
+def stream_lines(nx: int, ks) -> None:
+    """Prints the streaming K5's pieces on laplace3d(nx, constant=True)."""
+    for dtype in (torch.float64, torch.float32):
+        A = fixtures.laplace3d(nx, dtype=dtype, constant=True, device="cuda")
+        coef2, st2, g2, sub = A.collapse_to_2d()
+        n = g2[0] * g2[1]
+        v = torch.from_numpy(np.random.default_rng(1).standard_normal(n)).to("cuda", dtype)
+        kw = dict(stencil=st2, grid=g2, sub=sub)
+        for k in ks:
+            for ns in (0, fused.pass_terms(st2, True)):
+                blocks = min(fused_kskip.workspace(m, dtype, n, k, ns)[0] for m in ("probe", "kskipmrr"))
+                for mode in fused_kskip.SWEEP_MODES:
+                    few, many = (200, 2000) if mode in ("syncs", "bundle") else (2, 12)
+
+                    def launch(reps):
+                        fused_kskip.sweep_probe(coef2, v, mode, k, ns_pass=ns, reps=reps, **kw)
+
+                    launch(1)  # warm-up
+                    us = (median_ms(lambda: launch(many))[0] - median_ms(lambda: launch(few))[0]) / (many - few) * 1e3
+                    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                                         capture_output=True, text=True, check=True).stdout.strip()
+                    line = (f"K5 streaming {mode} laplace3d({nx}) N={n} {str(dtype).removeprefix('torch.')} k={k} "
+                            f"NS={ns}, {blocks} blocks of 256: {us:.3f} us")
+                    if mode in STREAM_WORDS:
+                        nbytes = STREAM_WORDS[mode](k) * n * dtype.itemsize
+                        line += (f"; {nbytes / 1e6:.1f} MB, {nbytes / (us * 1e-6) / 1e9:.1f} GB/s, "
+                                 f"{nbytes / PEAK_BYTES / (us * 1e-6):.3f} of 3.35 TB/s")
+                    print(line + f"; SM clock {mhz} MHz after it", flush=True)
+        del A, v
+        torch.cuda.empty_cache()
+
+
 def _ints(text: str):
     return [int(v) for v in text.split(",") if v]
 
@@ -152,9 +207,14 @@ def main() -> None:
     ap.add_argument("--resident", default="66,100,132,0")
     ap.add_argument("--k", default="1,2,4,8")
     ap.add_argument("--nx", type=int, default=500)
+    ap.add_argument("--stream", default="", help="laplace3d sizes whose streaming K5 pieces to time instead")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.stream:
+        for nx in _ints(args.stream):
+            stream_lines(nx, _ints(args.k))
+        return
     n = args.nx * args.nx
     A = fixtures.laplace2d(args.nx, constant=True, device="cuda")
     coef2, st2, g2, sub = A.collapse_to_2d()
@@ -168,7 +228,8 @@ def main() -> None:
             fused.MAX_BLOCKS = cap
             for m, fn in fused2:
                 p = fused.device_plan(m, g2, st2, torch.float64)
-                blocks = p.blocks if route == "resident" else fused.workspace(m, torch.float64, n, p.blocks)[0]
+                blocks = (p.blocks if route == "resident" else
+                          fused.workspace(m, torch.float64, n, p.blocks, fused.pass_terms(st2, coef2.ndim == 1))[0])
                 t, (_, _, iters, _) = median_ms(lambda: fn(coef2, b, 1e-5, b_norm, **kw))
                 shape = f"{p.rows} rows a band, {p.ppt} points a thread" if route == "resident" else "256 threads"
                 print(f"K{'2' if m == 'mrr' else '3'} {m} {route} blocks {blocks} ({shape}): {t:.3f} ms, "

@@ -27,7 +27,7 @@ HEADERS = ("stencil.cuh", "reduce.cuh", "resident.cuh")
 # sources compiled once for each of their parts (-DKRYLOV_PART=p), each
 # part holding some of the kernel instances, so that no one nvcc holds the
 # build up
-PARTS = {"fused_resident.cu": 3, "fused_kskip_resident.cu": 12}
+PARTS = {"fused.cu": 3, "fused_resident.cu": 3, "fused_kskip.cu": 3, "fused_kskip_resident.cu": 12}
 MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
 # compile flags of every source; the link adds -shared
 FLAGS = (
@@ -92,24 +92,31 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     geom = [i, i, i, i, i, p]  # ns, g0, g1, g2, is_const, disp
     lib.krylov_stencil2d.argtypes = [i, p, p, p, i, p, p]  # dtype, coef, x, y, batch, params, stream
     lib.krylov_stencil2d.restype = i
+    # method, dtype, n, max_blocks, ns_pass, then the three outputs
     lib.krylov_fused_workspace.argtypes = [
-        i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+        i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
     ]
     lib.krylov_fused_workspace.restype = i
-    lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, p]
+    # ..., maxiter, trace_len, ns_pass (the streaming pass), weights, stream
+    lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_fused_solve.restype = i
     # ..., maxiter, trace_len, ns_pass (K4's specialisation), weights, stream
     lib.krylov_resident_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_resident_solve.restype = i
     lib.krylov_sync_probe.argtypes = [i, i, i, i, p, p]
     lib.krylov_sync_probe.restype = i
+    # method, dtype, n, k_max, max_blocks, ns_pass, then the four outputs
     lib.krylov_kskip_workspace.argtypes = [
-        i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong),
+        i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i),
     ]
     lib.krylov_kskip_workspace.restype = i
-    lib.krylov_kskip_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, *geom, i, i, p]
+    # ..., maxiter, trace_len, ns_pass (the streaming pass's specialisation), weights, stream
+    lib.krylov_kskip_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_kskip_solve.restype = i
+    # dtype, blocks, smem, mode, k, reps, coef, work, partials, geometry, ns_pass, weights, stream
+    lib.krylov_kskip_sweep_probe.argtypes = [i, i, i, i, i, i, p, p, p, *geom, i, p, p]
+    lib.krylov_kskip_sweep_probe.restype = i
     lib.krylov_kskip_resident_solve.argtypes = [i] * 10 + [p] * 10 + [*geom, i, i, i, p, p]
     lib.krylov_kskip_resident_solve.restype = i
     lib.krylov_kskip_probe.argtypes = [i] * 7 + [p, p, p]

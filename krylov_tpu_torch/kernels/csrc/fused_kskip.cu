@@ -7,9 +7,13 @@
 // (_kskipcg_fused_kernel).  On the TPU one core ran the loop with the
 // vectors in VMEM and the scalar recurrences in SMEM.  Here, as in K2/K3
 // (fused.cu), the loop runs in a persistent cooperative grid and the
-// vectors live in device memory: K5 touches ~12 n-vectors (b, x, two r,
-// y, z, Ar[1], pre_x and two 2-slot rings), ~24 MB in f64 at N = 250k,
-// which stays in the 50 MB L2.
+// vectors live in device memory: K5 keeps ten n-vectors of work (two r, y,
+// z, Ar[1], pre_x and two 2-slot rings) besides b and x.  This is the
+// route of the systems whose bands do not fit the resident kernels
+// (fused_kskip_resident.cu; kernels/fused_kskip.py::plan): every 3-D
+// Laplacian from 65^3 points up, and BASELINE row 5, laplace3d(216), N =
+// 10.08M, whose work vectors (806 MB in float64) are far above the 50 MB
+// L2, so every sweep goes to device memory.
 //
 // An outer iteration, for K6 (K5 alike with Ar/Ay for Ar/Ap):
 // - Stream: the Krylov bases are never materialised.  Stage s reads
@@ -40,15 +44,34 @@
 // (the same in every block).  A rollback recomputes r = b - A pre_x, takes
 // one MrR half-step and lowers k (floor 1), then streams again from the
 // new state at the new k.  The TPU kernel's zero padding (_prep) and its
-// halo are gone: the stencil device function checks bounds (stencil.cuh).
+// halo are gone: the stencil pass checks bounds (stencil.cuh).
 //
-// Bound: at N = 250k the grid syncs (a few microseconds each) and the
-// stencil passes through L2; the bundle reduction is one pass over
-// (6k+6) * nb partials spread over the blocks.
+// Bound: bytes.  Every sweep reads and writes whole vectors of device
+// memory (a stencil's neighbours come from L1/L2): at k a K5 outer
+// iteration is k stream stages of 3 reads and 2 writes and a last of 3
+// reads (5k + 3 words a point), k + 1 steps of 4 reads and 4 writes, step
+// 0 also reading A r and writing pre_x (8k + 10), and the A r pass (2):
+// 13k + 15 words, 119 at k = 8, 9.59 GB an outer iteration at row 5 in
+// float64, 2.86 ms at 3.35 TB/s.  K6: 5k + 3 + 6k + 7 + 2 = 11k + 12
+// words.  The 2k + 3 grid syncs (about 1.5 us each) and the bundle
+// reduction (about 3 us) are below 2% of that at row 5.  The stencil pass
+// is stencil.cuh's streaming pass: the masked one (NS = 0, one point a
+// thread on the grid-stride walk), or for the constant 5- and 7-term
+// stencils the one specialised on the term count (tiles of 16-byte chunks
+// of one row, the weights as arguments, no division and no test for a
+// chunk whose terms lie on the grid), whose instances are built for two
+// blocks an SM.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "reduce.cuh"
 #include "stencil.cuh"
+
+#ifndef KRYLOV_PART
+#define KRYLOV_PART -1
+#endif
 
 namespace {
 
@@ -65,57 +88,31 @@ __host__ __device__ constexpr int dyn_elems(int k_max) {
     return bundle_size(k_max) + 2 * (k_max + 1);
 }
 
-// Per-block view of the persistent grid: this thread's first point and
-// the stride of the grid-stride loops.
-struct Walk {
-    int n, first, stride;
-    bool lead;  // block 0, thread 0: writes the traces and stats
-};
+// Blocks an SM the kernels are built for: two for the specialised pass, so
+// that its loads in flight do not cost the second block (at most 128
+// registers a thread); the masked pass's instances are built as before.
+template <int NS>
+constexpr int kMinBlocks = NS > 0 ? 2 : 1;
 
-__device__ __forceinline__ Walk make_walk(const StencilGeom& g) {
-    Walk w;
-    w.n = g.g0 * g.g1;
-    w.first = blockIdx.x * kThreads + threadIdx.x;
-    w.stride = gridDim.x * kThreads;
-    w.lead = blockIdx.x == 0 && threadIdx.x == 0;
-    return w;
-}
-
-// Adds this block's sums of a stage's 6 inner products to the partials:
-// v[d] goes to entry ent[d] (slot ent[d] * nb + block).
-template <typename T>
-__device__ void stage_partials(T (&v)[6], const int (&ent)[6], T* partials, T* smem) {
-    block_sum(v, smem);
-    if (threadIdx.x == 0)
-        for (int d = 0; d < 6; ++d) partials[(size_t)ent[d] * gridDim.x + blockIdx.x] = v[d];
-}
-
-// After the stream's last grid sync: block j sums entry j (and j + nb, ...)
-// over all blocks in a fixed order and writes totals[j]; after a grid sync
-// every block copies the m totals into its shared bundle.
-template <typename T>
-__device__ void reduce_bundle(cg::grid_group& grid, const T* partials, T* totals, int m,
-                              T* bundle, T* smem) {
-    const int nb = gridDim.x;
-    for (int j = blockIdx.x; j < m; j += nb) {
-        T v[1] = {T(0)};
-        for (int t = threadIdx.x; t < nb; t += kThreads) v[0] += __ldcg(partials + (size_t)j * nb + t);
-        block_sum(v, smem);
-        if (threadIdx.x == 0) totals[j] = v[0];
+// The sweep of a kernel instance: the pass specialised on NS terms
+// (stencil.cuh's StreamSweep, V contiguous points a chunk) for NS = 5 or 7,
+// else the masked pass (MaskedSweep: one point a chunk on the grid-stride
+// walk, apply_stencil), whose points, loads and sums are those of the
+// kernels before the specialised pass.
+template <typename T, int NS>
+struct SweepOf {
+    using type = StreamSweep<T, NS, kThreads>;
+    __device__ static type make(const StencilGeom& g, const StreamPass<T>& sp, int vec, const T*) {
+        return type{g, sp, vec != 0};
     }
-    grid.sync();
-    for (int j = threadIdx.x; j < m; j += kThreads) bundle[j] = __ldcg(totals + j);
-    __syncthreads();
-}
-
-// ||v||: a grid_sum over the slots (contains a grid sync).
+};
 template <typename T>
-__device__ T grid_norm(cg::grid_group& grid, const Walk& w, const T* v, T* slots, T* smem) {
-    T s[1] = {T(0)};
-    for (int e = w.first; e < w.n; e += w.stride) s[0] += v[e] * v[e];
-    grid_sum(grid, s, slots, smem);
-    return sqrt(s[0]);
-}
+struct SweepOf<T, 0> {
+    using type = MaskedSweep<T, kThreads>;
+    __device__ static type make(const StencilGeom& g, const StreamPass<T>&, int, const T* coef) {
+        return type{g, coef};
+    }
+};
 
 // The k+1 (alpha, beta) of the k-skip CG steps from the bundle a/f/c,
 // which the recurrences advance in place (one thread).
@@ -169,25 +166,71 @@ __device__ void kskipmrr_scalars(T* al, T* be, T* de, int k, T* zetas, T* etas) 
     }
 }
 
+// Adds this block's sums of a stage's 6 inner products to the partials:
+// v[d] goes to entry ent[d] (slot ent[d] * nb + block).
+template <typename T>
+__device__ void stage_partials(T (&v)[6], const int (&ent)[6], T* partials, T* smem) {
+    block_sum(v, smem);
+    if (threadIdx.x == 0)
+        for (int d = 0; d < 6; ++d) partials[(size_t)ent[d] * gridDim.x + blockIdx.x] = v[d];
+}
+
+// After the stream's last grid sync: block j sums entry j (and j + nb, ...)
+// over all blocks in a fixed order and writes totals[j]; after a grid sync
+// every block copies the m totals into its shared bundle.
+template <typename T>
+__device__ void reduce_bundle(cg::grid_group& grid, const T* partials, T* totals, int m,
+                              T* bundle, T* smem) {
+    const int nb = gridDim.x;
+    for (int j = blockIdx.x; j < m; j += nb) {
+        T v[1] = {T(0)};
+        for (int t = threadIdx.x; t < nb; t += kThreads) v[0] += __ldcg(partials + (size_t)j * nb + t);
+        block_sum(v, smem);
+        if (threadIdx.x == 0) totals[j] = v[0];
+    }
+    grid.sync();
+    for (int j = threadIdx.x; j < m; j += kThreads) bundle[j] = __ldcg(totals + j);
+    __syncthreads();
+}
+
+// ||v||: a grid_sum over the slots (contains a grid sync).
+template <typename T, typename Sweep>
+__device__ T grid_norm(cg::grid_group& grid, const Sweep& sw, const T* v, T* slots, T* smem) {
+    constexpr int V = Sweep::V;
+    T s[1] = {T(0)};
+    sw.each([&](const Chunk& c) {
+        T a[V];
+        sw.load(a, v, c);
+#pragma unroll
+        for (int p = 0; p < V; ++p) s[0] += a[p] * a[p];
+    });
+    grid_sum(grid, s, slots, smem);
+    return sqrt(s[0]);
+}
+
 // Whole k-skip CG solve of A x = b from x0 = 0 (the wrapper shifts for x0).
 // work holds kWorkVectors[0] n-vectors; partials holds the bundle partials
 // (bundle_size(k_max) * nb), kSumSlots * nb grid_sum slots and the
 // bundle_size(k_max) totals.  ktrace and adaptive are unused (K5's
-// signature, so one launcher serves both).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restrict__ b,
-                     const T* __restrict__ scal, T* x, T* trace, int* nosl, int* ktrace,
-                     int* stats, T* work, T* partials, int k, int k_max, int adaptive,
+// signature, so one launcher serves both).  sp and vec are the specialised
+// pass's (NS > 0; see SweepOf).
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<NS>)
+kskipcg_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restrict__ coef,
+                     const T* __restrict__ b, const T* __restrict__ scal, T* x, T* trace, int* nosl,
+                     int* ktrace, int* stats, T* work, T* partials, int k, int k_max, int adaptive,
                      int maxiter, int trace_len) {
+    using Sweep = typename SweepOf<T, NS>::type;
+    constexpr int V = Sweep::V;
     cg::grid_group grid = cg::this_grid();
     __shared__ T smem[kBlockSumSmem];
     extern __shared__ __align__(16) unsigned char dyn_smem[];
     T* bundle = reinterpret_cast<T*>(dyn_smem);  // a | f | c
     T* alphas = bundle + bundle_size(k_max);
     T* betas = alphas + k_max + 1;
-    const Walk w = make_walk(g);
-    const size_t n = w.n;
+    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+    const size_t n = (size_t)g.g0 * g.g1;
     T* r = work;
     T* pbuf[2] = {work + n, work + 2 * n};
     T* ap1 = work + 3 * n;  // A p, carried across outer iterations
@@ -201,13 +244,17 @@ kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restr
     const int co = 4 * k + 4;  // offset of c
 
     // r = p = b, x = 0, A p
-    for (int e = w.first; e < w.n; e += w.stride) {
-        const T be = b[e];
-        r[e] = be;
-        pbuf[0][e] = be;
-        x[e] = T(0);
-        ap1[e] = apply_stencil(g, coef, b, e);
-    }
+    sw.each([&](const Chunk& c) {
+        T be[V], zero[V], a[V];
+        sw.load(be, b, c);
+#pragma unroll
+        for (int q = 0; q < V; ++q) zero[q] = T(0);
+        sw.store(r, be, c);
+        sw.store(pbuf[0], be, c);
+        sw.store(x, zero, c);
+        sw.stencil(a, b, c);
+        sw.store(ap1, a, c);
+    });
     grid.sync();
 
     int pc = 0;  // pbuf[pc] holds p
@@ -223,25 +270,30 @@ kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restr
             T* ap_next = ap_ring[s & 1];        // Ap[s+2]
             const bool grow = s < k;
             T v[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-            for (int e = w.first; e < w.n; e += w.stride) {
-                const T ar = ar_s[e];
-                const T ap = ap_s[e];
-                const T aq = ap_s1[e];
-                v[0] += ar * ar;  // a[2s]
-                v[1] += ap * ap;  // f[2s]
-                v[2] += ap * aq;  // f[2s+1]
-                v[3] += ar * ap;  // c[2s]
-                v[4] += ar * aq;  // c[2s+1]
+            sw.each([&](const Chunk& c) {
+                T ar[V], ap[V], aq[V], ar1[V], apn[V];
+                sw.load(ar, ar_s, c);
+                sw.load(ap, ap_s, c);
+                sw.load(aq, ap_s1, c);
                 if (grow) {
-                    const T ar1 = apply_stencil(g, coef, ar_s, e);
-                    const T apn = apply_stencil(g, coef, ap_s1, e);
-                    ar_next[e] = ar1;
-                    ap_next[e] = apn;
-                    v[5] += ar * ar1;  // a[2s+1]
-                } else {
-                    v[5] += aq * aq;  // f[2s+2]
+                    sw.stencil(ar1, ar_s, c);
+                    sw.stencil(apn, ap_s1, c);
+                    sw.store(ar_next, ar1, c);
+                    sw.store(ap_next, apn, c);
                 }
-            }
+#pragma unroll
+                for (int q = 0; q < V; ++q) {
+                    v[0] += ar[q] * ar[q];  // a[2s]
+                    v[1] += ap[q] * ap[q];  // f[2s]
+                    v[2] += ap[q] * aq[q];  // f[2s+1]
+                    v[3] += ar[q] * ap[q];  // c[2s]
+                    v[4] += ar[q] * aq[q];  // c[2s+1]
+                    if (grow)
+                        v[5] += ar[q] * ar1[q];  // a[2s+1]
+                    else
+                        v[5] += aq[q] * aq[q];  // f[2s+2]
+                }
+            });
             const int ent[6] = {2 * s, fo + 2 * s, fo + 2 * s + 1, co + 2 * s, co + 2 * s + 1,
                                 grow ? 2 * s + 1 : fo + 2 * s + 2};
             stage_partials(v, ent, partials, smem);
@@ -250,7 +302,7 @@ kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restr
         reduce_bundle(grid, partials, totals, bundle_size(k), bundle, smem);
 
         const T res = sqrt(bundle[0]) / b_norm;
-        if (w.lead) trace[min(index, trace_len - 1)] = res;
+        if (lead) trace[min(index, trace_len - 1)] = res;
         if (res < tol) {  // the same in every block: the bundle is bit-identical
             conv = true;
             break;
@@ -266,29 +318,45 @@ kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restr
             const T beta = betas[t];
             const T* p = pbuf[pc];
             T* p_next = pbuf[pc ^ 1];
-            for (int e = w.first; e < w.n; e += w.stride) {
-                const T ap = t == 0 ? ap1[e] : apply_stencil(g, coef, p, e);
-                const T pe = p[e];
-                x[e] += alpha * pe;
-                const T rn = r[e] - alpha * ap;
-                r[e] = rn;
-                p_next[e] = rn + beta * pe;
-            }
+            sw.each([&](const Chunk& c) {
+                T ap[V], pe[V], xe[V], re[V], pn[V];
+                if (t == 0)
+                    sw.load(ap, ap1, c);
+                else
+                    sw.stencil(ap, p, c);
+                sw.load(pe, p, c);
+                sw.load(xe, x, c);
+                sw.load(re, r, c);
+#pragma unroll
+                for (int q = 0; q < V; ++q) {
+                    xe[q] += alpha * pe[q];
+                    const T rn = re[q] - alpha * ap[q];
+                    re[q] = rn;
+                    pn[q] = rn + beta * pe[q];
+                }
+                sw.store(x, xe, c);
+                sw.store(r, re, c);
+                sw.store(p_next, pn, c);
+            });
             grid.sync();
             pc ^= 1;
         }
-        for (int e = w.first; e < w.n; e += w.stride) ap1[e] = apply_stencil(g, coef, pbuf[pc], e);
+        sw.each([&](const Chunk& c) {
+            T a[V];
+            sw.stencil(a, pbuf[pc], c);
+            sw.store(ap1, a, c);
+        });
         grid.sync();
 
-        if (w.lead) nosl[min(index + 1, trace_len - 1)] = i + k + 1;
+        if (lead) nosl[min(index + 1, trace_len - 1)] = i + k + 1;
         i += k + 1;
         ++index;
     }
     if (!conv) {  // diverged exit writes the final residual
-        const T res = grid_norm(grid, w, r, slots, smem) / b_norm;
-        if (w.lead) trace[min(index, trace_len - 1)] = res;
+        const T res = grid_norm(grid, sw, r, slots, smem) / b_norm;
+        if (lead) trace[min(index, trace_len - 1)] = res;
     }
-    if (w.lead) {
+    if (lead) {
         stats[0] = i;
         stats[1] = conv;
         stats[2] = index;
@@ -298,11 +366,11 @@ kskipcg_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restr
 // The stream of one k-skip MrR outer iteration at k: bases Ar[0..k+1]
 // (Ar[0] = r, Ar[1] = the carried ar1) and Ay[0..k] (Ay[0] = y), then the
 // bundle alpha | beta | delta reduced into every block's shared bundle.
-template <typename T>
-__device__ void kskipmrr_stream(cg::grid_group& grid, const StencilGeom& g, const Walk& w,
-                                const T* __restrict__ coef, const T* r, const T* ar1, const T* y,
-                                T* const (&ar_ring)[2], T* const (&ay_ring)[2], int k,
+template <typename T, typename Sweep>
+__device__ void kskipmrr_stream(cg::grid_group& grid, const Sweep& sw, const T* r, const T* ar1,
+                                const T* y, T* const (&ar_ring)[2], T* const (&ay_ring)[2], int k,
                                 T* partials, T* totals, T* bundle, T* smem) {
+    constexpr int V = Sweep::V;
     const int bo = 2 * k + 3;  // offset of beta in the bundle
     const int dof = 4 * k + 5;  // offset of delta
     for (int s = 0; s <= k; ++s) {
@@ -313,25 +381,30 @@ __device__ void kskipmrr_stream(cg::grid_group& grid, const StencilGeom& g, cons
         T* ay_next = ay_ring[(s + 1) & 1];  // Ay[s+1]
         const bool grow = s < k;
         T v[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-        for (int e = w.first; e < w.n; e += w.stride) {
-            const T ar = ar_s[e];
-            const T aq = ar_s1[e];
-            const T ay = ay_s[e];
-            v[0] += ar * ar;  // alpha[2s]
-            v[1] += ar * aq;  // alpha[2s+1]
-            v[2] += ay * ar;  // beta[2s]
-            v[3] += ay * aq;  // beta[2s+1]
-            v[4] += ay * ay;  // delta[2s]
+        sw.each([&](const Chunk& c) {
+            T ar[V], aq[V], ay[V], arn[V], ayn[V];
+            sw.load(ar, ar_s, c);
+            sw.load(aq, ar_s1, c);
+            sw.load(ay, ay_s, c);
             if (grow) {
-                const T arn = apply_stencil(g, coef, ar_s1, e);
-                const T ayn = apply_stencil(g, coef, ay_s, e);
-                ar_next[e] = arn;
-                ay_next[e] = ayn;
-                v[5] += ay * ayn;  // delta[2s+1]
-            } else {
-                v[5] += aq * aq;  // alpha[2s+2]
+                sw.stencil(arn, ar_s1, c);
+                sw.stencil(ayn, ay_s, c);
+                sw.store(ar_next, arn, c);
+                sw.store(ay_next, ayn, c);
             }
-        }
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+                v[0] += ar[q] * ar[q];  // alpha[2s]
+                v[1] += ar[q] * aq[q];  // alpha[2s+1]
+                v[2] += ay[q] * ar[q];  // beta[2s]
+                v[3] += ay[q] * aq[q];  // beta[2s+1]
+                v[4] += ay[q] * ay[q];  // delta[2s]
+                if (grow)
+                    v[5] += ay[q] * ayn[q];  // delta[2s+1]
+                else
+                    v[5] += aq[q] * aq[q];  // alpha[2s+2]
+            }
+        });
         const int ent[6] = {2 * s, 2 * s + 1, bo + 2 * s, bo + 2 * s + 1, dof + 2 * s,
                             grow ? dof + 2 * s + 1 : 2 * s + 2};
         stage_partials(v, ent, partials, smem);
@@ -340,24 +413,79 @@ __device__ void kskipmrr_stream(cg::grid_group& grid, const StencilGeom& g, cons
     reduce_bundle(grid, partials, totals, bundle_size(k), bundle, smem);
 }
 
+// k+1 MrR steps at the (zeta, eta) of the outer iteration: the stencil A r
+// of step t and the update of step t share a pass; step 0 takes the
+// carried A r, and saves x into pre_x first where `save`.  Then the pass
+// forming the carried A r of the new r.  Returns the ring index of r.
+template <typename T, typename Sweep>
+__device__ int kskipmrr_steps(cg::grid_group& grid, const Sweep& sw, T* const (&rbuf)[2], int rc, T* y, T* z,
+                              T* x, T* pre_x, T* ar1, const T* zetas, const T* etas, int k, bool save) {
+    constexpr int V = Sweep::V;
+    for (int t = 0; t <= k; ++t) {
+        const T zeta = zetas[t];
+        const T eta = etas[t];
+        const T* r = rbuf[rc];
+        T* r_next = rbuf[rc ^ 1];
+        const bool keep = t == 0 && save;
+        sw.each([&](const Chunk& c) {
+            T a[V], re[V], ye[V], ze[V], xe[V], rn[V];
+            if (t == 0)
+                sw.load(a, ar1, c);
+            else
+                sw.stencil(a, r, c);
+            sw.load(re, r, c);
+            sw.load(ye, y, c);
+            sw.load(ze, z, c);
+            sw.load(xe, x, c);
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+                const T yn = eta * ye[q] + zeta * a[q];
+                const T zn = eta * ze[q] - zeta * re[q];
+                ye[q] = yn;
+                ze[q] = zn;
+                rn[q] = re[q] - yn;
+            }
+            sw.store(y, ye, c);
+            sw.store(z, ze, c);
+            sw.store(r_next, rn, c);
+            if (keep) sw.store(pre_x, xe, c);
+#pragma unroll
+            for (int q = 0; q < V; ++q) xe[q] = xe[q] - ze[q];
+            sw.store(x, xe, c);
+        });
+        grid.sync();
+        rc ^= 1;
+    }
+    sw.each([&](const Chunk& c) {
+        T a[V];
+        sw.stencil(a, rbuf[rc], c);
+        sw.store(ar1, a, c);
+    });
+    grid.sync();
+    return rc;
+}
+
 // Whole k-skip MrR solve of A x = b from x0 = 0, adaptive (rollback and
 // k decrement) when `adaptive` is nonzero.  Buffers as in the CG kernel,
 // with kWorkVectors[1] n-vectors of work.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __restrict__ b,
-                      const T* __restrict__ scal, T* x, T* trace, int* nosl, int* ktrace,
-                      int* stats, T* work, T* partials, int k, int k_max, int adaptive,
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<NS>)
+kskipmrr_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restrict__ coef,
+                      const T* __restrict__ b, const T* __restrict__ scal, T* x, T* trace, int* nosl,
+                      int* ktrace, int* stats, T* work, T* partials, int k, int k_max, int adaptive,
                       int maxiter, int trace_len) {
+    using Sweep = typename SweepOf<T, NS>::type;
+    constexpr int V = Sweep::V;
     cg::grid_group grid = cg::this_grid();
     __shared__ T smem[kBlockSumSmem];
     extern __shared__ __align__(16) unsigned char dyn_smem[];
     T* bundle = reinterpret_cast<T*>(dyn_smem);  // alpha | beta | delta
     T* zetas = bundle + bundle_size(k_max);
     T* etas = zetas + k_max + 1;
-    const Walk w = make_walk(g);
-    const size_t n = w.n;
-    T* rbuf[2] = {work, work + n};
+    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+    const size_t n = (size_t)g.g0 * g.g1;
+    T* const rbuf[2] = {work, work + n};
     T* y = work + 2 * n;
     T* z = work + 3 * n;
     T* ar1 = work + 4 * n;  // A r, carried across outer iterations
@@ -371,17 +499,21 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
 
     // init half-step from r0 = b: zeta = <r,Ar>/<Ar,Ar>
     T s3[3] = {T(0), T(0), T(0)};
-    for (int e = w.first; e < w.n; e += w.stride) {
-        const T a = apply_stencil(g, coef, b, e);
-        const T be = b[e];
-        ar1[e] = a;
-        s3[0] += be * be;
-        s3[1] += be * a;
-        s3[2] += a * a;
-    }
+    sw.each([&](const Chunk& c) {
+        T a[V], be[V];
+        sw.stencil(a, b, c);
+        sw.load(be, b, c);
+        sw.store(ar1, a, c);
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+            s3[0] += be[q] * be[q];
+            s3[1] += be[q] * a[q];
+            s3[2] += a[q] * a[q];
+        }
+    });
     grid_sum(grid, s3, slots, smem);
     const T res0 = sqrt(s3[0]) / b_norm;
-    if (w.lead) {
+    if (lead) {
         trace[0] = res0;
         nosl[1] = 1;
         ktrace[0] = k;
@@ -390,18 +522,29 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
     int rc = 0;  // rbuf[rc] holds r
     {
         const T zeta = safe_div(s3[1], s3[2]);
-        for (int e = w.first; e < w.n; e += w.stride) {
-            const T be = b[e];
-            const T ye = zeta * ar1[e];
-            const T ze = -zeta * be;
-            y[e] = ye;
-            z[e] = ze;
-            rbuf[rc][e] = be - ye;
-            x[e] = -ze;
-            if (adaptive) pre_x[e] = -ze;
-        }
+        sw.each([&](const Chunk& c) {
+            T be[V], a[V], ye[V], ze[V], re[V], xe[V];
+            sw.load(be, b, c);
+            sw.load(a, ar1, c);
+#pragma unroll
+            for (int q = 0; q < V; ++q) {
+                ye[q] = zeta * a[q];
+                ze[q] = -zeta * be[q];
+                re[q] = be[q] - ye[q];
+                xe[q] = -ze[q];
+            }
+            sw.store(y, ye, c);
+            sw.store(z, ze, c);
+            sw.store(rbuf[rc], re, c);
+            sw.store(x, xe, c);
+            if (adaptive) sw.store(pre_x, xe, c);
+        });
         grid.sync();
-        for (int e = w.first; e < w.n; e += w.stride) ar1[e] = apply_stencil(g, coef, rbuf[rc], e);
+        sw.each([&](const Chunk& c) {
+            T a[V];
+            sw.stencil(a, rbuf[rc], c);
+            sw.store(ar1, a, c);
+        });
         grid.sync();
     }
 
@@ -409,10 +552,9 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
     int kk = k, i = 1, index = 1;
     bool conv = false;
     while (i < maxiter) {
-        kskipmrr_stream(grid, g, w, coef, rbuf[rc], ar1, y, ar_ring, ay_ring, kk, partials, totals,
-                        bundle, smem);
+        kskipmrr_stream(grid, sw, rbuf[rc], ar1, y, ar_ring, ay_ring, kk, partials, totals, bundle, smem);
         T res = sqrt(bundle[0]) / b_norm;  // <r, r> = alpha[0]
-        if (w.lead) trace[min(index, trace_len - 1)] = res;
+        if (lead) trace[min(index, trace_len - 1)] = res;
         bool accept = true;  // copy x to pre_x before this iteration's steps
         if (adaptive) {
             // non-finite counts as rose (NaN compares false)
@@ -420,42 +562,63 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
                 accept = false;
                 T* r = rbuf[rc];
                 // roll back: r = b - A pre_x, one MrR half-step, A r
-                for (int e = w.first; e < w.n; e += w.stride)
-                    r[e] = b[e] - apply_stencil(g, coef, pre_x, e);
+                sw.each([&](const Chunk& c) {
+                    T a[V], be[V];
+                    sw.stencil(a, pre_x, c);
+                    sw.load(be, b, c);
+#pragma unroll
+                    for (int q = 0; q < V; ++q) be[q] = be[q] - a[q];
+                    sw.store(r, be, c);
+                });
                 grid.sync();
                 T s2[2] = {T(0), T(0)};
-                for (int e = w.first; e < w.n; e += w.stride) {
-                    const T a = apply_stencil(g, coef, r, e);
-                    const T re = r[e];
-                    ar1[e] = a;
-                    s2[0] += re * a;
-                    s2[1] += a * a;
-                }
+                sw.each([&](const Chunk& c) {
+                    T a[V], re[V];
+                    sw.stencil(a, r, c);
+                    sw.load(re, r, c);
+                    sw.store(ar1, a, c);
+#pragma unroll
+                    for (int q = 0; q < V; ++q) {
+                        s2[0] += re[q] * a[q];
+                        s2[1] += a[q] * a[q];
+                    }
+                });
                 grid_sum(grid, s2, slots, smem);
                 const T zeta = safe_div(s2[0], s2[1]);
-                for (int e = w.first; e < w.n; e += w.stride) {
-                    const T re = r[e];
-                    const T ye = zeta * ar1[e];
-                    const T ze = -zeta * re;
-                    y[e] = ye;
-                    z[e] = ze;
-                    r[e] = re - ye;
-                    x[e] = pre_x[e] - ze;
-                }
+                sw.each([&](const Chunk& c) {
+                    T re[V], a[V], px[V], ye[V], ze[V];
+                    sw.load(re, r, c);
+                    sw.load(a, ar1, c);
+                    sw.load(px, pre_x, c);
+#pragma unroll
+                    for (int q = 0; q < V; ++q) {
+                        ye[q] = zeta * a[q];
+                        ze[q] = -zeta * re[q];
+                        re[q] = re[q] - ye[q];
+                        px[q] = px[q] - ze[q];
+                    }
+                    sw.store(y, ye, c);
+                    sw.store(z, ze, c);
+                    sw.store(r, re, c);
+                    sw.store(x, px, c);
+                });
                 grid.sync();
-                for (int e = w.first; e < w.n; e += w.stride) ar1[e] = apply_stencil(g, coef, r, e);
+                sw.each([&](const Chunk& c) {
+                    T a[V];
+                    sw.stencil(a, r, c);
+                    sw.store(ar1, a, c);
+                });
                 grid.sync();
                 kk = kk > 1 ? kk - 1 : kk;
                 ++i;
                 ++index;
-                if (w.lead) {
+                if (lead) {
                     nosl[min(index, trace_len - 1)] = i;
                     ktrace[min(index, trace_len - 1)] = kk;
                 }
-                kskipmrr_stream(grid, g, w, coef, r, ar1, y, ar_ring, ay_ring, kk, partials,
-                                totals, bundle, smem);
+                kskipmrr_stream(grid, sw, r, ar1, y, ar_ring, ay_ring, kk, partials, totals, bundle, smem);
                 res = sqrt(bundle[0]) / b_norm;
-                if (w.lead) trace[min(index, trace_len - 1)] = res;
+                if (lead) trace[min(index, trace_len - 1)] = res;
             } else {
                 pre_res = res;
             }
@@ -469,33 +632,9 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
             kskipmrr_scalars(bundle, bundle + 2 * kk + 3, bundle + 4 * kk + 5, kk, zetas, etas);
         __syncthreads();
 
-        // k+1 MrR steps: the stencil A r of step t and the update of step t
-        // share a pass; step 0 takes the carried A r
-        for (int t = 0; t <= kk; ++t) {
-            const T zeta = zetas[t];
-            const T eta = etas[t];
-            const T* r = rbuf[rc];
-            T* r_next = rbuf[rc ^ 1];
-            const bool save = t == 0 && adaptive && accept;
-            for (int e = w.first; e < w.n; e += w.stride) {
-                const T a = t == 0 ? ar1[e] : apply_stencil(g, coef, r, e);
-                const T re = r[e];
-                const T yn = eta * y[e] + zeta * a;
-                const T zn = eta * z[e] - zeta * re;
-                y[e] = yn;
-                z[e] = zn;
-                r_next[e] = re - yn;
-                const T xe = x[e];
-                if (save) pre_x[e] = xe;
-                x[e] = xe - zn;
-            }
-            grid.sync();
-            rc ^= 1;
-        }
-        for (int e = w.first; e < w.n; e += w.stride) ar1[e] = apply_stencil(g, coef, rbuf[rc], e);
-        grid.sync();
+        rc = kskipmrr_steps(grid, sw, rbuf, rc, y, z, x, pre_x, ar1, zetas, etas, kk, adaptive && accept);
 
-        if (w.lead) {
+        if (lead) {
             nosl[min(index + 1, trace_len - 1)] = i + kk + 1;
             if (adaptive) ktrace[min(index + 1, trace_len - 1)] = kk;
         }
@@ -503,10 +642,10 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
         ++index;
     }
     if (!conv) {  // diverged exit writes the final residual
-        const T res = grid_norm(grid, w, rbuf[rc], slots, smem) / b_norm;
-        if (w.lead) trace[min(index, trace_len - 1)] = res;
+        const T res = grid_norm(grid, sw, rbuf[rc], slots, smem) / b_norm;
+        if (lead) trace[min(index, trace_len - 1)] = res;
     }
-    if (w.lead) {
+    if (lead) {
         stats[0] = i;
         stats[1] = conv;
         stats[2] = index;
@@ -514,14 +653,129 @@ kskipmrr_fused_kernel(StencilGeom g, const T* __restrict__ coef, const T* __rest
     }
 }
 
-template <typename T>
-const void* kernel_for(int method) {
-    return method == 0 ? reinterpret_cast<const void*>(&kskipcg_fused_kernel<T>)
-                       : reinterpret_cast<const void*>(&kskipmrr_fused_kernel<T>);
+// One kind of K5's sweeps alone, reps times, for timing them
+// (diagnostics/grid_sweep.py --stream): mode 0 the k + 1 stream stages and
+// the bundle reduction (kskipmrr_stream), mode 1 the k + 1 steps and the
+// A r pass (kskipmrr_steps, at fixed coefficients, pre_x saved), mode 2 the
+// 2k + 3 grid syncs of an outer iteration alone, mode 3 the bundle
+// reduction alone, mode 4 the stencil pass alone (the second work vector
+// = A times the first, a grid sync after each pass).  work holds 11 n-vectors (K5's ten and x), partials and
+// the dynamic shared memory as a solve's at k_max = k.  The values are
+// whatever the sweeps make of work's; only the time is read.
+template <typename T, int NS>
+__global__ void __launch_bounds__(kThreads)
+kskip_sweep_probe(StencilGeom g, StreamPass<T> sp, int vec, const T* __restrict__ coef, T* work,
+                  T* partials, int mode, int k, int reps) {
+    using Sweep = typename SweepOf<T, NS>::type;
+    cg::grid_group grid = cg::this_grid();
+    __shared__ T smem[kBlockSumSmem];
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    T* bundle = reinterpret_cast<T*>(dyn_smem);
+    T* zetas = bundle + bundle_size(k);
+    T* etas = zetas + k + 1;
+    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const size_t n = (size_t)g.g0 * g.g1;
+    T* const rbuf[2] = {work, work + n};
+    T* const ar_ring[2] = {work + 6 * n, work + 7 * n};
+    T* const ay_ring[2] = {work + 8 * n, work + 9 * n};
+    T* totals = partials + (size_t)(bundle_size(k) + kSumSlots) * gridDim.x;
+    for (int j = threadIdx.x; j <= k; j += kThreads) {
+        zetas[j] = T(0.5);
+        etas[j] = T(-0.25);
+    }
+    __syncthreads();
+    int rc = 0;
+    for (int rep = 0; rep < reps; ++rep) {
+        if (mode == 0) {
+            kskipmrr_stream(grid, sw, rbuf[rc], work + 4 * n, work + 2 * n, ar_ring, ay_ring, k, partials,
+                            totals, bundle, smem);
+        } else if (mode == 1) {
+            rc = kskipmrr_steps(grid, sw, rbuf, rc, work + 2 * n, work + 3 * n, work + 10 * n, work + 5 * n,
+                                work + 4 * n, zetas, etas, k, true);
+        } else if (mode == 2) {
+            for (int s = 0; s < 2 * k + 3; ++s) grid.sync();
+        } else if (mode == 3) {
+            reduce_bundle(grid, partials, totals, bundle_size(k), bundle, smem);
+        } else {
+            sw.each([&](const Chunk& c) {
+                T a[Sweep::V];
+                sw.stencil(a, work, c);
+                sw.store(work + n, a, c);
+            });
+            grid.sync();
+        }
+    }
 }
 
-const void* kernel_for(int method, int dtype) {
-    return dtype == 8 ? kernel_for<double>(method) : kernel_for<float>(method);
+// kernel 0 = k-skip CG, 1 = k-skip MrR, 2 = the sweep probe.
+template <typename T, int NS>
+const void* kernel_of(int kernel) {
+    return kernel == 0   ? reinterpret_cast<const void*>(&kskipcg_fused_kernel<T, NS>)
+           : kernel == 1 ? reinterpret_cast<const void*>(&kskipmrr_fused_kernel<T, NS>)
+                         : reinterpret_cast<const void*>(&kskip_sweep_probe<T, NS>);
+}
+
+}  // namespace
+
+// The kernel of part P: kernels/_build.py compiles this file once for each
+// KRYLOV_PART of 0..2, all at once, so that no one nvcc holds the build up;
+// part P instantiates the kernels of one specialisation of the pass (0:
+// the masked pass, 1: NS = 5, 2: NS = 7) for both methods and dtypes, and
+// part 0 also holds the entry points.  Compiled without KRYLOV_PART it
+// holds every part.
+#define KSKIP_STREAM_DECL(P) const void* kskip_stream_part##P(int kernel, int dtype);
+KSKIP_STREAM_DECL(0) KSKIP_STREAM_DECL(1) KSKIP_STREAM_DECL(2)
+#undef KSKIP_STREAM_DECL
+
+#define KSKIP_STREAM_PART(P, NS)                                                              \
+    const void* kskip_stream_part##P(int kernel, int dtype) {                                 \
+        return dtype == 8 ? kernel_of<double, NS>(kernel) : kernel_of<float, NS>(kernel);     \
+    }
+
+#if KRYLOV_PART < 0 || KRYLOV_PART == 0
+KSKIP_STREAM_PART(0, 0)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 1
+KSKIP_STREAM_PART(1, 5)
+#endif
+#if KRYLOV_PART < 0 || KRYLOV_PART == 2
+KSKIP_STREAM_PART(2, 7)
+#endif
+
+#if KRYLOV_PART <= 0
+namespace {
+
+// The kernel for a launch: kernel as in kernel_of, dtype the element size,
+// ns_pass the specialisation (0, 5 or 7; else null).
+const void* stream_kernel(int kernel, int dtype, int ns_pass) {
+    switch (ns_pass) {
+        case 0: return kskip_stream_part0(kernel, dtype);
+        case 5: return kskip_stream_part1(kernel, dtype);
+        case 7: return kskip_stream_part2(kernel, dtype);
+        default: return nullptr;
+    }
+}
+
+// The launch's geometry and pass: false where the specialisation cannot
+// take the operator (NS > 0 needs the constant form with NS terms and its
+// weights).  vec: the 16-byte loads, where rows start on 16 bytes and so do
+// the vectors the kernel reads and writes.
+template <typename T>
+bool stream_pass(const StencilGeom& g, int ns_pass, const double* weights, bool aligned, StreamPass<T>* sp,
+                 int* vec) {
+    *sp = StreamPass<T>{};
+    *vec = 0;
+    if (ns_pass == 0) return true;
+    if ((ns_pass != 5 && ns_pass != 7) || !g.is_const || g.ns != ns_pass || weights == nullptr) return false;
+    *vec = aligned && g.g1 % kVecWidth<T> == 0;
+    *sp = make_stream_pass<T>(g, weights, kThreads, *vec != 0);
+    return true;
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+    for (const void* p : ptrs)
+        if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
+    return true;
 }
 
 }  // namespace
@@ -530,16 +784,18 @@ const void* kernel_for(int method, int dtype) {
 // cooperative grid (as many as can be resident on the current device at
 // once, and no more than n needs), the elements of the work and partials
 // buffers that krylov_kskip_solve takes, and the bytes of dynamic shared
-// memory a block takes.  method 0 = k-skip CG, 1 = k-skip MrR; dtype is
-// the element size in bytes; max_blocks > 0 caps the grid (for grid-size
-// sweeps).
-extern "C" int krylov_kskip_workspace(int method, int dtype, int n, int k_max, int max_blocks,
-                                      int* blocks, long long* work_elems,
-                                      long long* partial_elems, int* smem_bytes) {
-    if ((method != 0 && method != 1) || (dtype != 4 && dtype != 8) || k_max < 1)
+// memory a block takes.  method 0 = k-skip CG, 1 = k-skip MrR, 2 the sweep
+// probe; dtype is the element size in bytes; ns_pass the pass (0, 5, 7),
+// whose kernel's occupancy sizes the grid; max_blocks > 0 caps the grid
+// (for grid-size sweeps).
+extern "C" int krylov_kskip_workspace(int method, int dtype, int n, int k_max, int max_blocks, int ns_pass,
+                                      int* blocks, long long* work_elems, long long* partial_elems,
+                                      int* smem_bytes) {
+    if (method < 0 || method > 2 || (dtype != 4 && dtype != 8) || k_max < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int smem = dyn_elems(k_max) * dtype;
-    const void* kernel = kernel_for(method, dtype);
+    const void* kernel = stream_kernel(method, dtype, ns_pass);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -554,7 +810,7 @@ extern "C" int krylov_kskip_workspace(int method, int dtype, int n, int k_max, i
     int fit = per_sm * sms;
     if (max_blocks > 0 && max_blocks < fit) fit = max_blocks;
     *blocks = need < fit ? (need > 0 ? need : 1) : fit;
-    *work_elems = static_cast<long long>(kWorkVectors[method]) * n;
+    *work_elems = static_cast<long long>(method == 2 ? 11 : kWorkVectors[method]) * n;
     *partial_elems = static_cast<long long>(bundle_size(k_max) + kSumSlots) * *blocks +
                      bundle_size(k_max);
     *smem_bytes = smem;
@@ -562,23 +818,64 @@ extern "C" int krylov_kskip_workspace(int method, int dtype, int n, int k_max, i
 }
 
 // work, partials and smem_bytes are sized by krylov_kskip_workspace for the
-// same method, dtype, n, k_max and blocks; disp is the (3, ns) displacement
-// array.  ktrace is written by the MrR kernel only.
+// same method, dtype, n, k_max, ns_pass and blocks; disp is the (3, ns)
+// displacement array; ns_pass the pass (0: masked; 5 or 7: specialised,
+// with the ns constant weights as doubles).  ktrace is written by the MrR
+// kernel only.
 extern "C" int krylov_kskip_solve(int method, int dtype, int blocks, int smem_bytes, int k,
                                   int k_max, int adaptive, const void* coef, const void* b,
                                   const void* scal, void* x, void* trace, void* nosl,
                                   void* ktrace, void* stats, void* work, void* partials,
                                   int ns, int g0, int g1, int g2, int is_const, const int* disp,
-                                  int maxiter, int trace_len, void* stream) {
+                                  int maxiter, int trace_len, int ns_pass, const double* weights,
+                                  void* stream) {
     StencilGeom g;
     if (!make_geom(ns, g0, g1, g2, is_const, disp, &g) || k < 0 || k > k_max ||
-        (method != 0 && method != 1) || (dtype != 4 && dtype != 8))
+        (method != 0 && method != 1) || (dtype != 4 && dtype != 8) || (long long)g0 * g1 >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
-    void* args[] = {&g,     &coef,     &b, &scal,  &x,     &trace,   &nosl,      &ktrace,
+    const void* kernel = stream_kernel(method, dtype, ns_pass);
+    const bool aligned = aligned16({b, x, work});
+    StreamPass<double> spd;
+    StreamPass<float> spf;
+    int vec = 0;
+    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned, &spd, &vec)
+                               : stream_pass(g, ns_pass, weights, aligned, &spf, &vec);
+    if (kernel == nullptr || !ok) return static_cast<int>(cudaErrorInvalidValue);
+    void* sp = dtype == 8 ? static_cast<void*>(&spd) : static_cast<void*>(&spf);
+    void* args[] = {&g,     sp,    &vec,  &coef,     &b, &scal,  &x,     &trace,    &nosl,    &ktrace,
                     &stats, &work, &partials, &k, &k_max, &adaptive, &maxiter, &trace_len};
-    const cudaError_t err = cudaLaunchCooperativeKernel(
-        kernel_for(method, dtype), dim3(blocks), dim3(kThreads), args,
-        static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream));
+    const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                                        static_cast<size_t>(smem_bytes),
+                                                        static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
+
+// kskip_sweep_probe: reps of one kind of K5's sweeps (mode 0..4) at k on
+// the grid krylov_kskip_workspace sizes for method 2 (work, partials and
+// smem_bytes from it, k_max = k), with the pass ns_pass as in
+// krylov_kskip_solve.
+extern "C" int krylov_kskip_sweep_probe(int dtype, int blocks, int smem_bytes, int mode, int k, int reps,
+                                        const void* coef, void* work, void* partials, int ns, int g0, int g1,
+                                        int g2, int is_const, const int* disp, int ns_pass,
+                                        const double* weights, void* stream) {
+    StencilGeom g;
+    if (!make_geom(ns, g0, g1, g2, is_const, disp, &g) || k < 1 || mode < 0 || mode > 4 || reps < 0 ||
+        (dtype != 4 && dtype != 8) || (long long)g0 * g1 >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* kernel = stream_kernel(2, dtype, ns_pass);
+    StreamPass<double> spd;
+    StreamPass<float> spf;
+    int vec = 0;
+    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned16({work}), &spd, &vec)
+                               : stream_pass(g, ns_pass, weights, aligned16({work}), &spf, &vec);
+    if (kernel == nullptr || !ok) return static_cast<int>(cudaErrorInvalidValue);
+    void* sp = dtype == 8 ? static_cast<void*>(&spd) : static_cast<void*>(&spf);
+    void* args[] = {&g, sp, &vec, &coef, &work, &partials, &mode, &k, &reps};
+    const cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                                        static_cast<size_t>(smem_bytes),
+                                                        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+#endif

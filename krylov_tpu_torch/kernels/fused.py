@@ -10,7 +10,9 @@ the stencil, the dtype and the card's SM count:
   memory; two grid syncs an iteration;
 - *streaming* (``csrc/fused.cu``): grid-stride kernels whose vectors live
   in device memory, for systems whose bands do not fit; three grid syncs an
-  iteration, 4 blocks an SM.
+  iteration, 4 blocks an SM; their stencil pass specialised on the term
+  count as K4's is (:func:`pass_terms`), one point a thread in either form,
+  so the pass does not change a bit.
 
 A launch or build failure on either route raises; neither route gives way
 to the other or to the plain version.  On a CPU tensor the wrappers run the
@@ -23,7 +25,8 @@ keeps iterating, recording its residuals in the last slot.  Each wrapper
 counts its launches in ``launches``, and by route in ``launches_resident``
 and ``launches_streaming``; its resident launches also by the
 specialisation of K4, the stencil pass inside them (:func:`pass_terms`), in
-``launches_ns0``, ``launches_ns5`` and ``launches_ns7``.
+``launches_ns0``, ``launches_ns5`` and ``launches_ns7``, and its streaming
+ones by their pass in ``launches_streaming_ns0`` and so on.
 """
 
 from __future__ import annotations
@@ -161,17 +164,18 @@ def device_plan(method: str, grid, stencil, dtype: torch.dtype, device=None) -> 
     return plan(method, grid, stencil, dtype, sms, MAX_BLOCKS, ROUTE)
 
 
-def workspace(method: str, dtype: torch.dtype, n: int, max_blocks: int) -> Tuple[int, int, int]:
-    """``(blocks, work, partials)`` of a streaming solve of ``n`` points on
-    the current CUDA device: the blocks of the cooperative grid (at most
+def workspace(method: str, dtype: torch.dtype, n: int, max_blocks: int, ns_pass: int = 0) -> Tuple[int, int, int]:
+    """``(blocks, work, partials)`` of a streaming solve of ``n`` points
+    with the stencil pass ``ns_pass`` (:func:`pass_terms`) on the current
+    CUDA device: the blocks of the cooperative grid (at most
     ``max_blocks``, all co-resident) and the elements of the two scratch
     buffers, as the C library sizes them.  Cached per device."""
-    key = (method, dtype, n, max_blocks, torch.cuda.current_device())
+    key = (method, dtype, n, max_blocks, ns_pass, torch.cuda.current_device())
     if key not in _workspace:
         blocks, work, partials = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
         _build.check(
             _build.library().krylov_fused_workspace(
-                _METHOD_CODE[method], dtype.itemsize, n, max_blocks,
+                _METHOD_CODE[method], dtype.itemsize, n, max_blocks, ns_pass,
                 ctypes.byref(blocks), ctypes.byref(work), ctypes.byref(partials),
             ),
             "krylov_fused_workspace",
@@ -218,14 +222,15 @@ def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
                 weights, stream,
             )
         else:
-            blocks, work_elems, partial_elems = workspace(method, dt, b.numel(), p.blocks)
+            ns_pass, weights = pass_args(coef, b, stencil, grid, sub)
+            blocks, work_elems, partial_elems = workspace(method, dt, b.numel(), p.blocks, ns_pass)
             work = torch.empty(work_elems, dtype=dt, device=dev)
             partials = torch.empty(partial_elems, dtype=dt, device=dev)
             err = lib.krylov_fused_solve(
                 _METHOD_CODE[method], b.element_size(), blocks,
                 coef.data_ptr(), b.data_ptr(), scal.data_ptr(), x.data_ptr(),
                 trace.data_ptr(), stats.data_ptr(), work.data_ptr(), partials.data_ptr(),
-                *geom, maxiter, trace_len, stream,
+                *geom, maxiter, trace_len, ns_pass, weights, stream,
             )
     _build.check(err, f"fused_{method}_solve_2d ({p.route} route)")
     return (x, trace, stats[0], stats[1].bool()), p.route, ns_pass
@@ -269,11 +274,14 @@ def stencil_pass_probe(coef, x, *, stencil, grid, sub=None, ns_pass: Optional[in
 
 def _count(fn, route: str, ns_pass) -> None:
     """One launch of ``fn`` on ``route``; a resident one also under its K4
-    specialisation ``ns_pass``."""
+    specialisation ``ns_pass``, a streaming one that names its pass under
+    ``launches_streaming_ns{ns_pass}``."""
     fn.launches += 1
     setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
     if route == "resident":
         setattr(fn, f"launches_ns{ns_pass}", getattr(fn, f"launches_ns{ns_pass}") + 1)
+    elif ns_pass is not None:
+        setattr(fn, f"launches_streaming_ns{ns_pass}", getattr(fn, f"launches_streaming_ns{ns_pass}") + 1)
 
 
 def reset_counts(fn) -> None:
@@ -388,7 +396,9 @@ def fused_mrr_solve_2d(
     return out
 
 
-# the launch counts of each fused wrapper (K2/K3 here, K5/K6 in fused_kskip)
-COUNTS = ("launches", "launches_resident", "launches_streaming", *(f"launches_ns{n}" for n in (0, *PASS_TERMS)))
+# the launch counts of each fused wrapper (K2/K3 here, K5/K6 in fused_kskip;
+# streaming launches also by their pass, the streaming form of K4)
+COUNTS = ("launches", "launches_resident", "launches_streaming", *(f"launches_ns{n}" for n in (0, *PASS_TERMS)),
+          *(f"launches_streaming_ns{n}" for n in (0, *PASS_TERMS)))
 for _fn in (fused_cg_solve_2d, fused_mrr_solve_2d):
     reset_counts(_fn)

@@ -11,8 +11,12 @@ dtype, ``k_max`` and the card's SM count:
   each owning a band of rows whose state and Krylov bases stay in registers
   and shared memory; neighbour-only halo exchanges and one grid sum an
   outer iteration;
-- *streaming* (``csrc/fused_kskip.cu``): a grid-stride cooperative grid
-  whose vectors live in device memory, for systems whose bands do not fit.
+- *streaming* (``csrc/fused_kskip.cu``): a persistent cooperative grid
+  whose vectors live in device memory, for systems whose bands do not fit;
+  its stencil pass is specialised on the term count where K4's is
+  (:func:`krylov_tpu_torch.kernels.fused.pass_terms`: NS = 5 or 7, tiles
+  of contiguous points, the weights as arguments), else the masked
+  grid-stride pass (NS = 0).
 
 ``kernels.fused.ROUTE`` forces a route and ``kernels.fused.MAX_BLOCKS``
 caps the grid, as for K2/K3.  A launch or build failure on either route
@@ -22,9 +26,11 @@ are the eager loops of :mod:`krylov_tpu_torch.solvers` on the stencil
 operator.  Both solve from x0 = 0 (the caller shifts for x0).  ``k`` is a
 runtime value in ``[0, k_max]``.  Each wrapper counts its launches in
 ``launches``, by route in ``launches_resident`` and
-``launches_streaming``, and its resident launches by K4's specialisation in
+``launches_streaming``, its resident launches by K4's specialisation in
 ``launches_ns0``, ``launches_ns5`` and ``launches_ns7``
-(:func:`krylov_tpu_torch.kernels.fused.pass_terms`).
+(:func:`krylov_tpu_torch.kernels.fused.pass_terms`), and its streaming
+launches by their pass in ``launches_streaming_ns0``, ``_ns5`` and
+``_ns7``.
 
 Traces have ``min(maxiter, TRACE_CAP) + 2`` slots, indexed by the outer
 iteration; a solve past the cap keeps iterating and records in the last
@@ -50,7 +56,7 @@ from krylov_tpu_torch.kernels.stencil import (
 )
 from krylov_tpu_torch.solvers import adaptivekskipmrr_kernel, kskipcg_kernel, kskipmrr_kernel
 
-_METHOD_CODE = {"kskipcg": 0, "kskipmrr": 1}
+_METHOD_CODE = {"kskipcg": 0, "kskipmrr": 1, "probe": 2}
 _workspace = {}
 
 
@@ -67,19 +73,22 @@ def _check_k(k, k_max: int) -> int:
     return k
 
 
-def workspace(method: str, dtype: torch.dtype, n: int, k_max: int) -> Tuple[int, int, int, int]:
-    """``(blocks, work, partials, smem)`` for a solve of ``n`` points with
-    ``k <= k_max`` on the current CUDA device: the blocks of the cooperative
-    grid (at most ``fused.MAX_BLOCKS`` when that is set), the elements of
-    the two scratch buffers and the bytes of dynamic shared memory a block
-    takes, as the C library sizes them.  Cached per device."""
-    key = (method, dtype, n, k_max, fused.MAX_BLOCKS, torch.cuda.current_device())
+def workspace(method: str, dtype: torch.dtype, n: int, k_max: int, ns_pass: int = 0) -> Tuple[int, int, int, int]:
+    """``(blocks, work, partials, smem)`` for a streaming solve of ``n``
+    points with ``k <= k_max`` and the stencil pass ``ns_pass``
+    (:func:`krylov_tpu_torch.kernels.fused.pass_terms`) on the current CUDA
+    device: the blocks of the cooperative grid (as many as the kernel of
+    that pass fits at once, at most ``fused.MAX_BLOCKS`` when that is set),
+    the elements of the two scratch buffers and the bytes of dynamic shared
+    memory a block takes, as the C library sizes them.  ``method``
+    ``"probe"`` sizes :func:`sweep_probe`'s.  Cached per device."""
+    key = (method, dtype, n, k_max, ns_pass, fused.MAX_BLOCKS, torch.cuda.current_device())
     if key not in _workspace:
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
         work, partials = ctypes.c_longlong(0), ctypes.c_longlong(0)
         _build.check(
             _build.library().krylov_kskip_workspace(
-                _METHOD_CODE[method], dtype.itemsize, n, k_max, fused.MAX_BLOCKS, ctypes.byref(blocks),
+                _METHOD_CODE[method], dtype.itemsize, n, k_max, fused.MAX_BLOCKS, ns_pass, ctypes.byref(blocks),
                 ctypes.byref(work), ctypes.byref(partials), ctypes.byref(smem),
             ),
             "krylov_kskip_workspace",
@@ -130,15 +139,18 @@ def plan(method: str, grid: Tuple[int, int], stencil, dtype: torch.dtype, sms: i
     return fused.Plan("streaming", 0, fused.STREAM_THREADS, 0, 0, h, 0)
 
 
-def device_plan(method: str, grid, stencil, dtype: torch.dtype, k_max: int, device=None) -> fused.Plan:
+def device_plan(method: str, grid, stencil, dtype: torch.dtype, k_max: int, device=None,
+                is_const: bool = True) -> fused.Plan:
     """:func:`plan` on a CUDA device (the current one by default), with
     ``fused.MAX_BLOCKS`` and ``fused.ROUTE``; a streaming plan carries the
-    grid :func:`workspace` sizes on the current device, which its launch
+    grid :func:`workspace` sizes on the current device for the pass of the
+    stencil's form (``is_const``: the constant-weight one), which its launch
     takes."""
     sms = torch.cuda.get_device_properties(device or torch.cuda.current_device()).multi_processor_count
     p = plan(method, grid, stencil, dtype, sms, k_max, fused.MAX_BLOCKS, fused.ROUTE)
     if p.route == "streaming":
-        p = dataclasses.replace(p, blocks=workspace(method, dtype, grid[0] * grid[1], k_max)[0])
+        blocks = workspace(method, dtype, grid[0] * grid[1], k_max, fused.pass_terms(stencil, is_const))[0]
+        p = dataclasses.replace(p, blocks=blocks)
     return p
 
 
@@ -161,7 +173,7 @@ def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adap
     dt, dev = b.dtype, b.device
     trace_len = trace_length(maxiter)
     with torch.cuda.device(dev):
-        p = device_plan(method, grid, stencil, dt, k_max, dev)
+        p = device_plan(method, grid, stencil, dt, k_max, dev, coef.ndim == 1)
         x = torch.empty_like(b)
         trace = torch.zeros(trace_len, dtype=dt, device=dev)
         nosl = torch.zeros(trace_len, dtype=torch.int32, device=dev)
@@ -186,16 +198,55 @@ def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adap
                 xbuf.data_ptr(), partials.data_ptr(), *geom, maxiter, trace_len, ns_pass, weights, stream,
             )
         else:
-            _, work_elems, partial_elems, smem = workspace(method, dt, b.numel(), k_max)
+            ns_pass, weights = fused.pass_args(coef, b, stencil, grid, sub)
+            _, work_elems, partial_elems, smem = workspace(method, dt, b.numel(), k_max, ns_pass)
             work = torch.empty(work_elems, dtype=dt, device=dev)
             partials = torch.empty(partial_elems, dtype=dt, device=dev)
             err = lib.krylov_kskip_solve(
                 _METHOD_CODE[method], b.element_size(), p.blocks, smem, k, k_max, int(adaptive),
                 coef.data_ptr(), b.data_ptr(), scal.data_ptr(), *outs, work.data_ptr(), partials.data_ptr(),
-                *geom, maxiter, trace_len, stream,
+                *geom, maxiter, trace_len, ns_pass, weights, stream,
             )
     _build.check(err, f"{name} ({p.route} route)")
     return (x, trace, nosl, ktrace, stats), p.route, ns_pass
+
+
+SWEEP_MODES = ("stream", "steps", "syncs", "bundle", "pass")  # sweep_probe's modes
+
+
+def sweep_probe(coef, v, mode: str, k: int, *, stencil, grid, sub=None, ns_pass: Optional[int] = None,
+                reps: int = 1) -> torch.Tensor:
+    """One kind of the streaming K5's sweeps alone on the card, ``reps``
+    times in one cooperative launch (``csrc/fused_kskip.cu``,
+    ``kskip_sweep_probe``), for timing it: ``"stream"`` the k + 1 stream
+    stages and the bundle reduction, ``"steps"`` the k + 1 steps and the
+    pass forming A r, ``"syncs"`` the 2k + 3 grid syncs of an outer
+    iteration, ``"bundle"`` the bundle reduction, ``"pass"`` the stencil
+    pass alone (A v into the second work vector, a grid sync after it), at
+    k on the streaming grid of a K5 solve with the pass ``ns_pass`` (None:
+    :func:`krylov_tpu_torch.kernels.fused.pass_terms`'s; 0: the masked pass).  The 11 work vectors start as
+    copies of ``v``; returns them, ``(11, n)``: after ``"pass"`` row 1 is
+    ``A v``, the pass's own result.  Its launches count toward no wrapper:
+    it measures and checks the pieces of K5, which the solves launch."""
+    require_cuda("sweep_probe", coef, v, stencil, grid)
+    dev, dt = v.device, v.dtype
+    with torch.cuda.device(dev):
+        if ns_pass is None:
+            ns_pass = fused.pass_terms(stencil, coef.ndim == 1)
+        weights = fused.host_weights(coef, v, stencil, grid, sub) if ns_pass else None
+        # the grid of a K5 solve with this pass, which the probe's own
+        # occupancy holds at once
+        probe_blocks, work_elems, partial_elems, smem = workspace("probe", dt, v.numel(), k, ns_pass)
+        blocks = min(probe_blocks, workspace("kskipmrr", dt, v.numel(), k, ns_pass)[0])
+        work = v.repeat(work_elems // v.numel())
+        partials = torch.zeros(partial_elems, dtype=dt, device=dev)
+        err = _build.library().krylov_kskip_sweep_probe(
+            v.element_size(), blocks, smem, SWEEP_MODES.index(mode), k, reps, coef.data_ptr(), work.data_ptr(),
+            partials.data_ptr(), *geometry(stencil, grid, sub, coef.ndim == 1), ns_pass, weights,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, f"sweep_probe ({mode}, NS = {ns_pass})")
+    return work.view(-1, v.numel())
 
 
 def _plain(loop, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, sub):

@@ -316,6 +316,55 @@ def test_fused_kskip_kernel_maxiter_divergence(cuda, method, adaptive, route):
     assert not conv
 
 
+# K5/K6's streaming pass by system: (operator, the pass it takes).  The
+# specialised passes (NS 5, 7) on a small 2-D grid, a row whose length (31)
+# is not a multiple of the points of a 16-byte load, rows of 600 that end
+# in part of a tile, a collapsed 3-D grid and one whose inner axis (11) is
+# odd; the masked pass (NS 0) on the grid-coefficient form.
+STREAM_PASS_SYSTEMS = {
+    "2d-const": (lambda **kw: fixtures.laplace2d(24, constant=True, **kw), 5),
+    "2d-const-row31": (lambda **kw: fixtures.laplace2d(31, 17, constant=True, **kw), 5),
+    "2d-const-row600": (lambda **kw: fixtures.laplace2d(600, 13, constant=True, **kw), 5),
+    "3d-const": (lambda **kw: fixtures.laplace3d(10, constant=True, **kw), 7),
+    "3d-const-inner11": (lambda **kw: fixtures.laplace3d(11, 9, 7, constant=True, **kw), 7),
+    "2d": (lambda **kw: fixtures.laplace2d(24, **kw), 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(STREAM_PASS_SYSTEMS))
+def test_streaming_pass_matches_masked(cuda, name, dtype):
+    """The streaming pass K5/K6 take for the system (fused_kskip.sweep_probe,
+    "pass") is bitwise the masked pass (NS = 0) on the same vector, and the
+    masked pass is the plain stencil within K1's tolerance."""
+    make, ns = STREAM_PASS_SYSTEMS[name]
+    A = make(dtype=dtype, device=cuda)
+    coef2, st2, g2, sub = A.collapse_to_2d()
+    assert fused.pass_terms(st2, coef2.ndim == 1) == ns
+    x = _rhs(A.shape[0], 9, cuda, dtype)
+    kw = dict(stencil=st2, grid=g2, sub=sub)
+    y = fused_kskip.sweep_probe(coef2, x, "pass", 1, **kw)[1]
+    y0 = fused_kskip.sweep_probe(coef2, x, "pass", 1, ns_pass=0, **kw)[1]
+    assert torch.equal(y, y0)
+    ref = stencil.stencil_matvec_2d_reference(coef2, x, **kw)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float((y0 - ref).abs().max() / ref.abs().max()) <= rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["kskipcg", "kskipmrr"])
+def test_streaming_launches_count_their_pass(cuda, method, monkeypatch):
+    """A streaming K5/K6 launch counts under the pass it took: NS 7 for the
+    collapsed 3-D constant stencil, 0 for the grid form."""
+    monkeypatch.setattr(fused, "ROUTE", "streaming")
+    fn = getattr(fused_kskip, f"fused_{method}_solve_2d")
+    for A, ns in ((fixtures.laplace3d(10, constant=True, device=cuda), 7), (fixtures.laplace2d(24, device=cuda), 0)):
+        before = getattr(fn, f"launches_streaming_ns{ns}")
+        krylov_tpu_torch.solve(A, _rhs(A.shape[0], 6, cuda), method=method, k=2, tol=1e-8)
+        assert getattr(fn, f"launches_streaming_ns{ns}") == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method, vectors", [("kskipcg", 8), ("kskipmrr", 10)])
 def test_fused_kskip_workspace_sizes(cuda, method, vectors):
@@ -341,7 +390,10 @@ def test_kskip_streaming_plan_is_the_launched_grid(cuda, method, monkeypatch):
     A = fixtures.laplace2d(64, constant=True, device=cuda)
     monkeypatch.setattr(fused, "ROUTE", "streaming")
     p = fused_kskip.device_plan(method, A.grid, A.stencil, torch.float64, 2)
-    assert p.route == "streaming" and p.blocks == fused_kskip.workspace(method, torch.float64, A.shape[0], 2)[0] > 3
+    ns_pass = fused.pass_terms(A.stencil, True)
+    assert ns_pass == 5
+    assert p.route == "streaming" and p.blocks == fused_kskip.workspace(method, torch.float64, A.shape[0], 2,
+                                                                        ns_pass)[0] > 3
     monkeypatch.setattr(fused, "MAX_BLOCKS", 3)
     assert fused_kskip.device_plan(method, A.grid, A.stencil, torch.float64, 2).blocks == 3
     _, conv = _check_kskip(*_kskip_pair(A, _rhs(A.shape[0], 6, cuda), method, 2, False, 1e-8, A.shape[0], "streaming"))

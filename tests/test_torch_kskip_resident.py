@@ -155,14 +155,16 @@ def test_max_blocks_caps_both_routes(method):
 def test_device_plan_reads_the_route_and_the_cap_at_call_time(monkeypatch):
     """device_plan takes the SM count from the device and fused.ROUTE and
     fused.MAX_BLOCKS as they stand at the call (no knob of its own); a
-    streaming plan carries the grid workspace() sizes for the launch (here
-    a stand-in for the C library: 2 blocks an SM, at most MAX_BLOCKS)."""
+    streaming plan carries the grid workspace() sizes for the launch, for
+    the pass of the stencil's form (here a stand-in for the C library: 2
+    blocks an SM, at most MAX_BLOCKS; the constant 5-point stencil takes the
+    pass specialised on 5 terms)."""
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: SimpleNamespace(multi_processor_count=132))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     sized = []
 
-    def workspace(method, dtype, n, k_max):
-        sized.append((method, dtype, n, k_max))
+    def workspace(method, dtype, n, k_max, ns_pass=0):
+        sized.append((method, dtype, n, k_max, ns_pass))
         return min(2 * 132, fused.MAX_BLOCKS or 2 * 132), 0, 0, 0
 
     monkeypatch.setattr(fused_kskip, "workspace", workspace)
@@ -178,7 +180,7 @@ def test_device_plan_reads_the_route_and_the_cap_at_call_time(monkeypatch):
     assert route_and_blocks() == ("streaming", 66)
     monkeypatch.setattr(fused, "MAX_BLOCKS", 0)
     assert route_and_blocks() == ("streaming", 264)
-    assert sized == [("kskipmrr", torch.float64, 500 * 500, 4)] * 2
+    assert sized == [("kskipmrr", torch.float64, 500 * 500, 4, 5)] * 2
 
 
 @pytest.mark.parametrize("method", METHODS)
