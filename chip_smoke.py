@@ -17,7 +17,9 @@ alone, for a checkout of another commit to compare); then degenerate
 systems, an exact warm start and b = 0, for every method and both fused
 routes, and batches with a zero member (phase 5c).  K2/K3's streaming route is held
 against its plain version on ``laplace2d(1500)`` (N = 2.25M), above the
-resident route's capacity; K5/K6's streaming route is forced at N = 250k,
+resident route's capacity, and solves BASELINE row 5's system,
+``laplace3d(216)`` (N = 10.08M), with cg and mrr through ``solve_device``
+and ``solve`` (phase 6f, ``--k23`` runs it and 6c alone); K5/K6's streaming route is forced at N = 250k,
 held beside the resident one against the same plain run (of the first
 seed) and driven through the k-skip path.  K1 is timed beside its one-call yardstick,
 ``torch.nn.functional.conv2d``.
@@ -229,6 +231,16 @@ MAXITER_STREAM = 300  # the streaming phase's fixed iteration count
 ROW5_NX = 216
 ROW5 = dict(method="adaptivekskipmrr", k=8, tol=1e-4, restarts=1, maxiter=4000)
 ROW5_JAX = (271, 31, 8)
+# Phase 6f: row 5's system and b with cg and mrr, through solve_device and
+# solve (float32 also restarts=1): far above the resident route's capacity,
+# so K3/K2 stream.  ROW5_K23_JAX: the JAX package's float64 iterations on
+# that b, from krylov_tpu.solve_device(laplace3d(216, constant=True), b,
+# method=m, **ROW5_K23) on the CPU with x64 (JAX_PLATFORMS=cpu,
+# jax_enable_x64; 68 s for cg, 82 s for mrr on 8 cores): host f64 true
+# residuals 9.9092e-05 (cg) and 9.8683e-05 (mrr); the last recurred
+# residuals 1.0105e-04, 9.9092e-05 (cg) and 1.0075e-04, 9.8683e-05 (mrr)
+ROW5_K23 = dict(tol=1e-4, maxiter=4000)
+ROW5_K23_JAX = {"cg": 350, "mrr": 269}
 # laplace3d(ROW5_MID), N = 1M, streams in both dtypes: K5/K6's streaming
 # route held against its plain version there (float64 whole solves of
 # ROW5_MID_RUNS under KSKIP_FULL's limits; float32 first outer iterations
@@ -933,58 +945,208 @@ def row5_only() -> int:
     return 0
 
 
-def streaming(dev, fused) -> dict:
-    """6c. K2/K3's streaming route against its plain version on
-    laplace2d(NX_STREAM, constant) in float64 (N = 2.25M, above the
-    resident route's capacity), MAXITER_STREAM iterations with tol 0, b from
-    seed 14; launch counters from this run only.  Each launch takes the
-    pass specialised on 5 terms, and its x, trace and count are bitwise
-    those of the same solve of the grid-coefficient form, which takes the
-    masked pass (digests printed).  Returns, by method, (launches,
-    max |x - x_plain|, kernel ms, plain ms, bound)."""
-    import hashlib
+def stream_pass_alone(fused, stencil, m, coef, v, st, grid, sub, ns, name) -> None:
+    """The first pass of the streaming K3 (``m="cg"``) or K2 instance's
+    form alone (``fused.stream_probe`` on its walk: v = A p, or p = r +
+    beta q formed where read with A p stored; MrR's A r stored), specialised
+    on ``ns`` terms and masked, on the same weights: bitwise equal, and
+    within K1's tolerance of the plain stencil."""
+    import torch
 
+    form = fused.stream_shape(m, ns, v.dtype)[0]
+    pass_name = fused.FORM_PASSES[m, form][0]
+    rows = (2, 3) if pass_name == "form-store" else (3,)  # the work vectors it writes
+    probe = {n: fused.stream_probe(coef, v, m, pass_name, ns_pass=n, stencil=st, grid=grid, sub=sub)
+             for n in (ns, 0)}
+    same = all(torch.equal(probe[ns][r], probe[0][r]) for r in rows)
+    src = torch.addcmul(v, torch.full_like(v, 0.5), v) if pass_name == "form-store" else v  # p = r + 0.5 q
+    pass_err = rel_err(probe[ns][3], stencil.stencil_matvec_2d_reference(coef, src, stencil=st, grid=grid, sub=sub))
+    phase(f"  {m} streaming pass alone ({pass_name} on {fused.stream_shape(m, ns, v.dtype)[1]}) {name}: NS {ns} "
+          f"bitwise the masked pass {same}, max rel err {pass_err:.3e} against the plain stencil")
+    if not (same and pass_err <= (1e-12 if v.dtype == torch.float64 else 1e-5)):
+        raise AssertionError(f"streaming {m} {name} NS {ns}: the pass alone is not bitwise the masked pass, or off "
+                             f"the plain stencil ({pass_err:.3e})")
+
+
+def streaming(dev, fused, stencil) -> dict:
+    """6c. K2/K3's streaming route against its plain version on
+    laplace2d(NX_STREAM, constant) (N = 2.25M, above the resident route's
+    capacity), MAXITER_STREAM iterations with tol 0, b from seed 14, in
+    float64 and float32; launch counters from this run only.  Each launch
+    takes the pass specialised on 5 terms; x and trace within TOLS and the
+    count the plain version's (the tiled walk sums in another order than
+    the grid form's masked pass, so the solve is not bitwise that of the
+    grid form).  The first pass of the form alone (``stream_pass_alone``)
+    is bitwise the masked pass.  Returns, by method, the float64 (launches,
+    max |x - x_plain|, kernel ms, plain ms, bound, bytes model's ms)."""
     import numpy as np
     import torch
 
     from krylov_tpu_torch.sparse import fixtures
 
-    A = fixtures.laplace2d(NX_STREAM, constant=True, device=dev)
-    A_grid = fixtures.laplace2d(NX_STREAM, device=dev)  # the grid form: the masked pass, the same values
-    n = A.shape[0]
-    b = torch.from_numpy(np.random.default_rng(14).standard_normal(n)).to(dev)
-    b_norm = torch.linalg.vector_norm(b)
-    kw = dict(stencil=A.stencil, grid=A.grid, maxiter=MAXITER_STREAM)
     k23 = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d)
     out = {}
-    for m, kern, plain in (("mrr", fused.fused_mrr_solve_2d, fused.fused_mrr_solve_2d_reference),
-                           ("cg", fused.fused_cg_solve_2d, fused.fused_cg_solve_2d_reference)):
-        p = fused.device_plan(m, A.grid, A.stencil, torch.float64)
-        if p.route != "streaming":
-            raise AssertionError(f"laplace2d({NX_STREAM}) planned {p.route} for {m}, not streaming")
-        kern(A.coef, b, 0.0, b_norm, **kw)  # warm-up
-        reset(k23)
-        tk, got = cuda_ms(lambda: kern(A.coef, b, 0.0, b_norm, **kw))
-        routes = route_counts(k23)
-        tp, want = cuda_ms(lambda: plain(A.coef, b, 0.0, b_norm, **kw))
-        err = compare_solves(f"K{'3' if m == 'cg' else '2'} {m} streaming laplace2d({NX_STREAM}, constant) f64, "
-                             f"maxiter {MAXITER_STREAM}, {p.blocks} blocks", got, want, **TOLS["float64"])
-        launches = routes[kern.__name__][1]
-        if launches != 1 or routes[kern.__name__][0] or kern.launches_streaming_ns5 != 1:
-            raise AssertionError(f"the streaming phase did not launch {m} on the streaming route with the pass "
-                                 f"specialised on 5 terms: {routes}, NS 5 {kern.launches_streaming_ns5}")
-        masked = kern(A_grid.coef, b, 0.0, b_norm, **dict(kw, stencil=A_grid.stencil))
-        same = all(torch.equal(u, v) for u, v in zip(got, masked))
-        phase(f"  {m} streaming, the pass specialised on 5 terms against the masked pass (grid form): x, trace and "
-              f"count bitwise equal {same}; x sha256 {hashlib.sha256(got[0].cpu().numpy().tobytes()).hexdigest()}, "
-              f"trace sha256 {hashlib.sha256(got[1].cpu().numpy().tobytes()).hexdigest()}")
-        if not same:
-            raise AssertionError(f"streaming {m}: the specialised pass changed the solve's bits")
-        out[m] = (launches, err, tk, tp,
-                  bound(fused_flops(m, A.nnz, n, int(got[2])), 2 * n * 8, "float64"))
-        phase(f"streaming {m} float64 N={n}: kernel {tk:.3f} ms, plain {tp:.3f} ms for {int(got[2])} iterations "
-              f"(CUDA events); bound {out[m][4][0]:.3f} ms ({out[m][4][1]})")
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        A = fixtures.laplace2d(NX_STREAM, dtype=dt, constant=True, device=dev)
+        n = A.shape[0]
+        b = torch.from_numpy(np.random.default_rng(14).standard_normal(n)).to(dev, dt)
+        b_norm = torch.linalg.vector_norm(b)
+        kw = dict(stencil=A.stencil, grid=A.grid, maxiter=MAXITER_STREAM)
+        for m, kern, plain in (("mrr", fused.fused_mrr_solve_2d, fused.fused_mrr_solve_2d_reference),
+                               ("cg", fused.fused_cg_solve_2d, fused.fused_cg_solve_2d_reference)):
+            p = fused.device_plan(m, A.grid, A.stencil, dt)
+            if p.route != "streaming":
+                raise AssertionError(f"laplace2d({NX_STREAM}) {name} planned {p.route} for {m}, not streaming")
+            kern(A.coef, b, 0.0, b_norm, **kw)  # warm-up
+            reset(k23)
+            tk, got = cuda_ms(lambda: kern(A.coef, b, 0.0, b_norm, **kw))
+            routes = route_counts(k23)
+            tp, want = cuda_ms(lambda: plain(A.coef, b, 0.0, b_norm, **kw))
+            form, walk = fused.stream_shape(m, 5, dt)
+            err = compare_solves(f"K{'3' if m == 'cg' else '2'} {m} streaming ({form}, {walk}) laplace2d({NX_STREAM}, "
+                                 f"constant) {name}, maxiter {MAXITER_STREAM}, {p.blocks} blocks", got, want,
+                                 **TOLS[name])
+            launches = routes[kern.__name__][1]
+            if launches != 1 or routes[kern.__name__][0] or kern.launches_streaming_ns5 != 1:
+                raise AssertionError(f"the streaming phase did not launch {m} on the streaming route with the pass "
+                                     f"specialised on 5 terms: {routes}, NS 5 {kern.launches_streaming_ns5}")
+            stream_pass_alone(fused, stencil, m, A.coef, b, A.stencil, A.grid, None, 5, name)
+            iters = int(got[2])
+            words = fused.stream_words(m, form)
+            sweep_ms = words * n * dt.itemsize * iters / PEAK_BYTES * 1e3
+            bnd = bound(fused_flops(m, A.nnz, n, iters), 2 * n * dt.itemsize, name)
+            if dt == torch.float64:
+                out[m] = (launches, err, tk, tp, bnd, sweep_ms)
+            phase(f"streaming {m} {name} N={n}: kernel {tk:.3f} ms, plain {tp:.3f} ms for {iters} iterations (CUDA "
+                  f"events), {tk / iters * 1e3:.2f} us an iteration; bound {bnd[0]:.3f} ms ({bnd[1]}); bytes model "
+                  f"of the form ({form} on {walk}, {words} words a point an iteration) {sweep_ms:.3f} ms, "
+                  f"{sweep_ms / tk:.3f} of 3.35 TB/s")
+        del A, b
+        torch.cuda.empty_cache()
     return out
+
+
+def row5_k23_phase(dev, fused, stencil) -> dict:
+    """6f. BASELINE row 5's system with cg and mrr (ROW5_K23): ``solve_device``
+    and ``solve`` of ``laplace3d(ROW5_NX, constant=True)`` in float64 and
+    float32 (``restarts=1``), K2/K3 counters from this run only.  Holds:
+    every K2/K3 launch streaming with the pass specialised on 7 terms; the
+    host-f64 true residual below tol in both dtypes; in float64 the count
+    of the eager loop (``fused=False``, K1) on the card and ROW5_K23_JAX's.
+    First, in each dtype, each kernel on the collapsed system (its form on
+    its tiled walk) against its plain version on the same b, MAXITER_STREAM
+    iterations with tol 0: equal counts, x and trace within TOLS; and the
+    first pass of its form alone bitwise the masked pass
+    (``stream_pass_alone``).  These comparison launches are not counted.
+    Prints the time to solution of ``solve_device`` (CUDA events, median of
+    seeds 1-3 after a warm-up) fused and eager, beside the bytes model of
+    the fused solve's iterations (``fused.stream_words``).  A failed check
+    is printed and the phase raises once all its readings are out.
+    Returns the streaming launches by method and their NS 7 launches."""
+    import numpy as np
+    import torch
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch.sparse import fixtures
+
+    k23 = {"cg": fused.fused_cg_solve_2d, "mrr": fused.fused_mrr_solve_2d}
+    n3 = ROW5_NX
+    n = n3 ** 3
+    b_np = np.random.default_rng(0).standard_normal(n)
+    failures, launches = [], {"cg": 0, "mrr": 0}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        A = fixtures.laplace3d(n3, dtype=dt, constant=True, device=dev)
+        coef2, st2, g2, sub = A.collapse_to_2d()
+        b0 = torch.from_numpy(b_np).to(dev, dt)
+        b0_norm = torch.linalg.vector_norm(b0)
+        for m, fn in k23.items():
+            plain = getattr(fused, f"fused_{m}_solve_2d_reference")
+            kw2 = dict(stencil=st2, grid=g2, maxiter=MAXITER_STREAM, sub=sub)
+            got = fn(coef2, b0, 0.0, b0_norm, **kw2)
+            want = plain(coef2, b0, 0.0, b0_norm, **kw2)
+            shape = "{} on {}".format(*fused.stream_shape(m, 7, dt))
+            try:
+                compare_solves(f"K{'3' if m == 'cg' else '2'} {m} streaming ({shape}) row 5 {name} against its plain "
+                               f"version, maxiter {MAXITER_STREAM}", got, want, **TOLS[name])
+                stream_pass_alone(fused, stencil, m, coef2, b0, st2, g2, sub, 7, f"row 5 {name}")
+            except AssertionError as e:
+                failures.append(str(e))
+            del got, want
+        del b0
+        torch.cuda.empty_cache()
+        b_dev = {s: torch.from_numpy(np.random.default_rng(s).standard_normal(n)).to(dev, dt) for s in SEEDS}
+        for m, fn in k23.items():
+            kw = dict(method=m, **ROW5_K23, **({} if dt == torch.float64 else {"restarts": 1}))
+            label = f"row 5 {m} {name}"
+            reset((*k23.values(), stencil.stencil_matvec_2d))
+            res = krylov_tpu_torch.solve_device(A, b_np, **kw)
+            x, info = krylov_tpu_torch.solve(A, b_np, **kw)
+            routes = (fn.launches_resident, fn.launches_streaming, fn.launches_streaming_ns7)
+            launches[m] += routes[1]
+            rel_dev, rel = laplace3d_rel(b_np, res.x, n3), laplace3d_rel(b_np, x, n3)
+            xe, ie = krylov_tpu_torch.solve(A, b_np, **kw, fused=False)
+            rel_e = laplace3d_rel(b_np, xe, n3)
+            phase(f"{label} N={n}: launches (resident, streaming, streaming NS 7) {routes}, K1 "
+                  f"{stencil.stencil_matvec_2d.launches}; solve: iters {info['iterations']}, converged "
+                  f"{info['converged']}, recurred res {info['residual'][-1]:.6e}, host f64 true res {rel:.6e}; "
+                  f"solve_device: iters {int(res.iterations)}, host f64 true res {rel_dev:.6e}; eager loop "
+                  f"(fused=False): iters {ie['iterations']}, converged {ie['converged']}, host f64 true res "
+                  f"{rel_e:.6e}")
+            if routes[0] or routes[1] < 2 or routes[2] != routes[1]:
+                failures.append(f"{label}: launches (resident, streaming, streaming NS 7) {routes}, not streaming "
+                                f"with the pass specialised on 7 terms alone")
+            if int(res.iterations) != info["iterations"]:
+                failures.append(f"{label}: solve_device and solve disagree ({int(res.iterations)}, "
+                                f"{info['iterations']})")
+            if not (info["converged"] and rel < ROW5_K23["tol"] and rel_dev < ROW5_K23["tol"] and x.shape == (n,)):
+                failures.append(f"{label}: not converged to the host f64 true residual ({rel:.3e}, {rel_dev:.3e})")
+            if dt == torch.float64 and not (info["iterations"] == ie["iterations"] == ROW5_K23_JAX[m]):
+                failures.append(f"{label}: fused {info['iterations']}, eager {ie['iterations']}, the JAX package "
+                                f"{ROW5_K23_JAX[m]}")
+            # time to solution, fresh b, fused against eager
+            for way, extra in (("fused (streaming)", {}), ("eager (K1)", dict(fused=False))):
+                krylov_tpu_torch.solve_device(A, b_dev[SEEDS[0]], **kw, **extra)  # warm-up
+                runs = sorted((cuda_ms(lambda: krylov_tpu_torch.solve_device(A, b_dev[s], **kw, **extra))
+                               for s in SEEDS), key=lambda v: v[0])
+                t, r = runs[1]
+                iters = int(r.iterations)
+                form, walk = fused.stream_shape(m, 7, dt)
+                model = fused.stream_words(m, form) * n * dt.itemsize * iters / PEAK_BYTES * 1e3
+                phase(f"{label} time to solution, {way}: {t:.3f} ms a solve (median of seeds {SEEDS}, CUDA events "
+                      f"around solve_device; all {[round(v[0], 3) for v in runs]}), {iters} iterations, "
+                      f"{t / iters * 1e3:.1f} us an iteration; bytes model of the streaming form "
+                      f"({form} on {walk}, {fused.stream_words(m, form)} words a point) {model:.3f} ms for these "
+                      f"iterations, {model / t:.3f} of 3.35 TB/s")
+            del res, x, xe
+        del A, b_dev
+        torch.cuda.empty_cache()
+    raise_failures("phase 6f", failures)
+    return launches
+
+
+def k23_only() -> int:
+    """``chip_smoke.py --k23``: the device line, the build and phases 6c
+    and 6f alone."""
+    import torch
+
+    from krylov_tpu_torch.kernels import _build, fused, stencil
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    mark("2 build")
+    _build.library()
+    mark("6c K2/K3 streaming")
+    streaming(torch.device("cuda"), fused, stencil)
+    mark("6f row 5 cg/mrr")
+    row5_k23_phase(torch.device("cuda"), fused, stencil)
+    mark("done")
+    return 0
 
 
 def fidelity(ops, b_np, A_csr, fused, stencil) -> None:
@@ -2675,11 +2837,13 @@ def smoke(tmp: str, started: list) -> int:
             + "; grids: " + ", ".join(f"{m} {p.route} {p.blocks} x {p.threads}" for m, p in plans.items()))
 
     mark("6c K2/K3 streaming")
-    stream = streaming(dev, fused)
+    stream = streaming(dev, fused, stencil)
     mark("6d k-skip path streaming")
     kstream = kskip_streaming(ops[f64], b_np, A_csr, fused, fused_kskip)
     mark("6e row 5")
     row5 = row5_phase(dev, fused_kskip, stencil)
+    mark("6f row 5 cg/mrr")
+    row5_k23 = row5_k23_phase(dev, fused, stencil)
     mark("7 fidelity")
     fidelity(ops, b_np, A_csr, fused, stencil)
     mark("8-9 irregular and batched")
@@ -2740,15 +2904,19 @@ def smoke(tmp: str, started: list) -> int:
         entry("fused_mrr_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:344",
               routes["fused_mrr_solve_2d"][0] + chunk_launches["fused_mrr_solve_2d"] + more("fused_mrr_solve_2d", 0),
               k23_err["mrr", f64], ms["mrr", f64][0], ms["mrr", f64][1], k23_bound["mrr", f64]),
-        entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344",
-              stream["mrr"][0] + more("fused_mrr_solve_2d", 1), stream["mrr"][1], stream["mrr"][2],
-              stream["mrr"][3], stream["mrr"][4]),
+        dict(entry("fused_mrr_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:344",
+                   stream["mrr"][0] + row5_k23["mrr"] + more("fused_mrr_solve_2d", 1), stream["mrr"][1],
+                   stream["mrr"][2], stream["mrr"][3], stream["mrr"][4]),
+             shape=f"laplace2d({NX_STREAM}, constant) float64, {MAXITER_STREAM} iterations, "
+                   "{} form on {}".format(*fused.stream_shape("mrr", 5, f64)), sweep_bytes_bound_ms=stream["mrr"][5]),
         entry("fused_cg_solve_2d resident", res_src, "krylov_tpu/kernels/fused.py:259",
               routes["fused_cg_solve_2d"][0] + chunk_launches["fused_cg_solve_2d"] + more("fused_cg_solve_2d", 0),
               k23_err["cg", f64], ms["cg", f64][0], ms["cg", f64][1], k23_bound["cg", f64]),
-        entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259",
-              stream["cg"][0] + more("fused_cg_solve_2d", 1), stream["cg"][1], stream["cg"][2], stream["cg"][3],
-              stream["cg"][4]),
+        dict(entry("fused_cg_solve_2d streaming", str_src, "krylov_tpu/kernels/fused.py:259",
+                   stream["cg"][0] + row5_k23["cg"] + more("fused_cg_solve_2d", 1), stream["cg"][1], stream["cg"][2],
+                   stream["cg"][3], stream["cg"][4]),
+             shape=f"laplace2d({NX_STREAM}, constant) float64, {MAXITER_STREAM} iterations, "
+                   "{} form on {}".format(*fused.stream_shape("cg", 5, f64)), sweep_bytes_bound_ms=stream["cg"][5]),
     ]
     kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
@@ -2807,4 +2975,6 @@ if __name__ == "__main__":
         sys.exit(profiling_child(sys.argv[2]))
     if sys.argv[1:2] == ["--row5"]:
         sys.exit(row5_only())
+    if sys.argv[1:2] == ["--k23"]:
+        sys.exit(k23_only())
     sys.exit(main_path_digests() if sys.argv[1:2] == ["--digests"] else main())

@@ -44,6 +44,24 @@ piece's time is (time of 12 repetitions - time of 2) / 10, median of 3
 vector read or written once a sweep, neighbours as cache hits), their rate
 and its share of 3.35 TB/s, and the SM clock that ``nvidia-smi`` reads
 after it.
+
+    python -m krylov_tpu_torch.diagnostics.grid_sweep --k23 laplace2d:1500,laplace3d:216 [--per-sm 1,2,3,4]
+
+times, instead, the streaming K2/K3 (``kernels.fused.ROUTE =
+"streaming"``) on each constant-weight system named (``laplace2d:1500``, N
+= 2.25M, the 5-point pass; ``laplace3d:216``, BASELINE row 5, N = 10.08M,
+the 7-point pass), in float64 and float32: each method in the form and on
+the walk its instance is built in (``kernels.fused.STREAM_SHIPPED``) at
+each number of blocks an SM of ``--per-sm``
+(``kernels.fused.STREAM_BLOCKS_PER_SM``; the kernels' occupancy caps it),
+300 iterations with tol 0 (``b`` from ``default_rng(1)``), median of 3
+between CUDA events, beside the bytes model of the form
+(:func:`krylov_tpu_torch.kernels.fused.stream_words`), its rate and its
+share of 3.35 TB/s; then each pass of the probe alone at the plan's grid
+(:func:`krylov_tpu_torch.kernels.fused.stream_probe`: (time of 12 passes -
+time of 2) / 10, median of 3, each with its grid sum) beside its words a
+point (``kernels.fused.PASS_WORDS``), with the SM clock that ``nvidia-smi``
+reads after it.
 """
 
 from __future__ import annotations
@@ -197,6 +215,67 @@ def stream_lines(nx: int, ks) -> None:
         torch.cuda.empty_cache()
 
 
+K23_ITERS = 300  # iterations of a timed streaming K2/K3 solve (tol 0)
+
+
+def sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def k23_lines(spec: str, per_sm) -> None:
+    """Prints the streaming K2/K3's solves at each grid size and their
+    passes on each ``system:nx`` of ``spec``."""
+    saved = (fused.ROUTE, fused.STREAM_BLOCKS_PER_SM)
+    fused.ROUTE = "streaming"
+    try:
+        for item in spec.split(","):
+            system, nx = item.split(":")
+            for dtype in (torch.float64, torch.float32):
+                name = str(dtype).removeprefix("torch.")
+                A = getattr(fixtures, system)(int(nx), dtype=dtype, constant=True, device="cuda")
+                coef2, st2, g2, sub = A.collapse_to_2d()
+                n = g2[0] * g2[1]
+                ns = fused.pass_terms(st2, True)
+                b = torch.from_numpy(np.random.default_rng(1).standard_normal(n)).to("cuda", dtype)
+                b_norm = torch.linalg.vector_norm(b)
+                kw = dict(stencil=st2, grid=g2, maxiter=K23_ITERS, sub=sub)
+                where = f"{system}({nx}) N={n} {name} NS={ns}"
+                for m in ("cg", "mrr"):
+                    fn = getattr(fused, f"fused_{m}_solve_2d")
+                    form, walk = fused.stream_shape(m, ns, dtype)
+                    for k in per_sm:
+                        fused.STREAM_BLOCKS_PER_SM = k
+                        blocks = fused.workspace(m, dtype, n, fused.device_plan(m, g2, st2, dtype).blocks, ns)[0]
+                        fn(coef2, b, 0.0, b_norm, **kw)  # warm-up
+                        t, out = median_ms(lambda: fn(coef2, b, 0.0, b_norm, **kw))
+                        nbytes = fused.stream_words(m, form) * n * dtype.itemsize * int(out[2])
+                        print(f"K{'3' if m == 'cg' else '2'} streaming {m} {form} {walk} {where}, {k} blocks an SM "
+                              f"({blocks} of 256): {t:.3f} ms for {int(out[2])} iterations, "
+                              f"{t / int(out[2]) * 1e3:.2f} us an iteration; model "
+                              f"{fused.stream_words(m, form)} words a point, {nbytes / (t * 1e-3) / 1e9:.1f} GB/s, "
+                              f"{nbytes / PEAK_BYTES / (t * 1e-3):.3f} of 3.35 TB/s; SM clock {sm_clock()} MHz "
+                              f"after it", flush=True)
+                    fused.STREAM_BLOCKS_PER_SM = saved[1]
+                    for pass_name in fused.PROBE_PASSES[m]:
+                        def launch(reps):
+                            fused.stream_probe(coef2, b, m, pass_name, ns_pass=ns, reps=reps, stencil=st2, grid=g2,
+                                               sub=sub)
+
+                        launch(1)  # warm-up
+                        us = (median_ms(lambda: launch(12))[0] - median_ms(lambda: launch(2))[0]) / 10 * 1e3
+                        nbytes = fused.PASS_WORDS[m, pass_name] * n * dtype.itemsize
+                        print(f"K{'3' if m == 'cg' else '2'} streaming pass {m} {pass_name} {where} on {walk} "
+                              f"alone: {us:.3f} us; "
+                              f"{fused.PASS_WORDS[m, pass_name]} words a point, {nbytes / 1e6:.1f} MB, "
+                              f"{nbytes / (us * 1e-6) / 1e9:.1f} GB/s, {nbytes / PEAK_BYTES / (us * 1e-6):.3f} of "
+                              f"3.35 TB/s; SM clock {sm_clock()} MHz after it", flush=True)
+                del A, b
+                torch.cuda.empty_cache()
+    finally:
+        fused.ROUTE, fused.STREAM_BLOCKS_PER_SM = saved
+
+
 def _ints(text: str):
     return [int(v) for v in text.split(",") if v]
 
@@ -208,9 +287,14 @@ def main() -> None:
     ap.add_argument("--k", default="1,2,4,8")
     ap.add_argument("--nx", type=int, default=500)
     ap.add_argument("--stream", default="", help="laplace3d sizes whose streaming K5 pieces to time instead")
+    ap.add_argument("--k23", default="", help="system:nx list whose streaming K2/K3 forms and passes to time instead")
+    ap.add_argument("--per-sm", default="2,4", help="blocks an SM of the --k23 sweep")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.k23:
+        k23_lines(args.k23, _ints(args.per_sm))
+        return
     if args.stream:
         for nx in _ints(args.stream):
             stream_lines(nx, _ints(args.k))

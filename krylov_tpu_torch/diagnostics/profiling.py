@@ -6,7 +6,8 @@ The counterpart of :mod:`krylov_tpu.diagnostics.profiling`:
   trace (``*.pt.trace.json``, TensorBoard's layout) into ``log_dir``.  It
   records the CUDA activity whenever the solve's device is a card, so the
   trace names every hand-written kernel launch (K1's ``stencil2d_kernel``,
-  the fused solves' ``*_resident_kernel``/``*_fused_kernel``), each torch
+  the fused solves' ``*_resident_kernel``, streaming K2/K3's
+  ``*_stream_kernel`` and streaming K5/K6's ``*_fused_kernel``), each torch
   launch and copy, beside the host calls.
 - :func:`trace_solve` — :func:`krylov_tpu_torch.solve` under :func:`trace`.
 - :func:`phase_times` — coarse host-side phases (first call with the

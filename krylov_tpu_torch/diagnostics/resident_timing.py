@@ -26,8 +26,9 @@ runs that comparison: ``--pairs`` pairs of processes, one timing the
 package at the checkout root OTHER and one this checkout's, in the order
 OTHER, this, this, OTHER, OTHER, ... (each pair's first process alternates),
 and prints, for each case, both packages' medians pair by pair, the
-pairs this checkout's won, and the distance between the quartiles of
-each side's medians.
+pairs this checkout's won, those it won by more than the other side's
+distance between the quartiles of its medians ("won_beyond_spread"), and
+that distance for each side.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ def pairs(other: str, n: int, args: list) -> None:
         counts = {(r[key]["iterations"], r[key]["outer"]) for r in runs[here] + runs[other]}
         print(json.dumps({
             "case": key[0], "dtype": key[1], "pairs": n, "won": sum(a < b for a, b in zip(mine, theirs)),
+            "won_beyond_spread": sum(b - a > iqr(theirs) for a, b in zip(mine, theirs)),
             "ms": mine, "against_ms": theirs, "median_ms": statistics.median(mine),
             "against_median_ms": statistics.median(theirs),
             "change": statistics.median(mine) / statistics.median(theirs) - 1, "iqr_ms": iqr(mine),

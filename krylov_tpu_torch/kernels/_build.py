@@ -27,7 +27,7 @@ HEADERS = ("stencil.cuh", "reduce.cuh", "resident.cuh")
 # sources compiled once for each of their parts (-DKRYLOV_PART=p), each
 # part holding some of the kernel instances, so that no one nvcc holds the
 # build up
-PARTS = {"fused.cu": 3, "fused_resident.cu": 3, "fused_kskip.cu": 3, "fused_kskip_resident.cu": 12}
+PARTS = {"fused.cu": 6, "fused_resident.cu": 3, "fused_kskip.cu": 3, "fused_kskip_resident.cu": 12}
 MAX_TERMS = 16  # most stencil terms the kernels take (KRYLOV_MAX_TERMS)
 # compile flags of every source; the link adds -shared
 FLAGS = (
@@ -92,14 +92,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     geom = [i, i, i, i, i, p]  # ns, g0, g1, g2, is_const, disp
     lib.krylov_stencil2d.argtypes = [i, p, p, p, i, p, p]  # dtype, coef, x, y, batch, params, stream
     lib.krylov_stencil2d.restype = i
-    # method, dtype, n, max_blocks, ns_pass, then the three outputs
+    # method, form, walk, dtype, n, max_blocks, ns_pass, then the three outputs
     lib.krylov_fused_workspace.argtypes = [
-        i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+        i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
     ]
     lib.krylov_fused_workspace.restype = i
-    # ..., maxiter, trace_len, ns_pass (the streaming pass), weights, stream
-    lib.krylov_fused_solve.argtypes = [i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
+    # method, form, walk, dtype, blocks, ..., maxiter, trace_len, ns_pass (the streaming pass), weights, stream
+    lib.krylov_fused_solve.argtypes = [i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_fused_solve.restype = i
+    # method, pass, walk, dtype, blocks, reps, coef, work, partials, geometry, ns_pass, weights, stream
+    lib.krylov_fused_pass_probe.argtypes = [i, i, i, i, i, i, p, p, p, *geom, i, p, p]
+    lib.krylov_fused_pass_probe.restype = i
     # ..., maxiter, trace_len, ns_pass (K4's specialisation), weights, stream
     lib.krylov_resident_solve.argtypes = [i, i, i, i, i, i, i, p, p, p, p, p, p, p, p, *geom, i, i, i, p, p]
     lib.krylov_resident_solve.restype = i

@@ -63,9 +63,6 @@
 // blocks an SM.
 #include <cuda_runtime.h>
 
-#include <cstdint>
-#include <initializer_list>
-
 #include "reduce.cuh"
 #include "stencil.cuh"
 
@@ -93,26 +90,6 @@ __host__ __device__ constexpr int dyn_elems(int k_max) {
 // registers a thread); the masked pass's instances are built as before.
 template <int NS>
 constexpr int kMinBlocks = NS > 0 ? 2 : 1;
-
-// The sweep of a kernel instance: the pass specialised on NS terms
-// (stencil.cuh's StreamSweep, V contiguous points a chunk) for NS = 5 or 7,
-// else the masked pass (MaskedSweep: one point a chunk on the grid-stride
-// walk, apply_stencil), whose points, loads and sums are those of the
-// kernels before the specialised pass.
-template <typename T, int NS>
-struct SweepOf {
-    using type = StreamSweep<T, NS, kThreads>;
-    __device__ static type make(const StencilGeom& g, const StreamPass<T>& sp, int vec, const T*) {
-        return type{g, sp, vec != 0};
-    }
-};
-template <typename T>
-struct SweepOf<T, 0> {
-    using type = MaskedSweep<T, kThreads>;
-    __device__ static type make(const StencilGeom& g, const StreamPass<T>&, int, const T* coef) {
-        return type{g, coef};
-    }
-};
 
 // The k+1 (alpha, beta) of the k-skip CG steps from the bundle a/f/c,
 // which the recurrences advance in place (one thread).
@@ -213,14 +190,14 @@ __device__ T grid_norm(cg::grid_group& grid, const Sweep& sw, const T* v, T* slo
 // (bundle_size(k_max) * nb), kSumSlots * nb grid_sum slots and the
 // bundle_size(k_max) totals.  ktrace and adaptive are unused (K5's
 // signature, so one launcher serves both).  sp and vec are the specialised
-// pass's (NS > 0; see SweepOf).
+// pass's (NS > 0; see stencil.cuh's SweepOf).
 template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<NS>)
 kskipcg_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restrict__ coef,
                      const T* __restrict__ b, const T* __restrict__ scal, T* x, T* trace, int* nosl,
                      int* ktrace, int* stats, T* work, T* partials, int k, int k_max, int adaptive,
                      int maxiter, int trace_len) {
-    using Sweep = typename SweepOf<T, NS>::type;
+    using Sweep = typename SweepOf<T, NS, kThreads>::type;
     constexpr int V = Sweep::V;
     cg::grid_group grid = cg::this_grid();
     __shared__ T smem[kBlockSumSmem];
@@ -228,7 +205,7 @@ kskipcg_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restri
     T* bundle = reinterpret_cast<T*>(dyn_smem);  // a | f | c
     T* alphas = bundle + bundle_size(k_max);
     T* betas = alphas + k_max + 1;
-    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const Sweep sw = SweepOf<T, NS, kThreads>::make(g, sp, vec, coef);
     const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
     const size_t n = (size_t)g.g0 * g.g1;
     T* r = work;
@@ -474,7 +451,7 @@ kskipmrr_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restr
                       const T* __restrict__ b, const T* __restrict__ scal, T* x, T* trace, int* nosl,
                       int* ktrace, int* stats, T* work, T* partials, int k, int k_max, int adaptive,
                       int maxiter, int trace_len) {
-    using Sweep = typename SweepOf<T, NS>::type;
+    using Sweep = typename SweepOf<T, NS, kThreads>::type;
     constexpr int V = Sweep::V;
     cg::grid_group grid = cg::this_grid();
     __shared__ T smem[kBlockSumSmem];
@@ -482,7 +459,7 @@ kskipmrr_fused_kernel(StencilGeom g, StreamPass<T> sp, int vec, const T* __restr
     T* bundle = reinterpret_cast<T*>(dyn_smem);  // alpha | beta | delta
     T* zetas = bundle + bundle_size(k_max);
     T* etas = zetas + k_max + 1;
-    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const Sweep sw = SweepOf<T, NS, kThreads>::make(g, sp, vec, coef);
     const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
     const size_t n = (size_t)g.g0 * g.g1;
     T* const rbuf[2] = {work, work + n};
@@ -666,14 +643,14 @@ template <typename T, int NS>
 __global__ void __launch_bounds__(kThreads)
 kskip_sweep_probe(StencilGeom g, StreamPass<T> sp, int vec, const T* __restrict__ coef, T* work,
                   T* partials, int mode, int k, int reps) {
-    using Sweep = typename SweepOf<T, NS>::type;
+    using Sweep = typename SweepOf<T, NS, kThreads>::type;
     cg::grid_group grid = cg::this_grid();
     __shared__ T smem[kBlockSumSmem];
     extern __shared__ __align__(16) unsigned char dyn_smem[];
     T* bundle = reinterpret_cast<T*>(dyn_smem);
     T* zetas = bundle + bundle_size(k);
     T* etas = zetas + k + 1;
-    const Sweep sw = SweepOf<T, NS>::make(g, sp, vec, coef);
+    const Sweep sw = SweepOf<T, NS, kThreads>::make(g, sp, vec, coef);
     const size_t n = (size_t)g.g0 * g.g1;
     T* const rbuf[2] = {work, work + n};
     T* const ar_ring[2] = {work + 6 * n, work + 7 * n};
@@ -756,28 +733,6 @@ const void* stream_kernel(int kernel, int dtype, int ns_pass) {
     }
 }
 
-// The launch's geometry and pass: false where the specialisation cannot
-// take the operator (NS > 0 needs the constant form with NS terms and its
-// weights).  vec: the 16-byte loads, where rows start on 16 bytes and so do
-// the vectors the kernel reads and writes.
-template <typename T>
-bool stream_pass(const StencilGeom& g, int ns_pass, const double* weights, bool aligned, StreamPass<T>* sp,
-                 int* vec) {
-    *sp = StreamPass<T>{};
-    *vec = 0;
-    if (ns_pass == 0) return true;
-    if ((ns_pass != 5 && ns_pass != 7) || !g.is_const || g.ns != ns_pass || weights == nullptr) return false;
-    *vec = aligned && g.g1 % kVecWidth<T> == 0;
-    *sp = make_stream_pass<T>(g, weights, kThreads, *vec != 0);
-    return true;
-}
-
-bool aligned16(std::initializer_list<const void*> ptrs) {
-    for (const void* p : ptrs)
-        if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
-    return true;
-}
-
 }  // namespace
 
 // The work space of a solve of n points with k <= k_max: the blocks of the
@@ -838,8 +793,8 @@ extern "C" int krylov_kskip_solve(int method, int dtype, int blocks, int smem_by
     StreamPass<double> spd;
     StreamPass<float> spf;
     int vec = 0;
-    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned, &spd, &vec)
-                               : stream_pass(g, ns_pass, weights, aligned, &spf, &vec);
+    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned, kThreads, &spd, &vec)
+                               : stream_pass(g, ns_pass, weights, aligned, kThreads, &spf, &vec);
     if (kernel == nullptr || !ok) return static_cast<int>(cudaErrorInvalidValue);
     void* sp = dtype == 8 ? static_cast<void*>(&spd) : static_cast<void*>(&spf);
     void* args[] = {&g,     sp,    &vec,  &coef,     &b, &scal,  &x,     &trace,    &nosl,    &ktrace,
@@ -867,8 +822,8 @@ extern "C" int krylov_kskip_sweep_probe(int dtype, int blocks, int smem_bytes, i
     StreamPass<double> spd;
     StreamPass<float> spf;
     int vec = 0;
-    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned16({work}), &spd, &vec)
-                               : stream_pass(g, ns_pass, weights, aligned16({work}), &spf, &vec);
+    const bool ok = dtype == 8 ? stream_pass(g, ns_pass, weights, aligned16({work}), kThreads, &spd, &vec)
+                               : stream_pass(g, ns_pass, weights, aligned16({work}), kThreads, &spf, &vec);
     if (kernel == nullptr || !ok) return static_cast<int>(cudaErrorInvalidValue);
     void* sp = dtype == 8 ? static_cast<void*>(&spd) : static_cast<void*>(&spf);
     void* args[] = {&g, sp, &vec, &coef, &work, &partials, &mode, &k, &reps};

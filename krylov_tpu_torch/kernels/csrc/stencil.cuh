@@ -39,6 +39,7 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 
 // The largest number of terms, set by the build (kernels/_build.py passes
 // -DKRYLOV_MAX_TERMS=MAX_TERMS).
@@ -76,14 +77,34 @@ inline bool make_geom(int ns, int g0, int g1, int g2, int is_const, const int* d
     return true;
 }
 
-// y[e] = sum_s coef_s(e) * x[e + (d0_s, d1_s)], terms added in stencil
-// order.  `x` is deliberately not __restrict__: inside the fused kernels
-// other blocks rewrite it between grid syncs, so it must not go through the
-// non-coherent read-only cache.
+// The vector a stencil pass reads, by flat index: one in device memory
+// (Direct), or p = r + beta q formed at each index it reads from two
+// (Axpy: K3's search direction, which its streaming route forms where the
+// stencil reads it instead of storing it a pass earlier).  Neither is
+// __restrict__: inside the fused kernels other blocks rewrite the vectors
+// between grid syncs, so they must not go through the non-coherent
+// read-only cache.
 template <typename T>
-__device__ __forceinline__ T apply_stencil(const StencilGeom& g,
-                                           const T* __restrict__ coef,
-                                           const T* x, int e) {
+struct Direct {
+    static constexpr int kLoads = 1;  // vectors loaded a value
+    const T* x;
+    __device__ __forceinline__ T at(long long i) const { return x[i]; }
+};
+
+template <typename T>
+struct Axpy {
+    static constexpr int kLoads = 2;
+    const T* r;
+    const T* q;
+    T beta;
+    __device__ __forceinline__ T at(long long i) const { return fma(beta, q[i], r[i]); }
+};
+
+// y[e] = sum_s coef_s(e) * x[e + (d0_s, d1_s)], terms added in stencil
+// order, x a source as above.
+template <typename T, typename Src>
+__device__ __forceinline__ T apply_stencil_of(const StencilGeom& g, const T* __restrict__ coef, const Src& x,
+                                              int e) {
     const int i0 = e / g.g1;
     const int i1 = e - i0 * g.g1;
     const int i2 = g.g2 > 0 ? i1 % g.g2 : 0;
@@ -101,11 +122,16 @@ __device__ __forceinline__ T apply_stencil(const StencilGeom& g,
             }
             if (in) {
                 const T c = g.is_const ? coef[s] : coef[s * n + e];
-                acc += c * x[(long long)j0 * g.g1 + j1];
+                acc += c * x.at((long long)j0 * g.g1 + j1);
             }
         }
     }
     return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T apply_stencil(const StencilGeom& g, const T* __restrict__ coef, const T* x, int e) {
+    return apply_stencil_of(g, coef, Direct<T>{x}, e);
 }
 
 // n / d for 0 <= n < 2^31 and 1 <= d < 2^31 with a multiply-high, an add
@@ -243,14 +269,25 @@ __device__ __forceinline__ void store16(T* p, const T (&v)[kVecWidth<T>]) {
 // values (values past n load as 0 and do not store).  With VW = 1 a chunk
 // is one point and each() the grid-stride walk of apply_stencil's callers
 // (the same points a thread in the same order, so the same sums), its row
-// from a FastDiv; vec must then be false.
-template <typename T, int NS, int THREADS, int VW = kVecWidth<T>>
+// from a FastDiv; vec must then be false.  INFLIGHT > 0 caps the values a
+// chunk's stencil loads at once (for instances built for four blocks an
+// SM, whose threads have 64 registers).
+template <typename T, int NS, int THREADS, int VW = kVecWidth<T>, int INFLIGHT = 0>
 struct StreamSweep {
     static constexpr int V = VW;
     // terms whose loads a chunk puts in flight together: all of them, but
     // for seven terms of 16-byte chunks of float64, where 14 values at once
-    // cost the second block an SM's registers (spills), two groups
-    static constexpr int kGroup = (NS == 7 && V * sizeof(T) == 16 && sizeof(T) == 8) ? 4 : NS;
+    // cost the second block an SM's registers (spills), two groups; a
+    // source of two vectors (Axpy) loads twice the values a term, so its
+    // terms go in two groups; no more than INFLIGHT values where it is set
+    template <int LOADS>
+    static constexpr int kGroupAll = LOADS > 1 ? (NS + 1) / 2
+                                               : (NS == 7 && V * sizeof(T) == 16 && sizeof(T) == 8) ? 4 : NS;
+    template <int LOADS>
+    static constexpr int kGroup =
+        INFLIGHT > 0 && INFLIGHT / (LOADS * V) < kGroupAll<LOADS>
+            ? (INFLIGHT / (LOADS * V) > 0 ? INFLIGHT / (LOADS * V) : 1)
+            : kGroupAll<LOADS>;
     const StencilGeom& g;
     const StreamPass<T>& sp;
     bool vec;
@@ -342,8 +379,27 @@ struct StreamSweep {
         }
     }
 
+    // The V values of a source's term at flat index i.
+    __device__ __forceinline__ static void load_term(T (&v)[V], const Direct<T>& x, int i, unsigned kind) {
+        load_term(v, x.x + i, kind);
+    }
+    __device__ __forceinline__ static void load_term(T (&v)[V], const Axpy<T>& x, int i, unsigned kind) {
+        T r[V], q[V];
+        load_term(r, x.r + i, kind);
+        load_term(q, x.q + i, kind);
+#pragma unroll
+        for (int p = 0; p < V; ++p) v[p] = fma(x.beta, q[p], r[p]);
+    }
+
     // y = A x on the chunk, each point's terms added in stencil order.
     __device__ __forceinline__ void stencil(T (&y)[V], const T* x, const Chunk& c) const {
+        stencil_of(y, Direct<T>{x}, c);
+    }
+
+    // y = A x on the chunk for a source x (Direct or Axpy).
+    template <typename Src>
+    __device__ __forceinline__ void stencil_of(T (&y)[V], const Src& x, const Chunk& c) const {
+        constexpr int G = kGroup<Src::kLoads>;
         int i2[V];  // each point's inner-axis index
         i2[0] = c.i2;
 #pragma unroll
@@ -351,16 +407,16 @@ struct StreamSweep {
         if (c.fast) {
 #pragma unroll
             for (int p = 0; p < V; ++p) y[p] = T(0);
-            // the terms in groups of kGroup, each group's values loaded
-            // before its first sum, so that its loads are in flight at once
+            // the terms in groups of G, each group's values loaded before
+            // its first sum, so that its loads are in flight at once
 #pragma unroll
-            for (int s0 = 0; s0 < NS; s0 += kGroup) {
-                T v[kGroup][V];
+            for (int s0 = 0; s0 < NS; s0 += G) {
+                T v[G][V];
 #pragma unroll
-                for (int j = 0; j < kGroup && s0 + j < NS; ++j)
-                    load_term(v[j], x + c.e + sp.off[s0 + j], (sp.kinds >> (2 * (s0 + j))) & 3u);
+                for (int j = 0; j < G && s0 + j < NS; ++j)
+                    load_term(v[j], x, c.e + sp.off[s0 + j], (sp.kinds >> (2 * (s0 + j))) & 3u);
 #pragma unroll
-                for (int j = 0; j < kGroup && s0 + j < NS; ++j) {
+                for (int j = 0; j < G && s0 + j < NS; ++j) {
                     const int s = s0 + j;
                     if ((sp.masked >> s) & 1u) {
 #pragma unroll
@@ -391,7 +447,7 @@ struct StreamSweep {
                         const int j2 = i2[p] + g.d2[s];
                         in = in && j2 >= 0 && j2 < g.g2;
                     }
-                    if (in) acc += sp.w[s] * x[(long long)j0 * g.g1 + j1];
+                    if (in) acc += sp.w[s] * x.at((long long)j0 * g.g1 + j1);
                 }
             }
             y[p] = acc;
@@ -427,4 +483,54 @@ struct MaskedSweep {
     __device__ __forceinline__ void stencil(T (&y)[1], const T* x, const Chunk& c) const {
         y[0] = apply_stencil(g, coef, x, c.e);
     }
+
+    template <typename Src>
+    __device__ __forceinline__ void stencil_of(T (&y)[1], const Src& x, const Chunk& c) const {
+        y[0] = apply_stencil_of(g, coef, x, c.e);
+    }
 };
+
+// The sweep of a streaming kernel instance on THREADS-thread blocks: the
+// pass specialised on NS terms (StreamSweep, VW contiguous points a chunk:
+// a tile's 16-byte chunk, or with VW = 1 one point on the grid-stride walk)
+// for NS = 5 or 7, else the masked pass (MaskedSweep: one point a chunk on
+// the grid-stride walk, apply_stencil).  sp and vec are the specialised
+// pass's (stream_pass); the masked one takes the coefficients.
+template <typename T, int NS, int THREADS, int VW = kVecWidth<T>, int INFLIGHT = 0>
+struct SweepOf {
+    using type = StreamSweep<T, NS, THREADS, VW, INFLIGHT>;
+    __device__ static type make(const StencilGeom& g, const StreamPass<T>& sp, int vec, const T*) {
+        return type{g, sp, vec != 0};
+    }
+};
+template <typename T, int THREADS, int VW, int INFLIGHT>
+struct SweepOf<T, 0, THREADS, VW, INFLIGHT> {
+    using type = MaskedSweep<T, THREADS>;
+    __device__ static type make(const StencilGeom& g, const StreamPass<T>&, int, const T* coef) {
+        return type{g, coef};
+    }
+};
+
+// A streaming launch's pass on THREADS-thread blocks: false where the
+// specialisation cannot take the operator (NS > 0 needs the constant form
+// with NS terms and its weights).  vec: the 16-byte loads, where rows start
+// on 16 bytes (g1 % V == 0) and so do the vectors the kernel reads and
+// writes (aligned).
+template <typename T>
+inline bool stream_pass(const StencilGeom& g, int ns_pass, const double* weights, bool aligned, int threads,
+                        StreamPass<T>* sp, int* vec) {
+    *sp = StreamPass<T>{};
+    *vec = 0;
+    if (ns_pass == 0) return true;
+    if ((ns_pass != 5 && ns_pass != 7) || !g.is_const || g.ns != ns_pass || weights == nullptr) return false;
+    *vec = aligned && g.g1 % kVecWidth<T> == 0;
+    *sp = make_stream_pass<T>(g, weights, threads, *vec != 0);
+    return true;
+}
+
+// Whether every pointer starts on 16 bytes.
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+    for (const void* p : ptrs)
+        if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
+    return true;
+}

@@ -8,11 +8,16 @@ the stencil, the dtype and the card's SM count:
 - *resident* (``csrc/fused_resident.cu``): one block an SM at most, each
   owning a band of rows whose solver state stays in registers and shared
   memory; two grid syncs an iteration;
-- *streaming* (``csrc/fused.cu``): grid-stride kernels whose vectors live
-  in device memory, for systems whose bands do not fit; three grid syncs an
-  iteration, 4 blocks an SM; their stencil pass specialised on the term
-  count as K4's is (:func:`pass_terms`), one point a thread in either form,
-  so the pass does not change a bit.
+- *streaming* (``csrc/fused.cu``): persistent cooperative kernels whose
+  vectors live in device memory, for systems whose bands do not fit
+  (every 2-D system above about 0.54M points, every 3-D one from 65^3
+  up); ``STREAM_BLOCKS_PER_SM`` blocks an SM as their occupancy allows;
+  their stencil pass specialised on the term count as K4's is
+  (:func:`pass_terms`), on tiles of 16-byte chunks of a row or one point a
+  thread, else the masked pass on the grid-stride walk.  Each instance
+  (method, pass, dtype) is built in one form (``STREAM_FORMS``: the words
+  a point an iteration it moves, :func:`stream_words`, and its grid syncs)
+  on one walk (``STREAM_WALKS``), ``STREAM_SHIPPED``'s.
 
 A launch or build failure on either route raises; neither route gives way
 to the other or to the plain version.  On a CPU tensor the wrappers run the
@@ -62,7 +67,60 @@ RESIDENT_MAX_BLOCKS = 160  # most bands the grid sums take (kResMaxBlocks)
 # Hopper block may use, less 1 KiB for the kernels' static shared memory
 RESIDENT_SMEM = 232_448 - 1024
 STREAM_THREADS = 256  # kThreads in reduce.cuh
-STREAM_BLOCKS_PER_SM = 4  # the streaming grid (PERF.md: the grid-size sweep)
+STREAM_BLOCKS_PER_SM = 4  # the streaming grid, as the kernels' occupancy allows (PERF.md: the grid-size sweep)
+# the forms of the streaming route by method, in the order of their codes
+# in csrc/fused.cu: CG "three-pass" (v = A p, the x/r update, p = r + beta
+# p and a grid sync: 3 syncs) and "stored" (p = r + beta p_prev formed in
+# the stencil pass wherever it is read, A p stored by it: 2 syncs); MrR
+# "stored" (A r stored and read back)
+STREAM_FORMS = {"cg": ("three-pass", "stored"), "mrr": ("stored",)}
+# the walks, in the order of their codes in csrc/fused.cu: one point a
+# thread on the grid-stride walk (the masked pass's walk too), tiles of
+# 16-byte chunks of a row built for four blocks an SM, the same built for
+# two
+STREAM_WALKS = ("points", "tiles-4", "tiles")
+# the (form, walk) each streaming instance is built in, by method, pass
+# (pass_terms) and dtype, as csrc/fused.cu's kFormOf and kWalkOf build it
+# (a launch that names another pair raises): the fastest of the grid sweep
+# at N = 2.25M (NS 5) and at BASELINE row 5 (NS 7) on an H100 among those
+# that spill no more than the three-pass CG and stored MrR on one point a
+# thread (PERF.md); the masked pass (NS 0) takes those
+STREAM_SHIPPED = {
+    **{(m, 0, dt): (f, "points") for m, f in (("cg", "three-pass"), ("mrr", "stored"))
+       for dt in (torch.float64, torch.float32)},
+    ("cg", 5, torch.float64): ("stored", "points"),
+    ("cg", 5, torch.float32): ("three-pass", "points"),
+    ("cg", 7, torch.float64): ("stored", "tiles-4"),
+    ("cg", 7, torch.float32): ("stored", "tiles-4"),
+    ("mrr", 5, torch.float64): ("stored", "points"),
+    ("mrr", 5, torch.float32): ("stored", "points"),
+    ("mrr", 7, torch.float64): ("stored", "tiles-4"),
+    ("mrr", 7, torch.float32): ("stored", "tiles"),
+}
+# the passes of each form (the pass probe's, stream_probe), and the words a
+# point each moves, every vector it reads or writes once, a stencil's
+# neighbours as cache hits
+FORM_PASSES = {
+    ("cg", "three-pass"): ("stencil", "update", "direction"),
+    ("cg", "stored"): ("form-store", "update"),
+    ("mrr", "stored"): ("sums-y", "sums-s", "update"),
+}
+# the pass probe's passes by method, in the order of their codes in
+# csrc/fused.cu (k23_pass_probe), with the work vectors w0..w4 each reads
+# and writes
+PROBE_PASSES = {
+    "cg": ("stencil",  # v = A p: p w1 -> v w3
+           "update",  # x += alpha p, r -= alpha v: p w1, v w3, x w4, r w0
+           "direction",  # p = r + beta p: r w0, p w1
+           "form-store"),  # p = r + beta q formed where read: r w0, q w1 -> p w2, and A p -> v w3
+    "mrr": ("sums-y",  # Ar = A r, <y,y>, <y,Ar>: r w0, y w1 -> Ar w3
+            "sums-s",  # <r,s>, <s,s>: r w0, y w1, Ar w3
+            "update"),  # y, z, r (in place), x: w1, w2, w0, w4, Ar w3
+}
+PASS_WORDS = {
+    ("cg", "stencil"): 2, ("cg", "update"): 6, ("cg", "direction"): 3, ("cg", "form-store"): 4,
+    ("mrr", "sums-y"): 3, ("mrr", "sums-s"): 3, ("mrr", "update"): 9,
+}
 
 # term counts of the specialised resident stencil pass, K4 (the NS of
 # stencil_pass in csrc/resident.cuh; 0 is the masked pass)
@@ -70,6 +128,29 @@ PASS_TERMS = (5, 7)
 
 _METHOD_CODE = {"cg": 0, "mrr": 1}
 _workspace = {}
+
+
+def stream_shape(method: str, ns_pass: int, dtype: torch.dtype) -> Tuple[str, str]:
+    """``(form, walk)`` of a streaming K3 (``"cg"``) or K2 (``"mrr"``)
+    launch with the stencil pass ``ns_pass`` in ``dtype``:
+    ``STREAM_SHIPPED``'s."""
+    return STREAM_SHIPPED[method, ns_pass, dtype]
+
+
+def stream_words(method: str, form: str) -> int:
+    """Words a point that one iteration of the streaming K3 (``"cg"``) or
+    K2 (``"mrr"``) moves in ``form``, every
+    vector a pass reads or writes counted once and a stencil's neighbours
+    as cache hits, pass by pass:
+
+    - CG three-pass: v = A p (p read, v written: 2); the update (x, p, r, v
+      read, x, r written: 6); p = r + beta p (r, p read, p written: 3); 11.
+    - CG stored: p = r + beta p_prev with A p (r, p_prev read, p and v
+      written: 4); the update (6); 10.
+    - MrR stored: A r with <y,y>, <y,Ar> (r, y read, Ar written: 3); <r,s>,
+      <s,s> (Ar, r, y read: 3); the update (Ar, r, y, z, x read, y, z, r, x
+      written: 9); 15."""
+    return sum(PASS_WORDS[method, name] for name in FORM_PASSES[method, form])
 
 
 def pass_terms(stencil, is_const: bool) -> int:
@@ -164,18 +245,23 @@ def device_plan(method: str, grid, stencil, dtype: torch.dtype, device=None) -> 
     return plan(method, grid, stencil, dtype, sms, MAX_BLOCKS, ROUTE)
 
 
-def workspace(method: str, dtype: torch.dtype, n: int, max_blocks: int, ns_pass: int = 0) -> Tuple[int, int, int]:
+def workspace(method: str, dtype: torch.dtype, n: int, max_blocks: int, ns_pass: int = 0,
+              probe: bool = False) -> Tuple[int, int, int]:
     """``(blocks, work, partials)`` of a streaming solve of ``n`` points
-    with the stencil pass ``ns_pass`` (:func:`pass_terms`) on the current
-    CUDA device: the blocks of the cooperative grid (at most
+    (``probe``: of the pass probe) with the stencil pass ``ns_pass``
+    (:func:`pass_terms`) in :func:`stream_shape`'s form and walk on the
+    current CUDA device: the blocks of the cooperative grid (at most
     ``max_blocks``, all co-resident) and the elements of the two scratch
     buffers, as the C library sizes them.  Cached per device."""
-    key = (method, dtype, n, max_blocks, ns_pass, torch.cuda.current_device())
+    form, walk = stream_shape(method, ns_pass, dtype)
+    code = -1 if probe else STREAM_FORMS[method].index(form)
+    walk_code = STREAM_WALKS.index(walk)
+    key = (method, code, walk_code, dtype, n, max_blocks, ns_pass, torch.cuda.current_device())
     if key not in _workspace:
         blocks, work, partials = ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)
         _build.check(
             _build.library().krylov_fused_workspace(
-                _METHOD_CODE[method], dtype.itemsize, n, max_blocks, ns_pass,
+                _METHOD_CODE[method], code, walk_code, dtype.itemsize, n, max_blocks, ns_pass,
                 ctypes.byref(blocks), ctypes.byref(work), ctypes.byref(partials),
             ),
             "krylov_fused_workspace",
@@ -223,11 +309,13 @@ def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
             )
         else:
             ns_pass, weights = pass_args(coef, b, stencil, grid, sub)
+            form, walk = stream_shape(method, ns_pass, dt)
             blocks, work_elems, partial_elems = workspace(method, dt, b.numel(), p.blocks, ns_pass)
             work = torch.empty(work_elems, dtype=dt, device=dev)
             partials = torch.empty(partial_elems, dtype=dt, device=dev)
             err = lib.krylov_fused_solve(
-                _METHOD_CODE[method], b.element_size(), blocks,
+                _METHOD_CODE[method], STREAM_FORMS[method].index(form), STREAM_WALKS.index(walk),
+                b.element_size(), blocks,
                 coef.data_ptr(), b.data_ptr(), scal.data_ptr(), x.data_ptr(),
                 trace.data_ptr(), stats.data_ptr(), work.data_ptr(), partials.data_ptr(),
                 *geom, maxiter, trace_len, ns_pass, weights, stream,
@@ -270,6 +358,45 @@ def stencil_pass_probe(coef, x, *, stencil, grid, sub=None, ns_pass: Optional[in
         )
     _build.check(err, f"stencil_pass_probe (NS = {ns_pass}{', split' if split else ''})")
     return y, sums, cycles
+
+
+def stream_probe(coef, v, method: str, pass_name: str, *, stencil, grid, sub=None, ns_pass: Optional[int] = None,
+                 reps: int = 1) -> torch.Tensor:
+    """One pass of the streaming K3 (``method="cg"``) or K2 (``"mrr"``)
+    alone on the card, ``reps`` times in one cooperative launch, each
+    ending in its grid sum as in a solve (``csrc/fused.cu``,
+    ``k23_pass_probe``), at fixed coefficients (beta, gamma, zeta 0.5;
+    alpha 0.25; eta -0.25), for timing it: ``pass_name`` one of
+    ``PROBE_PASSES[method]``, on the walk and grid of a streaming solve
+    with the pass ``ns_pass`` (None: :func:`pass_terms`'s; 0: the masked
+    pass).  The 5 work vectors start as copies of ``v``; returns them,
+    ``(5, n)``: after one ``"stencil"`` pass row 3 is ``A v``, after
+    ``"form-store"`` row 2 is ``p = v + 0.5 v`` and row 3 ``A p``, after
+    ``"sums-y"`` row 3 is ``A v``.  Its launches count toward no wrapper:
+    it measures and checks the passes of K2/K3, which the solves launch."""
+    require_cuda("stream_probe", coef, v, stencil, grid)
+    dev, dt = v.device, v.dtype
+    with torch.cuda.device(dev):
+        if ns_pass is None:
+            ns_pass = pass_terms(stencil, coef.ndim == 1)
+        weights = host_weights(coef, v, stencil, grid, sub) if ns_pass else None
+        # the grid of a streaming solve with this pass, which the probe's
+        # own occupancy holds at once
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        stream_blocks = plan(method, grid, stencil, dt, sms, MAX_BLOCKS, "streaming").blocks
+        solve_blocks = workspace(method, dt, v.numel(), stream_blocks, ns_pass)[0]
+        blocks, work_elems, partial_elems = workspace(method, dt, v.numel(), solve_blocks, ns_pass, probe=True)
+        walk = stream_shape(method, ns_pass, dt)[1]
+        work = v.repeat(work_elems // v.numel())
+        partials = torch.zeros(partial_elems, dtype=dt, device=dev)
+        err = _build.library().krylov_fused_pass_probe(
+            _METHOD_CODE[method], PROBE_PASSES[method].index(pass_name), STREAM_WALKS.index(walk),
+            v.element_size(), blocks, reps,
+            coef.data_ptr(), work.data_ptr(), partials.data_ptr(), *geometry(stencil, grid, sub, coef.ndim == 1),
+            ns_pass, weights, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, f"stream_probe ({method} {pass_name}, NS = {ns_pass}, walk {walk})")
+    return work.view(-1, v.numel())
 
 
 def _count(fn, route: str, ns_pass) -> None:

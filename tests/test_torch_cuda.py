@@ -85,21 +85,112 @@ def test_fused_kernel_matches_plain(cuda, method, name):
     torch.testing.assert_close(x, xr, rtol=1e-8, atol=1e-12)
 
 
+# n-vectors of work of each streaming form (csrc/fused.cu), and of the pass
+# probe
+STREAM_WORK = {("cg", "three-pass"): 3, ("cg", "stored"): 4, ("mrr", "stored"): 4}
+PROBE_WORK = 5
+STREAM_INSTANCES = sorted(fused.STREAM_SHIPPED, key=str)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("method, vectors", [("cg", 3), ("mrr", 4)])
-def test_fused_workspace_sizes(cuda, method, vectors):
+@pytest.mark.parametrize("method, ns_pass, dtype", STREAM_INSTANCES)
+def test_fused_workspace_sizes(cuda, method, ns_pass, dtype):
     """The C library sizes the streaming route's scratch: n-vectors of work
-    by method, 8 partial-sum slots a block, and the plan's blocks (4 an SM,
-    no more than n points need); the resident route's scratch is the plan's
+    by the instance's form (the pass probe's 5), 8 partial-sum slots a
+    block, and the plan's blocks, no more than n points need or than are
+    co-resident: four an SM for the instances on points and tiles-4 and
+    the masked pass's (built with no minimum, at 48 registers or fewer),
+    two at least for those on tiles; the resident route's scratch is the plan's
     edge-row exchange and 6 sum words a band plus 6."""
-    n = 64 * 64
-    p = fused.plan(method, (64, 64), fixtures.laplace2d(4, device=cuda).stencil, torch.float64,
-                   torch.cuda.get_device_properties(cuda).multi_processor_count, route="streaming")
-    blocks, work, partials = fused.workspace(method, torch.float64, n, p.blocks)
-    assert blocks == p.blocks == n // 256 and work == vectors * n and partials == 8 * blocks
-    assert fused.workspace(method, torch.float64, n, p.blocks) == (blocks, work, partials)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stencil2 = fixtures.laplace2d(4, constant=True, device=cuda).stencil
+    form, walk = fused.STREAM_SHIPPED[method, ns_pass, dtype]
+    for n, grid in ((64 * 64, (64, 64)), (1500 * 1500, (1500, 1500))):
+        p = fused.plan(method, grid, stencil2, dtype, sms, route="streaming")
+        assert p.blocks == min(-(-n // 256), fused.STREAM_BLOCKS_PER_SM * sms)
+        for probe, vectors in ((False, STREAM_WORK[method, form]), (True, PROBE_WORK)):
+            blocks, work, partials = fused.workspace(method, dtype, n, p.blocks, ns_pass, probe)
+            if walk != "tiles":
+                assert blocks == p.blocks
+            else:
+                assert min(2 * sms, p.blocks) <= blocks <= p.blocks
+            assert work == vectors * n and partials == 8 * blocks
+            assert fused.workspace(method, dtype, n, p.blocks, ns_pass, probe) == (blocks, work, partials)
     r = fused.device_plan(method, (64, 64), fixtures.laplace2d(4, device=cuda).stencil, torch.float64)
     assert r.route == "resident" and fused.resident_buffers(r, (64, 64)) == (r.blocks * 2 * 64, 6 * r.blocks + 6)
+
+
+# the streaming K2/K3 against the plain versions: rows that start on 16
+# bytes in both dtypes (the 16-byte loads of the tiled walks), rows that do
+# not (the scalar chunk path), rows of several tiles, for the passes
+# specialised on 5 and 7 terms, and the grid-coefficient form (the masked
+# pass, NS 0)
+STREAM_CASES = {
+    "ns5 aligned rows": (5, lambda **kw: fixtures.laplace2d(40, 64, constant=True, **kw)),
+    "ns5 ragged rows": (5, lambda **kw: fixtures.laplace2d(33, 45, constant=True, **kw)),
+    "ns5 wide rows": (5, lambda **kw: fixtures.laplace2d(10, 1100, constant=True, **kw)),
+    "ns7 aligned rows": (7, lambda **kw: fixtures.laplace3d(12, constant=True, **kw)),
+    "ns7 ragged rows": (7, lambda **kw: fixtures.laplace3d(9, 7, 11, constant=True, **kw)),
+    "ns0 grid coefficients": (0, lambda **kw: fixtures.laplace2d(40, 64, **kw)),
+}
+# the first pass of each form: the probe's pass, and the rows of the work
+# vectors it writes
+FIRST_PASS = {"three-pass": ("stencil", (3,)), "stored": ("form-store", (2, 3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+@pytest.mark.parametrize("method", ["cg", "mrr"])
+def test_streaming_forms_match_plain(cuda, method, name, dtype, monkeypatch):
+    """The streaming K2/K3 (ROUTE = "streaming"), each instance in its form
+    on its walk (fused.STREAM_SHIPPED), on the same inputs against the
+    plain version: equal counts and convergence, traces and x within
+    ROUTE_TOLS; the launch counts under its pass."""
+    ns, make = STREAM_CASES[name]
+    A = make(dtype=dtype, device=cuda)
+    b = _rhs(A.shape[0], 6, cuda, dtype)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    assert fused.pass_terms(stencil2, coef2.ndim == 1) == ns
+    tol = 1e-8 if dtype == torch.float64 else 1e-5
+    kw = dict(stencil=stencil2, grid=grid2, maxiter=A.shape[0], sub=sub)
+    b_norm = torch.linalg.vector_norm(b)
+    monkeypatch.setattr(fused, "ROUTE", "streaming")
+    fn = KERNEL[method]
+    before = getattr(fn, f"launches_streaming_ns{ns}")
+    x, t, i, c = fn(coef2, b, tol, b_norm, **kw)
+    assert getattr(fn, f"launches_streaming_ns{ns}") == before + 1
+    xr, tr, ir, cr = PLAIN[method](coef2, b, tol, b_norm, **kw)
+    assert int(i) == int(ir) and bool(c) and bool(cr)
+    m = int(i) + 1
+    trace_rtol, x_rtol, x_atol = ROUTE_TOLS[dtype]
+    torch.testing.assert_close(t[:m], tr[:m], rtol=trace_rtol, atol=0)
+    torch.testing.assert_close(x, xr, rtol=x_rtol, atol=x_atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "mrr"])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("name", ["ns5 aligned rows", "ns5 ragged rows", "ns7 aligned rows", "ns7 ragged rows"])
+def test_stream_probe_pass_equals_masked_pass(cuda, name, dtype, rtol, method):
+    """The first pass of each instance's form alone (fused.stream_probe) on
+    its walk: CG's v = A p or p = r + beta q formed at every point it reads
+    and A p, MrR's A r; the specialised pass bitwise the masked one on the
+    same weights, and both against the plain stencil."""
+    ns, make = STREAM_CASES[name]
+    A = make(dtype=dtype, device=cuda)
+    coef2, stencil2, grid2, sub = A.collapse_to_2d()
+    v = _rhs(A.shape[0], 8, cuda, dtype)
+    kw = dict(stencil=stencil2, grid=grid2, sub=sub)
+    form = fused.stream_shape(method, ns, dtype)[0]
+    pass_name, rows = FIRST_PASS[form] if method == "cg" else ("sums-y", (3,))
+    out = {n: fused.stream_probe(coef2, v, method, pass_name, ns_pass=n, **kw) for n in (ns, 0)}
+    assert all(torch.equal(out[ns][r], out[0][r]) for r in rows)
+    p = torch.addcmul(v, torch.full_like(v, 0.5), v) if pass_name == "form-store" else v
+    if pass_name == "form-store":
+        torch.testing.assert_close(out[ns][2], p, rtol=0, atol=rtol * float(p.abs().max()))
+    y = stencil.stencil_matvec_2d_reference(coef2, p, **kw)
+    torch.testing.assert_close(out[ns][3], y, rtol=0, atol=rtol * float(y.abs().max()))
 
 
 # resident K2/K3 against the plain versions: a grid whose rows do not divide
