@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.diagnostics import build_info, finish_banner, start_banner
 from krylov_tpu_torch.kernels import _build
@@ -218,7 +219,9 @@ def _prepare(A, b, x0, maxiter):
 def _zero_rows(b: torch.Tensor) -> list:
     """Which systems of ``b`` (a vector, or a ``(batch, n)`` block) have
     ``||b|| = 0``, read on the host: one device-to-host transfer."""
-    return (torch.linalg.vector_norm(b, dim=-1) == 0).reshape(-1).tolist()
+    zero = torch.linalg.vector_norm(b, dim=-1) == 0
+    with tracing.host_read():
+        return zero.reshape(-1).tolist()
 
 
 def _zero_result(b: torch.Tensor, method: str, k: int, sdt, use_fused: bool, restarts: int = 0) -> SolveResult:
@@ -290,7 +293,8 @@ def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_
     :class:`~krylov_tpu_torch.context.Context`: the distributed one of
     :func:`krylov_tpu_torch.dist.solve_sharded`."""
     if use_fused:
-        return _run_fused(A, b, x0, tol, method, maxiter, k)
+        with tracing.span("run_fused"):
+            return _run_fused(A, b, x0, tol, method, maxiter, k)
     if ctx is None:
         ctx = Context(scalar_dtype=scalar_dtype)
     if x0 is None:
@@ -304,7 +308,8 @@ def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_
         kw.update(s=max(k, 1), lmin=bounds[0], lmax=bounds[1])
     elif method in _PRECONDITIONED_METHODS:
         kw["M"] = M
-    return _KERNELS[method](A, b, x0, **kw)
+    with tracing.span("eager_loop"):
+        return _KERNELS[method](A, b, x0, **kw)
 
 
 def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
@@ -324,19 +329,22 @@ def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basi
     result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M, bounds)
     if restarts == 0:
         return result
-    tol_t = torch.as_tensor(tol, dtype=b.dtype, device=b.device)
-    b_norm = torch.linalg.vector_norm(b)
-    x, iters = result.x, result.iterations
-    for _ in range(restarts):
-        r = b - A.matvec(x)
-        r_norm = torch.linalg.vector_norm(r)
-        # tol on the original system is tol * b_norm / r_norm on the defect
-        inner_tol = torch.clamp(0.2 * tol_t * b_norm / torch.clamp(r_norm, min=1e-30), 2e-7, 0.5).to(b.dtype)
-        if bool(r_norm / b_norm >= tol_t):
-            res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M,
-                             bounds)
-            x, iters = x + res2.x, iters + res2.iterations
-    true_final = torch.linalg.vector_norm(b - A.matvec(x)) / b_norm
+    with tracing.span("restarts"):
+        tol_t = tracing.scalar_on(tol, b.dtype, b.device)
+        b_norm = torch.linalg.vector_norm(b)
+        x, iters = result.x, result.iterations
+        for _ in range(restarts):
+            r = b - A.matvec(x)
+            r_norm = torch.linalg.vector_norm(r)
+            # tol on the original system is tol * b_norm / r_norm on the defect
+            inner_tol = torch.clamp(0.2 * tol_t * b_norm / torch.clamp(r_norm, min=1e-30), 2e-7, 0.5).to(b.dtype)
+            with tracing.host_read():
+                again = bool(r_norm / b_norm >= tol_t)
+            if again:
+                res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
+                                 M, bounds)
+                x, iters = x + res2.x, iters + res2.iterations
+        true_final = torch.linalg.vector_norm(b - A.matvec(x)) / b_norm
     return dataclasses.replace(result, x=x, iterations=iters, converged=true_final < tol_t,
                                true_residual=true_final)
 
@@ -428,6 +436,7 @@ def _check_mesh_options(restarts: int = 0, chunk_iters=None, fused=None) -> None
         raise ValueError("fused= and mesh= are mutually exclusive")
 
 
+@tracing.entry_point
 def solve_device(
     A, b, method: str = "cg", x0=None, tol: float = 1e-5,
     maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
@@ -446,18 +455,19 @@ def solve_device(
     this rank's rows of the solution (the JAX package returns one global
     array sharded over the mesh; a plain tensor a rank is its counterpart
     here), and the traces are the same on every rank."""
-    _check_options(method, mesh, M, spectral_bounds)
+    with tracing.span("plan"):
+        _check_options(method, mesh, M, spectral_bounds)
+        if mesh is not None:
+            _check_mesh_options(restarts=restarts, fused=fused)
+            fused = False
+        A, b, x0, maxiter, use_fused, basis_norm = _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused,
+                                                         basis_norm)
     if mesh is not None:
-        _check_mesh_options(restarts=restarts, fused=fused)
-        A, b, x0, maxiter, _, basis_norm = _plan(A, b, x0, method, maxiter, M, scalar_dtype, False, basis_norm)
         from krylov_tpu_torch.dist import solve_sharded
 
         return solve_sharded(A, b, x0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
                              scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds,
                              gather=False)
-    A, b, x0, maxiter, use_fused, basis_norm = _plan(
-        A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
-    )
     if _zero_rows(b)[0]:
         return _zero_result(b, method, k, scalar_dtype, use_fused, restarts)
     bounds = _resolve_bounds(A, method, spectral_bounds)
@@ -465,6 +475,7 @@ def solve_device(
                        bounds)
 
 
+@tracing.entry_point
 def solve(
     A, b, method: str = "cg", x0=None, tol: float = 1e-5,
     maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
@@ -521,14 +532,15 @@ def solve(
     ``refine=`` takes its host-float64 defect on the whole operator and
     ``x``.
     """
-    _check_options(method, mesh, M, spectral_bounds)
-    if mesh is not None:
-        _check_mesh_options(restarts, chunk_iters, fused)
-        fused = False
     b_in = b
-    A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
-        A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
-    )
+    with tracing.span("plan"):
+        _check_options(method, mesh, M, spectral_bounds)
+        if mesh is not None:
+            _check_mesh_options(restarts, chunk_iters, fused)
+            fused = False
+        A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
+            A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
+        )
     chunked = chunk_iters is not None and chunk_iters < maxiter_eff
     if chunked:
         if chunk_iters < 1:
@@ -629,6 +641,7 @@ def _refine(A, b, x, info: dict, refine: int, tol: float, options: dict) -> torc
     return torch.from_numpy(x64).to(A.device)
 
 
+@tracing.entry_point
 def solve_batched(
     A, B, method: str = "cg", X0=None, tol: float = 1e-5,
     maxiter: Optional[int] = None, k: int = 0, M=None, mesh=None,
@@ -658,24 +671,25 @@ def solve_batched(
     row-partitioned, as one ``(batch, n_local)`` loop (one all-reduce a
     reduction for the whole batch), and returns the whole ``x`` on every
     rank; ``fused=True`` raises with it."""
-    _check_options(method, mesh, M, spectral_bounds)
-    if mesh is not None:
-        _check_mesh_options(fused=fused)
-        fused = False
-    A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
-    B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
-    if B.ndim != 2 or B.shape[1] != A.shape[0]:
-        raise ValueError(f"B must be (batch, N={A.shape[0]}), got {tuple(B.shape)}")
-    if X0 is not None:
-        X0 = torch.as_tensor(X0, device=A.device).to(A.dtype).contiguous()
-        if X0.shape != B.shape:
-            raise ValueError(f"X0 has shape {tuple(X0.shape)}, B has shape {tuple(B.shape)}")
-    A, _, _, maxiter, use_fused, basis_norm = _plan(
-        A, B[0], None, method, maxiter, M, scalar_dtype, fused, basis_norm
-    )
+    with tracing.span("plan"):
+        _check_options(method, mesh, M, spectral_bounds)
+        if mesh is not None:
+            _check_mesh_options(fused=fused)
+            fused = False
+        A = as_operator(A, device=B.device if isinstance(B, torch.Tensor) else None)
+        B = torch.as_tensor(B, device=A.device).to(A.dtype).contiguous()
+        if B.ndim != 2 or B.shape[1] != A.shape[0]:
+            raise ValueError(f"B must be (batch, N={A.shape[0]}), got {tuple(B.shape)}")
+        if X0 is not None:
+            X0 = torch.as_tensor(X0, device=A.device).to(A.dtype).contiguous()
+            if X0.shape != B.shape:
+                raise ValueError(f"X0 has shape {tuple(X0.shape)}, B has shape {tuple(B.shape)}")
+        A, _, _, maxiter, use_fused, basis_norm = _plan(
+            A, B[0], None, method, maxiter, M, scalar_dtype, fused, basis_norm
+        )
     # one tolerance tensor for the whole batch, in A's dtype as the JAX
     # package casts it: the fused kernels read it without a host transfer
-    tol = torch.as_tensor(tol, dtype=A.dtype, device=A.device)
+    tol = tracing.scalar_on(tol, A.dtype, A.device)
     if mesh is not None:
         from krylov_tpu_torch.dist import solve_sharded
 

@@ -27,12 +27,15 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from krylov_tpu_torch import tracing
+
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (one collective; ``t`` must be a
     contiguous tensor the caller owns).  ``all_reduce.calls`` counts the
     collectives."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    with tracing.span("all_reduce"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     all_reduce.calls += 1
     return t
 

@@ -23,6 +23,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.dist.spmv import gather_rows, shard_operator
 from krylov_tpu_torch.sparse.convert import pad_to_multiple
@@ -114,7 +115,9 @@ def solve_sharded(
     b_l, x0_l = (v[..., rank * n: (rank + 1) * n].contiguous() for v in (b_p, x0_p))
     # the front door's b = 0 test on the all-reduced norm, so that every
     # rank takes the same branch; a zero member runs no loop
-    zero = (ctx.norm(b_l) == 0).reshape(-1).tolist()
+    zero = ctx.norm(b_l) == 0
+    with tracing.host_read():
+        zero = zero.reshape(-1).tolist()
     bounds = None
     if method in _CACG_METHODS and not all(zero):
         bounds = _same_bounds(_resolve_bounds(A, method, spectral_bounds), ctx, device)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.sparse.formats import (
     DenseMatrix,
     DiaMatrix,
@@ -104,11 +105,12 @@ def sharded_matvec(op: ShardedOperator, x: torch.Tensor, ctx) -> torch.Tensor:
     ``sharded_matvec.calls`` counts the calls; ``.halo_bytes`` and
     ``.gather_bytes`` the bytes this rank received in them."""
     sharded_matvec.calls += 1
-    if op.kind == "stencil":
-        return _stencil_halo_matvec(op, x, ctx)
-    if op.strategy == "halo":
-        return _dia_halo_matvec(op, x, ctx)
-    return _allgather_matvec(op, x, ctx)
+    with tracing.span("halo"):
+        if op.kind == "stencil":
+            return _stencil_halo_matvec(op, x, ctx)
+        if op.strategy == "halo":
+            return _dia_halo_matvec(op, x, ctx)
+        return _allgather_matvec(op, x, ctx)
 
 
 sharded_matvec.calls = 0

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.kernels import _build
 from krylov_tpu_torch.kernels.stencil import (
     geometry,
@@ -289,10 +290,7 @@ def _launch(method, coef, b, tol, b_norm, stencil, grid, maxiter, sub):
         x = torch.empty_like(b)
         trace = torch.zeros(trace_len, dtype=dt, device=dev)
         stats = torch.zeros(2, dtype=torch.int32, device=dev)
-        scal = torch.stack([
-            torch.as_tensor(tol, dtype=dt, device=dev),
-            torch.as_tensor(b_norm, dtype=dt, device=dev),
-        ])
+        scal = torch.stack([tracing.scalar_on(tol, dt, dev), tracing.scalar_on(b_norm, dt, dev)])
         geom = geometry(stencil, grid, sub, coef.ndim == 1)
         stream = torch.cuda.current_stream().cuda_stream
         ns_pass = None
@@ -504,7 +502,8 @@ def fused_cg_solve_2d(
         return fused_cg_solve_2d_reference(
             coef, b, tol, b_norm, stencil=stencil, grid=grid, maxiter=maxiter, sub=sub
         )
-    out, route, ns_pass = _launch("cg", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
+    with tracing.span("launch"):
+        out, route, ns_pass = _launch("cg", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
     _count(fused_cg_solve_2d, route, ns_pass)
     return out
 
@@ -518,7 +517,8 @@ def fused_mrr_solve_2d(
         return fused_mrr_solve_2d_reference(
             coef, b, tol, b_norm, stencil=stencil, grid=grid, maxiter=maxiter, sub=sub
         )
-    out, route, ns_pass = _launch("mrr", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
+    with tracing.span("launch"):
+        out, route, ns_pass = _launch("mrr", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
     _count(fused_mrr_solve_2d, route, ns_pass)
     return out
 

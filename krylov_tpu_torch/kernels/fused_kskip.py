@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.kernels import _build, fused
 from krylov_tpu_torch.kernels.stencil import (
     geometry,
@@ -179,10 +180,7 @@ def _launch(method, coef, b, tol, b_norm, k, stencil, grid, maxiter, k_max, adap
         nosl = torch.zeros(trace_len, dtype=torch.int32, device=dev)
         ktrace = torch.zeros(trace_len, dtype=torch.int32, device=dev)
         stats = torch.zeros(4, dtype=torch.int32, device=dev)
-        scal = torch.stack([
-            torch.as_tensor(tol, dtype=dt, device=dev),
-            torch.as_tensor(b_norm, dtype=dt, device=dev),
-        ])
+        scal = torch.stack([tracing.scalar_on(tol, dt, dev), tracing.scalar_on(b_norm, dt, dev)])
         geom = geometry(stencil, grid, sub, coef.ndim == 1)
         outs = (x.data_ptr(), trace.data_ptr(), nosl.data_ptr(), ktrace.data_ptr(), stats.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
@@ -321,9 +319,10 @@ def fused_kskipcg_solve_2d(
         return fused_kskipcg_solve_2d_reference(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max, sub=sub
         )
-    (x, trace, nosl, _, stats), route, ns_pass = _launch(
-        "kskipcg", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, False, sub
-    )
+    with tracing.span("launch"):
+        (x, trace, nosl, _, stats), route, ns_pass = _launch(
+            "kskipcg", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, False, sub
+        )
     fused._count(fused_kskipcg_solve_2d, route, ns_pass)
     return x, trace, nosl, stats[0], stats[1].bool(), stats[2]
 
@@ -340,9 +339,10 @@ def fused_kskipmrr_solve_2d(
             coef, b, tol, b_norm, k, stencil=stencil, grid=grid, maxiter=maxiter, k_max=k_max,
             adaptive=adaptive, sub=sub,
         )
-    (x, trace, nosl, ktrace, stats), route, ns_pass = _launch(
-        "kskipmrr", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, adaptive, sub
-    )
+    with tracing.span("launch"):
+        (x, trace, nosl, ktrace, stats), route, ns_pass = _launch(
+            "kskipmrr", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, adaptive, sub
+        )
     fused._count(fused_kskipmrr_solve_2d, route, ns_pass)
     return x, trace, nosl, ktrace, stats[0], stats[1].bool(), stats[2], stats[3]
 

@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.kernels import _build
 from krylov_tpu_torch.sparse.formats import StencilMatrix, _pad_shift
 
@@ -102,7 +103,8 @@ def _params(coef: torch.Tensor, x: torch.Tensor, stencil, grid, sub) -> tuple:
     p = _K1Params(ns, g0, g1, g2, is_const)
     p.disp[: 3 * ns] = list(disp)
     if is_const:
-        p.weights[:ns] = coef.tolist()  # the one device-to-host copy
+        with tracing.host_read():
+            p.weights[:ns] = coef.tolist()  # the one device-to-host copy
     if len(_PARAMS) >= 64:
         _PARAMS.clear()
     entry = _PARAMS[key] = (weakref.ref(coef) if slot else None, ctypes.addressof(p), g0 * g1, coef.numel(), p)

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.sparse.formats import DenseMatrix, DiaMatrix, EllMatrix, HybMatrix, StencilMatrix
 
 
@@ -118,8 +119,10 @@ def lanczos_bounds(A, m: int = 16, seed: int = 0, safety: float = 1.05) -> Tuple
         beta = torch.linalg.vector_norm(w)
         V[j + 1] = torch.where(beta > 0, w / torch.where(beta > 0, beta, torch.ones_like(beta)), w)
         alphas[j], betas[j] = alpha, beta
-    T = np.diag(_host(alphas).astype(np.float64))
-    off = _host(betas).astype(np.float64)[: m - 1]
+    with tracing.host_read():
+        alphas, betas = _host(alphas), _host(betas)
+    T = np.diag(alphas.astype(np.float64))
+    off = betas.astype(np.float64)[: m - 1]
     T += np.diag(off, 1) + np.diag(off, -1)
     theta = np.linalg.eigvalsh(T)
     return max(float(theta[0]), 1e-30) / safety, float(theta[-1]) * safety

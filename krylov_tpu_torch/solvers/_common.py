@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+from krylov_tpu_torch import tracing
+
 SYNC_EVERY = 32
 
 
@@ -38,6 +40,28 @@ def tree_select(pred: torch.Tensor, on_true, on_false) -> tuple:
     """``torch.where(pred, a, b)`` leaf by leaf over two tuples (``pred`` is
     a bool per batch member)."""
     return tuple(torch.where(bcast(pred, a), a, b) for a, b in zip(on_true, on_false))
+
+
+def synced_done(step: int, conv: torch.Tensor) -> bool:
+    """The end of an eager loop's body ``step``: counted in
+    ``tracing.totals.eager_bodies``; every :data:`SYNC_EVERY` bodies the
+    host reads whether every member has converged (one
+    :func:`~krylov_tpu_torch.tracing.host_read`)."""
+    tracing.totals.eager_bodies.calls += 1
+    if step % SYNC_EVERY != SYNC_EVERY - 1:
+        return False
+    with tracing.host_read():
+        return bool(conv.all())
+
+
+def guard_read(flags: torch.Tensor):
+    """``flags`` on the host as numpy: the one read an outer iteration of
+    the guarded loops (adaptive k-skip MrR, the CA loops), counted as one
+    body in ``tracing.totals.eager_bodies`` and one
+    :func:`~krylov_tpu_torch.tracing.host_read`."""
+    tracing.totals.eager_bodies.calls += 1
+    with tracing.host_read():
+        return flags.cpu().numpy()
 
 
 def pow2_scale(s: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
-from krylov_tpu_torch.solvers._common import SolveResult, carried, scalar_dtype_of
+from krylov_tpu_torch.solvers._common import SolveResult, carried, guard_read, scalar_dtype_of
 from krylov_tpu_torch.solvers.kskip_mrr import kskipmrr_outer, mrr_half_step
 
 
@@ -52,7 +53,7 @@ def adaptivekskipmrr_kernel(
     # that of the unshifted b
     dev = b.device
     sdt = scalar_dtype_of(ctx, b)
-    tol_t = torch.as_tensor(tol, dtype=b.dtype, device=dev)
+    tol_t = tracing.scalar_on(tol, b.dtype, dev)
     b_norm = ctx.norm(b) if b_norm is None else b_norm
     batch = b.shape[:-1]
     nb = b.shape[0] if batch else 1
@@ -83,7 +84,8 @@ def adaptivekskipmrr_kernel(
     state = carried(carry_in)
     if state is not None:
         *state, pre_x, pre_res, k_cur = state
-        kk = np.broadcast_to(torch.as_tensor(k_cur).reshape(-1).cpu().numpy(), (nb,)).astype(np.int64)
+        with tracing.host_read():
+            kk = np.broadcast_to(torch.as_tensor(k_cur).reshape(-1).cpu().numpy(), (nb,)).astype(np.int64)
         i0 = 0
     else:
         *state, r0 = mrr_half_step(ctx, A, b, x0)
@@ -105,7 +107,7 @@ def adaptivekskipmrr_kernel(
         record(live, take(res, live))
         # non-finite counts as rose: NaN compares false, and a blow-up inside
         # an outer step would otherwise be accepted for good
-        flags = torch.stack([(res > pre_res) | ~torch.isfinite(res), res < tol_t], -1).reshape(nb, 2).cpu().numpy()
+        flags = guard_read(torch.stack([(res > pre_res) | ~torch.isfinite(res), res < tol_t], -1).reshape(nb, 2))
         rose, accept = live[flags[live, 0]], live[~flags[live, 0]]
         if accept.size:
             conv[accept] = flags[accept, 1]
@@ -120,7 +122,8 @@ def adaptivekskipmrr_kernel(
             record(rose, res_n)
             ntrace[rose, index[rose]] = i[rose]
             ktrace[rose, index[rose]] = kk[rose]
-            conv[rose] = (res_n < tol_t).reshape(-1).cpu().numpy()
+            with tracing.host_read():
+                conv[rose] = (res_n < tol_t).reshape(-1).cpu().numpy()
         stepping = live[~conv[live]]
         for kv in np.unique(kk[stepping]):
             g = stepping[kk[stepping] == kv]

@@ -56,6 +56,7 @@ from krylov_tpu_torch.solvers._common import (
     SolveResult,
     bcast,
     carried,
+    guard_read,
     record_final,
     safe_div,
     scalar_dtype_of,
@@ -226,7 +227,7 @@ class _Outer:
         if not whole:  # a frozen member keeps its best iterate
             better &= self.rows(np.isin(np.arange(nb), live))
         x_best, res_best = tree_select(better, (x, res), (x_best, res_best))
-        bad_h, conv_h = torch.stack((bad, res < tol)).cpu().numpy().reshape(2, nb)
+        bad_h, conv_h = guard_read(torch.stack((bad, res < tol))).reshape(2, nb)
         self.conv[live] = conv_h[live]
         step = live[~conv_h[live]]
         self.i[step] += s

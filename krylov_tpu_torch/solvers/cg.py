@@ -22,7 +22,6 @@ import torch
 
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
-    SYNC_EVERY,
     SolveResult,
     carried,
     record_final,
@@ -30,6 +29,7 @@ from krylov_tpu_torch.solvers._common import (
     scalar_dtype_of,
     scale,
     set_at,
+    synced_done,
     tree_select,
 )
 
@@ -67,7 +67,7 @@ def cg_kernel(
 
         x, r, p, gamma = tree_select(conv, (x, r, p, gamma), (x_n, r_n, p_n, gamma_n))
         i = i + (~conv).to(i.dtype)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
+        if synced_done(step, conv):
             break
 
     record_final(trace, i, conv, torch.sqrt(gamma) / b_norm)

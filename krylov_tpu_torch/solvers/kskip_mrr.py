@@ -27,9 +27,9 @@ from typing import Optional
 
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
-    SYNC_EVERY,
     SolveResult,
     bcast,
     carried,
@@ -39,6 +39,7 @@ from krylov_tpu_torch.solvers._common import (
     scalar_dtype_of,
     scale,
     set_at,
+    synced_done,
     tree_select,
 )
 from krylov_tpu_torch.solvers.kskip_cg import inv_pow2, scaled_gram
@@ -151,7 +152,7 @@ def kskipmrr_kernel(
         raise ValueError(f"k must be >= 0, got {k}")
     dev = b.device
     sdt = scalar_dtype_of(ctx, b)
-    tol_t = torch.as_tensor(tol, dtype=b.dtype, device=dev)
+    tol_t = tracing.scalar_on(tol, b.dtype, dev)
     b_norm = ctx.norm(b) if b_norm is None else b_norm
 
     # index grows by 1 an outer iteration, i by k+1; both start at 1 (0
@@ -181,7 +182,7 @@ def kskipmrr_kernel(
         i = torch.where(conv, i, i + (k + 1))
         index = torch.where(conv, index, index + 1)
         set_at(ntrace, index, i, keep=conv)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
+        if synced_done(step, conv):
             break
 
     x, r = state[0], state[1]

@@ -19,7 +19,6 @@ import torch
 
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
-    SYNC_EVERY,
     SolveResult,
     bcast,
     carried,
@@ -28,6 +27,7 @@ from krylov_tpu_torch.solvers._common import (
     scalar_dtype_of,
     scale,
     set_at,
+    synced_done,
     tree_select,
 )
 
@@ -81,7 +81,7 @@ def mrr_kernel(
 
         x, r, y, z = tree_select(conv, (x, r, y, z), (x_n, r_n, y_n, z_n))
         i = i + (~conv).to(i.dtype)
-        if step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all()):
+        if synced_done(step, conv):
             break
 
     record_final(trace, i, conv, ctx.norm(r) / b_norm)

@@ -20,13 +20,13 @@ import torch
 
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
-    SYNC_EVERY,
     SolveResult,
     record_final,
     safe_div,
     scalar_dtype_of,
     scale,
     set_at,
+    synced_done,
     tree_select,
 )
 
@@ -56,10 +56,6 @@ def _finish(ctx, b_norm, maxiter, x, r, i, conv, trace) -> SolveResult:
     )
 
 
-def _synced_done(step: int, conv: torch.Tensor) -> bool:
-    return step % SYNC_EVERY == SYNC_EVERY - 1 and bool(conv.all())
-
-
 def pcg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEFAULT_CONTEXT) -> SolveResult:
     """Preconditioned CG; with ``M=None`` the same bits as
     :func:`~krylov_tpu_torch.solvers.cg.cg_kernel`."""
@@ -85,7 +81,7 @@ def pcg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEFAU
 
         x, r, u, p, ru = tree_select(conv, (x, r, u, p, ru), (x_n, r_n, u_n, p_n, ru_n))
         i = i + (~conv).to(i.dtype)
-        if _synced_done(step, conv):
+        if synced_done(step, conv):
             break
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
@@ -132,7 +128,7 @@ def chronopoulos_gear_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None,
             conv, (x, r, u, w, p, s, gamma, alpha, beta), (x_n, r_n, u_n, w_n, p_n, s_n, gamma_n, alpha_n, beta_n))
         i = i + (~conv).to(i.dtype)
         conv = conv | conv_n
-        if _synced_done(step, conv):
+        if synced_done(step, conv):
             break
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
@@ -169,7 +165,7 @@ def gropp_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEF
         x, r, u, p, s, gamma = tree_select(conv, (x, r, u, p, s, gamma), (x_n, r_n, u_n, p_n, s_n, gamma_n))
         i = i + (~conv).to(i.dtype)
         conv = conv | conv_n
-        if _synced_done(step, conv):
+        if synced_done(step, conv):
             break
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
@@ -228,6 +224,6 @@ def pipelined_cg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Contex
         x, r, u, w, zv, q, s, p, gamma, alpha = tree_select(
             conv, (x, r, u, w, zv, q, s, p, gamma, alpha), (x_n, r_n, u_n, w_n, z_n, q_n, s_n, p_n, gamma_n, alpha_n))
         i = i + (~conv).to(i.dtype)
-        if _synced_done(step, conv):
+        if synced_done(step, conv):
             break
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)

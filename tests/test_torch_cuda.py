@@ -48,6 +48,29 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw, reads", [
+    # the b = 0 test and the launch's tol (a host number's copy to the card
+    # synchronises the stream)
+    (dict(method="mrr"), 2),
+    # and restarts= tol and its decision; the defect's launch takes a device tol
+    (dict(method="mrr", restarts=1), 4),
+    (dict(method="adaptivekskipmrr", k=4), 2),
+])
+def test_front_door_host_reads_on_the_card(cuda, kw, reads):
+    """The host reads (krylov_tpu_torch.tracing) of a fused solve on the card."""
+    from krylov_tpu_torch import tracing
+
+    A = fixtures.laplace2d(24, constant=True, dtype=torch.float64, device=cuda)
+    b = _rhs(A.shape[0], 3, cuda, torch.float64)
+    krylov_tpu_torch.solve_device(A, b, tol=1e-8, **kw)  # K1's weights are read once an operator
+    before = (tracing.totals.host_read.calls, tracing.totals.launch.calls)
+    res = krylov_tpu_torch.solve_device(A, b, tol=1e-8, **kw)
+    assert bool(res.converged)
+    assert tracing.totals.host_read.calls - before[0] == reads
+    assert tracing.totals.launch.calls - before[1] >= 1
+
+
 def _rhs(n, seed, device, dtype=torch.float64):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(n)).to(device, dtype)
 

@@ -2,7 +2,9 @@
 krylov_tpu.diagnostics.profiling, on the CPU.
 
 trace_solve writes a Chrome/Perfetto trace into its directory and returns
-solve's own (x, info), bitwise; phase_times returns the JAX package's keys
+solve's own (x, info), bitwise, the trace holding the program's spans
+(``krylov.solve``, ``krylov.plan``, ``krylov.host_read``, the loop's);
+phase_times returns the JAX package's keys
 and, on the same float64 system, its iteration count.  A CUDA device asks
 the profiler for the CUDA activity (read here from the arguments the
 profiler is given; on the card tests/test_torch_cuda.py reads the kernels'
@@ -51,6 +53,10 @@ def test_trace_solve_writes_a_trace_and_returns_the_solve(tmp_path, method, kw):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names), "no torch op in the trace"
+    # the program's spans (krylov_tpu_torch.tracing) as user annotations
+    loop = "krylov.run_fused" if method == "mrr" else "krylov.eager_loop"
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("krylov.")}
+    assert {"krylov.solve", "krylov.plan", "krylov.host_read", loop} <= spans
 
 
 def test_trace_yields_the_profiler(tmp_path):
