@@ -1773,8 +1773,10 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     trace whose kernel events name the resident K2 kernel, and a
     warm-started one (x0 = half the first solve's x) names K1 beside it,
     each on its first try; ``phase_times`` returns its five keys with 934
-    iterations.  Prints each trace's kernel names with their summed device
-    µs.  Returns the phase's launches of K1 and of K2 on each route."""
+    iterations; :func:`graph_k1_check` holds K1's counter on the eager
+    loops' graph route against the profiler's kernel records.  Prints each
+    trace's kernel names with their summed device µs.  Returns the phase's
+    launches of K1 and of K2 on each route."""
     import glob
     import os
 
@@ -1814,12 +1816,47 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     keys = {"compile_plus_first_solve_s", "solve_s", "fetch_s", "iterations", "converged"}
     if set(pt) != keys or pt["iterations"] != 934 or not pt["converged"]:
         failures.append(f"phase_times: {pt}")
+    graph_k1_check(A, b_np, stencil, failures)
     for f in failures:
         phase(f"  FAILED: {f}")
     raise_failures("phase 18", failures)
     launches = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches}
     launches.update(route_counts(counted[1:]))
     return launches
+
+
+def graph_k1_check(A, b_np, stencil, failures: list) -> None:
+    """18b. The eager loops' graph route on the main-path system: pcg
+    (M = None, float64) three times on one operator, the first capturing
+    its block after the warm-up block and the others replaying every block,
+    each request under torch.profiler.  A replay adds to K1's launch counter
+    the calls its capture recorded (the capture adds nothing), so in each
+    profile the counter must move by K1's kernel records, and the requests
+    must replay."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import krylov_tpu_torch
+    from krylov_tpu_torch import tracing
+
+    b = torch.from_numpy(b_np).to(A.device, A.dtype)
+    g = tracing.totals.eager_graph
+    for run in ("capture", "replay", "replay"):
+        torch.cuda.synchronize()
+        k1, captures, replays = stencil.stencil_matvec_2d.launches, g.captures, g.replays
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = krylov_tpu_torch.solve_device(A, b, method="pcg", tol=TOL, maxiter=MAXITER)
+            torch.cuda.synchronize()
+        counted = stencil.stencil_matvec_2d.launches - k1
+        recorded = sum(evt.count for evt in prof.key_averages()
+                       if "stencil2d_kernel" in evt.key and evt.device_type == DeviceType.CUDA)
+        captures, replays = g.captures - captures, g.replays - replays
+        phase(f"graph route pcg float64 N={NX * NX} ({run}): iterations {int(res.iterations)}, captures "
+              f"{captures}, replays {replays}; K1 counted {counted}, K1 kernel records {recorded}")
+        if counted != recorded or replays < 1 or captures != (run == "capture"):
+            failures.append(f"graph route pcg ({run}): K1 counted {counted}, kernel records {recorded}, "
+                            f"captures {captures}, replays {replays}")
 
 
 def profiling_child(tmp: str) -> int:

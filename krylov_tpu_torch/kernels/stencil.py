@@ -179,11 +179,17 @@ def stencil_matvec_2d(
         with torch.cuda.device(index):
             err = lib.krylov_stencil2d(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(err, "stencil_matvec_2d")
-    stencil_matvec_2d.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        stencil_matvec_2d.captured += 1  # recorded into a CUDA graph: its replays launch it
+    else:
+        stencil_matvec_2d.launches += 1
     return y
 
 
+# launches made, and calls recorded into a CUDA graph (the eager loops' graph
+# route adds a graph's recorded calls to ``launches`` at each replay)
 stencil_matvec_2d.launches = 0
+stencil_matvec_2d.captured = 0
 
 
 def stencil_matvec(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:

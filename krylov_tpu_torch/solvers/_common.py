@@ -11,6 +11,15 @@ The convergence flag stays on the device.  The host reads it only every
 (and rewrite the same trace slot with the same value), so the result is the
 same as a loop that stops at once.
 
+:func:`run_bodies` drives a loop whose body is a function ``state ->
+state``.  On the card it replays each block of :data:`SYNC_EVERY` bodies as
+one captured CUDA graph where a capture pays back (a long solve, or an
+operator that comes back; :func:`graph_route` and :func:`run_bodies` say
+when), so a block costs one graph launch and its one read in place of some
+thousands of launches made from Python; elsewhere it runs the bodies one by
+one.  Both routes launch the same kernels in the same order, so they give
+the same bits.
+
 The helpers take a leading batch axis (vectors ``(batch, n)``, scalars and
 counters ``(batch,)``, traces ``(batch, L)``), so a loop written for one
 system runs a batch as a ``vmap``-ped ``lax.while_loop`` does: every member
@@ -20,14 +29,23 @@ own.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+import weakref
 from typing import Optional
 
 import torch
 
 from krylov_tpu_torch import tracing
+from krylov_tpu_torch.context import Context
+from krylov_tpu_torch.precond import ChebyshevPreconditioner
+from krylov_tpu_torch.sparse.formats import _CONTAINERS
 
 SYNC_EVERY = 32
+# captured blocks kept, least recently used dropped first (each holds its
+# graph's memory pool and one copy of its loop's state)
+GRAPHS_KEPT = 8
 
 
 def bcast(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -42,16 +60,284 @@ def tree_select(pred: torch.Tensor, on_true, on_false) -> tuple:
     return tuple(torch.where(bcast(pred, a), a, b) for a, b in zip(on_true, on_false))
 
 
+def all_converged(conv: torch.Tensor) -> bool:
+    """Whether every member has converged: one
+    :func:`~krylov_tpu_torch.tracing.host_read`."""
+    with tracing.host_read():
+        return bool(conv.all())
+
+
 def synced_done(step: int, conv: torch.Tensor) -> bool:
     """The end of an eager loop's body ``step``: counted in
     ``tracing.totals.eager_bodies``; every :data:`SYNC_EVERY` bodies the
-    host reads whether every member has converged (one
-    :func:`~krylov_tpu_torch.tracing.host_read`)."""
+    host reads whether every member has converged (:func:`all_converged`)."""
     tracing.totals.eager_bodies.calls += 1
-    if step % SYNC_EVERY != SYNC_EVERY - 1:
-        return False
-    with tracing.host_read():
-        return bool(conv.all())
+    return step % SYNC_EVERY == SYNC_EVERY - 1 and all_converged(conv)
+
+
+def graph_route(ctx: Context, state: tuple, steps: int) -> bool:
+    """Whether :func:`run_bodies` tries the graph route: every tensor of
+    the state on the card (a capture would take a CPU scalar's value as a
+    constant), a single-process ``ctx`` (a sharded loop's collectives stay
+    eager), a stream not already capturing, and at least one block of
+    :data:`SYNC_EVERY` steps to run."""
+    return (steps >= SYNC_EVERY and ctx.group is None
+            and all(t.is_cuda for t in state if isinstance(t, torch.Tensor))
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def run_bodies(body, state: tuple, steps: int, ctx: Context) -> tuple:
+    """Run up to ``steps`` bodies ``state = body(state)`` of an eager loop
+    and return the last state.
+
+    ``state`` ends with ``conv`` (a bool per member); after every
+    :data:`SYNC_EVERY`-th body the host reads it, as :func:`synced_done`
+    does, and the loop stops once every member has converged.  Its other
+    entries are tensors, or plain numbers the body reads (``tol``), which it
+    returns unchanged.  The body reads every tensor of the request from the
+    state, and nothing from its closure but the package's own operators and
+    preconditioners, the context and plain numbers.
+
+    On the card (:func:`graph_route`) full blocks of :data:`SYNC_EVERY`
+    bodies replay one CUDA graph, kept under a key (:func:`_block_key`)
+    that names the current stream.  A key's first block in a request that
+    has no graph runs eagerly on a side stream, as torch's warm-up before a
+    capture (it also fills K1's parameter cache, whose miss is a host read).
+    The capture follows it where it can pay back: where two full blocks are
+    left (a long solve), or one is and the key has come back (a repeated
+    operator).  The request's state is copied into the graph's static
+    buffers at the start and out of them at the end, so that a result never
+    aliases them.  The last ``steps % SYNC_EVERY`` bodies run eagerly, so a
+    replay never runs a body past ``steps``.  A request whose block another
+    thread's request holds, or that would warm up while another thread
+    captures, runs eagerly."""
+    step = 0
+    if graph_route(ctx, state, steps):
+        with torch.cuda.device(state[-1].device):
+            step, state, done = _replay_blocks(body, state, steps)
+        if done:
+            return state
+    for step in range(step, steps):
+        state = body(state)
+        if synced_done(step, state[-1]):
+            break
+    return state
+
+
+class _Block:
+    """A key's entry: weak references to the operators the key names, the
+    lock its request holds, whether a request has warmed it up, and once
+    captured its graph's replay, its static state and the K1 launches of
+    one replay."""
+
+    __slots__ = ("held", "busy", "seen", "replay", "static", "launches")
+
+    def __init__(self, held):
+        self.held, self.busy, self.seen = held, threading.Lock(), False
+        self.replay, self.static, self.launches = None, None, 0
+
+
+_BLOCKS: collections.OrderedDict = collections.OrderedDict()
+_LOCK = threading.Lock()  # the cache's entries and their order
+_CAPTURE = threading.Lock()  # one warm-up and capture at a time: they share the side stream
+_SIDE: dict = {}  # device -> the side stream of warm-ups and captures
+_OPERATORS = (*_CONTAINERS, ChebyshevPreconditioner)
+
+
+def _plain(v) -> bool:
+    return v is None or isinstance(v, (bool, int, float, str, torch.dtype)) or (
+        isinstance(v, tuple) and all(_plain(u) for u in v))
+
+
+def _fingerprint(obj):
+    """What a key holds of an operator in a body's closure: its type and,
+    field by field, a plain value, a tensor's identity and version (an
+    operator changed in place is a new key, since K1 takes constant weights
+    as kernel arguments) or a nested operator's fingerprint.  None where the
+    object, or one it holds, is not one of the package's own frozen
+    containers and preconditioners: another object's ``matvec`` may read
+    state that changes between requests, or wait for the card."""
+    if not isinstance(obj, _OPERATORS):
+        return None
+    parts = [type(obj)]
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            parts.append((id(v), v._version))
+        elif _plain(v):
+            parts.append(v)
+        else:
+            nested = _fingerprint(v)
+            if nested is None:
+                return None
+            parts.append((id(v), nested))
+    return tuple(parts)
+
+
+def _block_key(body, state: tuple):
+    """``(key, held)``: the key of ``body``'s block on ``state`` (the body's
+    code; the device and its current stream, on which the replays, copies
+    and clones run in order; the plain values of the closure, ``ctx``'s
+    among them; the identity and fingerprint of each operator there, which
+    ``held`` lists; the state's shapes, strides and dtypes and its plain
+    numbers), or ``(None, None)`` where the closure holds an object that is
+    not one of the package's operators.  Every part compares in C, so a
+    weak reference's callback may drop a key while another thread looks
+    one up."""
+    device = state[-1].device
+    parts, held = [body.__code__, device, torch.cuda.current_stream(device).cuda_stream], []
+    for cell in body.__closure__ or ():
+        v = cell.cell_contents
+        if isinstance(v, torch.Tensor):
+            raise TypeError(f"{body.__qualname__} reads a tensor from its closure: a replay would read the "
+                            "capture's tensor; pass it in the state")
+        if isinstance(v, Context):
+            parts.append((Context, v.axis, v.scalar_dtype))
+        elif _plain(v):
+            parts.append(v)
+        else:
+            found = _fingerprint(v)
+            if found is None:
+                return None, None
+            held.append(v)
+            parts.append((id(v), found))
+    for t in state:
+        parts.append((tuple(t.shape), t.stride(), t.dtype) if isinstance(t, torch.Tensor) else t)
+    return tuple(parts), held
+
+
+def _k1():
+    from krylov_tpu_torch.kernels import stencil
+
+    return stencil.stencil_matvec_2d
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    side = _SIDE.get(device)
+    if side is None:
+        side = _SIDE[device] = torch.cuda.Stream(device)
+    return side
+
+
+def _record(fn, device):
+    """``fn`` captured as a CUDA graph on the side stream of ``device``
+    (the one that ran the warm-up); returns the graph's replay.  The
+    capture is begun and ended directly, without the synchronisation,
+    ``gc.collect`` and emptied allocator cache of ``torch.cuda.graph``:
+    nothing runs while it records."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(_side_stream(device)):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    return graph.replay
+
+
+def _capture(block: _Block, body, state: tuple) -> None:
+    """Capture :data:`SYNC_EVERY` bodies into ``block`` from static copies
+    of ``state``, ending with the copy of the last body's state back into
+    them."""
+    static = tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in state)
+
+    def run():
+        out = static
+        for _ in range(SYNC_EVERY):
+            out = body(out)
+        for dst, src in zip(static, out):
+            if isinstance(dst, torch.Tensor) and src is not dst:
+                if any(src is t for t in static):
+                    raise ValueError(f"{body.__qualname__} moves a state entry to another slot")
+                dst.copy_(src)
+
+    # K1's wrapper counts what it records into a graph apart from what it
+    # launches; each replay launches what the capture recorded (no body on
+    # one process calls a fused wrapper)
+    k1 = _k1()
+    before = k1.captured
+    block.replay = _record(run, state[-1].device)
+    block.static, block.launches = static, k1.captured - before
+    tracing.totals.eager_graph.captures += 1
+
+
+def _entry(key, held) -> _Block:
+    """The cache's entry for ``key`` (made, or moved to the recent end),
+    under ``_LOCK``; a new one may push the least recently used out."""
+    block = _BLOCKS.get(key)
+    if block is not None and all(ref() is obj for ref, obj in zip(block.held, held)):
+        _BLOCKS.move_to_end(key)
+        return block
+
+    def drop(_, key=key, blocks=_BLOCKS):  # the cache itself: the module may be gone when it runs
+        blocks.pop(key, None)
+
+    block = _BLOCKS[key] = _Block([weakref.ref(obj, drop) for obj in held])
+    while len(_BLOCKS) > GRAPHS_KEPT:
+        _BLOCKS.popitem(last=False)
+    return block
+
+
+def _replay_blocks(body, state: tuple, steps: int):
+    """The graph route of :func:`run_bodies`: its full blocks, as
+    ``(steps run, state, done)``, none where the block has no key or is in
+    use by another thread's request."""
+    key, held = _block_key(body, state)
+    if key is None:
+        return 0, state, False
+    with _LOCK:
+        block = _entry(key, held)
+        if not block.busy.acquire(blocking=False):
+            return 0, state, False
+    try:
+        if block.replay is None:
+            return _warm_up(block, body, state, steps)
+        for dst, src in zip(block.static, state):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        return _replays(block, 0, steps)
+    finally:
+        block.busy.release()
+
+
+def _warm_up(block: _Block, body, state: tuple, steps: int):
+    """A block of bodies run eagerly on the side stream, then the capture
+    where it pays back (:func:`run_bodies`) and the replays left."""
+    if not _CAPTURE.acquire(blocking=False):
+        return 0, state, False
+    try:
+        main, side = torch.cuda.current_stream(), _side_stream(state[-1].device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for step in range(SYNC_EVERY):
+                state = body(state)
+                done = synced_done(step, state[-1])
+        main.wait_stream(side)
+        blocks_left = (steps - SYNC_EVERY) // SYNC_EVERY
+        if done or blocks_left < (1 if block.seen else 2):
+            block.seen = True
+            return SYNC_EVERY, state, done
+        _capture(block, body, state)
+    finally:
+        _CAPTURE.release()
+    return _replays(block, SYNC_EVERY, steps)
+
+
+def _replays(block: _Block, step: int, steps: int):
+    """Replay ``block`` from step ``step`` while a full block is left and
+    not every member has converged; returns ``(steps run, a copy of the
+    static state, done)``."""
+    static, g = block.static, tracing.totals.eager_graph
+    done = False
+    while not done and steps - step >= SYNC_EVERY:
+        block.replay()
+        step += SYNC_EVERY
+        g.replays += 1
+        g.bodies += SYNC_EVERY
+        tracing.totals.eager_bodies.calls += SYNC_EVERY
+        _k1().launches += block.launches
+        done = all_converged(static[-1])
+    return step, tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in static), done
 
 
 def guard_read(flags: torch.Tensor):

@@ -25,11 +25,11 @@ from krylov_tpu_torch.solvers._common import (
     SolveResult,
     carried,
     record_final,
+    run_bodies,
     safe_div,
     scalar_dtype_of,
     scale,
     set_at,
-    synced_done,
     tree_select,
 )
 
@@ -53,7 +53,9 @@ def cg_kernel(
     trace = torch.zeros(batch + (maxiter + 1,), dtype=scalar_dtype_of(ctx, b), device=dev)
     i = torch.zeros(batch, dtype=torch.int64, device=dev)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for step in range(maxiter):
+
+    def body(state):
+        tol, b_norm, x, r, p, gamma, trace, i, conv = state
         res = torch.sqrt(gamma) / b_norm
         set_at(trace, i, res)
         conv = res < tol
@@ -67,9 +69,10 @@ def cg_kernel(
 
         x, r, p, gamma = tree_select(conv, (x, r, p, gamma), (x_n, r_n, p_n, gamma_n))
         i = i + (~conv).to(i.dtype)
-        if synced_done(step, conv):
-            break
+        return tol, b_norm, x, r, p, gamma, trace, i, conv
 
+    *_, x, r, p, gamma, trace, i, conv = run_bodies(body, (tol, b_norm, x, r, p, gamma, trace, i, conv), maxiter,
+                                                    ctx)
     record_final(trace, i, conv, torch.sqrt(gamma) / b_norm)
     return SolveResult(
         x=x,

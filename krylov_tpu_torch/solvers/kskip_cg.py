@@ -35,11 +35,11 @@ from krylov_tpu_torch.solvers._common import (
     carried,
     pow2_scale,
     record_final,
+    run_bodies,
     safe_div,
     scalar_dtype_of,
     scale,
     set_at,
-    synced_done,
     tree_select,
 )
 
@@ -112,7 +112,9 @@ def kskipcg_kernel(
     index = torch.zeros(batch, dtype=torch.int64, device=dev)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
     K = k + 1  # offset of the Ap block in the stacked basis
-    for step in range(max_outer):
+
+    def body(state):
+        tol_t, b_norm, x, r, p, rtrace, ntrace, i, index, conv = state
         if basis_norm:
             # 1 + 2k SpMVs, as the raw chains; the rescaled Gram equals the
             # Gram of the true bases exactly
@@ -162,8 +164,10 @@ def kskipcg_kernel(
         i = torch.where(conv, i, i + (k + 1))
         index = torch.where(conv, index, index + 1)
         set_at(ntrace, index, i, keep=conv)
-        if synced_done(step, conv):
-            break
+        return tol_t, b_norm, x, r, p, rtrace, ntrace, i, index, conv
+
+    *_, x, r, p, rtrace, ntrace, i, index, conv = run_bodies(
+        body, (tol_t, b_norm, x, r, p, rtrace, ntrace, i, index, conv), max_outer, ctx)
 
     record_final(rtrace, index, conv, ctx.norm(r) / b_norm)
     return SolveResult(

@@ -35,11 +35,11 @@ from krylov_tpu_torch.solvers._common import (
     carried,
     pow2_scale,
     record_final,
+    run_bodies,
     safe_div,
     scalar_dtype_of,
     scale,
     set_at,
-    synced_done,
     tree_select,
 )
 from krylov_tpu_torch.solvers.kskip_cg import inv_pow2, scaled_gram
@@ -173,7 +173,9 @@ def kskipmrr_kernel(
     i = torch.full(batch, i0, dtype=torch.int64, device=dev)
     index = torch.full(batch, i0, dtype=torch.int64, device=dev)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for step in range(max(0, -(-(maxiter - i0) // (k + 1)))):  # while i < maxiter
+
+    def body(loop):
+        tol_t, b_norm, *state, rtrace, ntrace, i, index, conv = loop
         alpha0, new = kskipmrr_outer(ctx, A, k, basis_norm, state)
         res = torch.sqrt(alpha0) / b_norm
         set_at(rtrace, index, res)
@@ -182,8 +184,11 @@ def kskipmrr_kernel(
         i = torch.where(conv, i, i + (k + 1))
         index = torch.where(conv, index, index + 1)
         set_at(ntrace, index, i, keep=conv)
-        if synced_done(step, conv):
-            break
+        return tol_t, b_norm, *state, rtrace, ntrace, i, index, conv
+
+    outer = max(0, -(-(maxiter - i0) // (k + 1)))  # while i < maxiter
+    _, _, *state, rtrace, ntrace, i, index, conv = run_bodies(
+        body, (tol_t, b_norm, *state, rtrace, ntrace, i, index, conv), outer, ctx)
 
     x, r = state[0], state[1]
     record_final(rtrace, index, conv, ctx.norm(r) / b_norm)

@@ -23,11 +23,11 @@ from krylov_tpu_torch.solvers._common import (
     bcast,
     carried,
     record_final,
+    run_bodies,
     safe_div,
     scalar_dtype_of,
     scale,
     set_at,
-    synced_done,
     tree_select,
 )
 
@@ -61,7 +61,9 @@ def mrr_kernel(
 
     i = torch.full(batch, i0, dtype=torch.int64, device=dev)
     conv = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for step in range(maxiter - i0):
+
+    def body(state):
+        tol, b_norm, x, r, y, z, trace, i, conv = state
         Ar = ctx.matvec(A, r)
         rr, mu, nu = ctx.dot_bundle([(r, r), (y, y), (y, Ar)])
         res = torch.sqrt(rr) / b_norm
@@ -81,9 +83,9 @@ def mrr_kernel(
 
         x, r, y, z = tree_select(conv, (x, r, y, z), (x_n, r_n, y_n, z_n))
         i = i + (~conv).to(i.dtype)
-        if synced_done(step, conv):
-            break
+        return tol, b_norm, x, r, y, z, trace, i, conv
 
+    *_, x, r, y, z, trace, i, conv = run_bodies(body, (tol, b_norm, x, r, y, z, trace, i, conv), maxiter - i0, ctx)
     record_final(trace, i, conv, ctx.norm(r) / b_norm)
     return SolveResult(
         x=x,

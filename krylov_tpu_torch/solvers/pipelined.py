@@ -8,7 +8,10 @@ operator (a container, a :class:`~krylov_tpu_torch.precond.ChebyshevPrecondition
 or None, applied through ``ctx.matvec``.  Each loop keeps the JAX
 package's per-iteration state and its freeze once converged, and reads
 convergence on the host every :data:`~krylov_tpu_torch.solvers._common.SYNC_EVERY`
-iterations.  Chronopoulos–Gear and Gropp still move ``x``, ``r`` and the
+iterations.  Preconditioned CG, Chronopoulos–Gear and Gropp run their
+bodies through :func:`~krylov_tpu_torch.solvers._common.run_bodies` (a CUDA
+graph a block on the card); pipelined CG keeps its own loop, since it reads
+its residual replacement from the host's step.  Chronopoulos–Gear and Gropp still move ``x``, ``r`` and the
 counter on the step that converges, as the JAX package's loops do, so once
 a member has converged, every later body keeps all of its state.  ``b`` and
 ``x0`` may carry a leading batch axis, as in :mod:`krylov_tpu_torch.solvers.cg`.
@@ -22,6 +25,7 @@ from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
 from krylov_tpu_torch.solvers._common import (
     SolveResult,
     record_final,
+    run_bodies,
     safe_div,
     scalar_dtype_of,
     scale,
@@ -66,7 +70,9 @@ def pcg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEFAU
     p = u
     ru = ctx.dot(r, u)
     trace, i, conv = _start(b, maxiter, scalar_dtype_of(ctx, b))
-    for step in range(maxiter):
+
+    def body(state):
+        tol, b_norm, x, r, u, p, ru, trace, i, conv = state
         res = torch.sqrt(ctx.dot(r, r)) / b_norm
         set_at(trace, i, res)
         conv = res < tol
@@ -81,8 +87,10 @@ def pcg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEFAU
 
         x, r, u, p, ru = tree_select(conv, (x, r, u, p, ru), (x_n, r_n, u_n, p_n, ru_n))
         i = i + (~conv).to(i.dtype)
-        if synced_done(step, conv):
-            break
+        return tol, b_norm, x, r, u, p, ru, trace, i, conv
+
+    *_, x, r, u, p, ru, trace, i, conv = run_bodies(body, (tol, b_norm, x, r, u, p, ru, trace, i, conv), maxiter,
+                                                    ctx)
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
 
@@ -107,7 +115,9 @@ def chronopoulos_gear_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None,
     # the loop tests the residual after each step; r0 is tested here, so a
     # start already below tol keeps x0 and takes no step
     conv = trace[..., 0] < tol
-    for step in range(maxiter):
+
+    def body(state):
+        tol, b_norm, x, r, u, w, p, s, gamma, alpha, beta, trace, i, conv = state
         p_n = u + scale(beta, p)
         s_n = w + scale(beta, s)
         x_n = x + scale(alpha, p_n)
@@ -128,8 +138,10 @@ def chronopoulos_gear_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None,
             conv, (x, r, u, w, p, s, gamma, alpha, beta), (x_n, r_n, u_n, w_n, p_n, s_n, gamma_n, alpha_n, beta_n))
         i = i + (~conv).to(i.dtype)
         conv = conv | conv_n
-        if synced_done(step, conv):
-            break
+        return tol, b_norm, x, r, u, w, p, s, gamma, alpha, beta, trace, i, conv
+
+    *_, x, r, u, w, p, s, gamma, alpha, beta, trace, i, conv = run_bodies(
+        body, (tol, b_norm, x, r, u, w, p, s, gamma, alpha, beta, trace, i, conv), maxiter, ctx)
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
 
@@ -145,7 +157,9 @@ def gropp_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEF
     gamma = ctx.dot(r, u)
     trace, i, conv = _start(b, maxiter, scalar_dtype_of(ctx, b))
     trace[..., 0] = ctx.norm(r) / b_norm
-    for step in range(maxiter):
+
+    def body(state):
+        tol, b_norm, x, r, u, p, s, gamma, trace, i, conv = state
         delta = ctx.dot(p, s)
         q = _apply_M(ctx, M, s)
         alpha = safe_div(gamma, delta)
@@ -165,8 +179,10 @@ def gropp_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEF
         x, r, u, p, s, gamma = tree_select(conv, (x, r, u, p, s, gamma), (x_n, r_n, u_n, p_n, s_n, gamma_n))
         i = i + (~conv).to(i.dtype)
         conv = conv | conv_n
-        if synced_done(step, conv):
-            break
+        return tol, b_norm, x, r, u, p, s, gamma, trace, i, conv
+
+    *_, x, r, u, p, s, gamma, trace, i, conv = run_bodies(
+        body, (tol, b_norm, x, r, u, p, s, gamma, trace, i, conv), maxiter, ctx)
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
 

@@ -41,8 +41,11 @@ The spans of the solve path:
 - ``all_reduce``, ``halo``: a collective and a sharded SpMV's exchange.
 
 ``totals.eager_bodies.calls`` counts the eager loop bodies run, frozen
-ones included.  The totals are plain integers, cumulative from import;
-read the difference of two readings.  The spans keep their stack per
+ones included, those replayed in a CUDA graph too.  ``totals.eager_graph``
+counts the graph route of :func:`krylov_tpu_torch.solvers._common.run_bodies`:
+``captures`` (blocks of ``SYNC_EVERY`` bodies captured), ``replays`` and
+``bodies`` (the bodies run inside replays).  The totals are plain
+integers, cumulative from import; read the difference of two readings.  The spans keep their stack per
 thread; the totals are shared and not locked.
 """
 
@@ -69,9 +72,18 @@ class Total:
         self.calls = self.total_ns = self.self_ns = self.read_ns = 0
 
 
+class GraphTotal:
+    """The totals of the eager loops' graph route (``eager_graph``)."""
+
+    __slots__ = ("captures", "replays", "bodies")
+
+    def __init__(self):
+        self.captures = self.replays = self.bodies = 0
+
+
 NAMES = ("solve_device", "solve", "solve_batched", "plan", "run_fused", "launch", "restarts", "eager_loop",
          "host_read", "all_reduce", "halo", "eager_bodies")
-totals = types.SimpleNamespace(**{name: Total() for name in NAMES})
+totals = types.SimpleNamespace(**{name: Total() for name in NAMES}, eager_graph=GraphTotal())
 
 _ids = itertools.count(1)
 
@@ -141,7 +153,11 @@ class request(span):
 
 
 def host_read() -> span:
-    """The span of one call that waits for the card."""
+    """The span of one call that waits for the card.  Raises while the
+    current CUDA stream captures a graph: a replay would not repeat the
+    wait, so a read there is a fault of the captured code."""
+    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host read inside a CUDA graph capture: the captured code must not wait for the card")
     return span("host_read")
 
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import krylov_tpu_torch
+from krylov_tpu_torch import precond as pc
 from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
 from krylov_tpu_torch.sparse import StencilMatrix, convert, fixtures, to_device
 
@@ -1054,3 +1055,304 @@ def test_degenerate_systems_on_cuda(cuda, method):
     assert x.is_cuda and bool((x == 0).all()) and info["converged"] and info["iterations"] == 0
     x, info = krylov_tpu_torch.solve(A, A.matvec(x0), method=method, x0=x0, k=k)
     assert torch.equal(x, x0) and info["converged"] and info["iterations"] <= 1
+
+
+# The eager loops on their block runner (solvers._common.run_bodies): on
+# the card a key's first block warms up, and the full blocks after it
+# replay one captured CUDA graph where two are left, or one and the key has
+# come back.  The graph route launches the eager route's
+# kernels in the eager route's order, so the two are held equal bit for bit
+# (the float bits compared as integers, so that a NaN equals itself); the
+# eager route is the runner with its rule declined.
+GRAPH_LOOPS = {
+    "cg": (krylov_tpu_torch.solvers.cg_kernel, lambda A: {}),
+    "mrr": (krylov_tpu_torch.solvers.mrr_kernel, lambda A: {}),
+    "kskipcg k=1": (krylov_tpu_torch.solvers.kskipcg_kernel, lambda A: {"k": 1}),
+    "kskipmrr k=1": (krylov_tpu_torch.solvers.kskipmrr_kernel, lambda A: {"k": 1}),
+    "pcg": (krylov_tpu_torch.solvers.pcg_kernel, lambda A: {}),
+    "pcg jacobi": (krylov_tpu_torch.solvers.pcg_kernel, lambda A: {"M": pc.jacobi(A)}),
+    "pcg chebyshev(6)": (krylov_tpu_torch.solvers.pcg_kernel, lambda A: {"M": pc.chebyshev(A, 6)}),
+    "chronopoulos_gear jacobi": (krylov_tpu_torch.solvers.chronopoulos_gear_kernel,
+                                 lambda A: {"M": pc.jacobi(A)}),
+    "gropp jacobi": (krylov_tpu_torch.solvers.gropp_kernel, lambda A: {"M": pc.jacobi(A)}),
+}
+GRAPH_CARRIES = ("cg", "mrr", "kskipcg k=1", "kskipmrr k=1")
+
+
+def _graph_counts() -> tuple:
+    """(bodies, host reads, K1 launches, captures, replays, bodies in replays)."""
+    from krylov_tpu_torch import tracing
+
+    g = tracing.totals.eager_graph
+    return (tracing.totals.eager_bodies.calls, tracing.totals.host_read.calls, stencil.stencil_matvec_2d.launches,
+            g.captures, g.replays, g.bodies)
+
+
+def _since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_graph_counts(), before))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()]) if t.is_floating_point() else t
+
+
+def _same_bits(a, b):
+    last = int(a.index.max())
+    pairs = [(a.x, b.x), (a.iterations, b.iterations), (a.index, b.index), (a.converged, b.converged),
+             (a.residual_trace[..., : last + 1], b.residual_trace[..., : last + 1])]
+    pairs += list(zip(a.carry, b.carry)) if a.carry is not None else []
+    for u, v in pairs:
+        assert torch.equal(_bits(u), _bits(v))
+
+
+@pytest.fixture
+def graph_blocks(cuda, monkeypatch):
+    """An empty cache of captured blocks for the test (freed after it)."""
+    import collections
+
+    from krylov_tpu_torch.solvers import _common
+
+    blocks = collections.OrderedDict()
+    monkeypatch.setattr(_common, "_BLOCKS", blocks)
+    return blocks
+
+
+def _graph_batch(A, seed, batch):
+    """``batch`` standard normal right-hand sides; with a batch, member 1
+    an eigenvector of the Laplacian, which converges inside the first block
+    and freezes while the others run."""
+    rng = np.random.default_rng(seed)
+    n = A.shape[0]
+    if batch is None:
+        return torch.from_numpy(rng.standard_normal(n)).to(A.coef.device, A.dtype)
+    B = rng.standard_normal((batch, n))
+    g = int(round(n**0.5))
+    s = np.sin(np.pi * np.arange(1, g + 1) / (g + 1))
+    B[1] = np.outer(s, s).reshape(-1)
+    return torch.from_numpy(B).to(A.coef.device, A.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 4])
+@pytest.mark.parametrize("tol, maxiter", [("tight", 400), (0.0, 154)], ids=["converging", "tail"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(GRAPH_LOOPS))
+def test_graph_route_equals_eager_route(graph_blocks, monkeypatch, name, dtype, tol, maxiter, batch):
+    """Each of the seven loops, solo and as a batch of 4, f64 and f32, on
+    ``laplace2d(24)``: three requests on one key with different ``b`` (the
+    first warms up and captures, or the second where the first leaves one
+    block after its warm-up; the last replays from its start) against the
+    eager route, bit for bit, with equal bodies, host reads and K1
+    launches; one capture in all.  ``tol = 0`` runs all 154 steps (77
+    outer iterations at k = 1): full blocks, then an eager tail.  The first
+    result is untouched by the later requests."""
+    from krylov_tpu_torch.solvers import _common
+
+    A = fixtures.laplace2d(24, constant=True, dtype=dtype, device="cuda")
+    fn, extra = GRAPH_LOOPS[name]
+    kw = dict(extra(A), tol={torch.float64: 1e-12, torch.float32: 1e-6}[dtype] if tol == "tight" else tol,
+              maxiter=maxiter)
+    if name in GRAPH_CARRIES:
+        kw["emit_carry"] = True
+    bs = [_graph_batch(A, seed, batch) for seed in (41, 42, 46)]
+    A.matvec(bs[0])  # K1's weights are read once an operator, before the counts
+    before = _graph_counts()
+    graph = [fn(A, b, torch.zeros_like(b), **kw) for b in bs]
+    on_graph = _since(before)
+    first_x = graph[0].x.clone()
+    with monkeypatch.context() as m:
+        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+        before = _graph_counts()
+        eager = [fn(A, b, torch.zeros_like(b), **kw) for b in bs]
+        on_eager = _since(before)
+    for g, e in zip(graph, eager):
+        _same_bits(g, e)
+    assert torch.equal(graph[0].x, first_x) and len({g.x.data_ptr() for g in graph}) == 3
+    assert on_graph[:3] == on_eager[:3] and on_eager[3:] == (0, 0, 0)
+    if on_graph[3]:
+        assert on_graph[3] == 1 and on_graph[4] >= 2 and on_graph[5] == 32 * on_graph[4]
+    else:  # converged at the warm-up's read in each request: nothing to replay
+        assert tol == "tight" and on_eager[0] <= len(bs) * 32
+
+
+@pytest.mark.cuda
+def test_graph_route_engages_on_the_pcg_cell_system(graph_blocks):
+    """The benchmark's host-bound system at a tenth of its grid (pcg,
+    Chebyshev(6), f64): after the first request every full block replays;
+    a later request's bodies all run in replays but its tail."""
+    A = fixtures.laplace2d(158, constant=True, device="cuda")
+    M = pc.chebyshev(A, 6)
+    for seed in (1, 2):
+        b = _rhs(A.shape[0], seed, "cuda")
+        before = _graph_counts()
+        res = krylov_tpu_torch.solve_device(A, b, method="pcg", M=M, tol=1e-5, maxiter=3000)
+        got = _since(before)
+    assert bool(res.converged) and got[3] == 0 and got[5] == 32 * got[4] >= got[0] - 31
+    assert got[2] == 7 * got[0] + 7  # K1: one SpMV and six in M a body, and the start's
+
+
+@pytest.mark.cuda
+def test_graph_route_new_operator_is_captured_anew(graph_blocks, monkeypatch):
+    """A new operator object of the same shape and coefficients doubled in
+    place, each a new key: neither replays another's graph, and each result
+    equals the eager route's on its own operator."""
+    from krylov_tpu_torch.solvers import _common
+
+    b = _graph_batch(fixtures.laplace2d(24, constant=True, device="cuda"), 43, None)
+    A1 = fixtures.laplace2d(24, constant=True, device="cuda")
+    kw = dict(tol=0.0, maxiter=96)
+    krylov_tpu_torch.solvers.cg_kernel(A1, b, torch.zeros_like(b), **kw)
+    A2 = fixtures.laplace2d(24, constant=True, device="cuda")
+    A2.coef.mul_(2.0)
+    A1.coef.mul_(2.0)
+    for A in (A2, A1):
+        before = _graph_counts()
+        got = krylov_tpu_torch.solvers.cg_kernel(A, b, torch.zeros_like(b), **kw)
+        assert _since(before)[3] == 1
+        with monkeypatch.context() as m:
+            m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+            want = krylov_tpu_torch.solvers.cg_kernel(A, b, torch.zeros_like(b), **kw)
+        _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, k", [("cg", 0), ("mrr", 0), ("kskipmrr", 1)])
+def test_graph_route_chunked_solve_equals_eager(graph_blocks, monkeypatch, method, k):
+    """solve(chunk_iters=) on the card: each chunk of 150 steps replays the
+    key's graph from the carry, bit for bit the eager route's chunks."""
+    from krylov_tpu_torch.solvers import _common
+
+    A = fixtures.laplace2d(48, constant=True, device="cuda")
+    b = np.random.default_rng(44).standard_normal(A.shape[0])
+    kw = dict(method=method, k=k, tol=1e-12, maxiter=3000, chunk_iters=150)
+    x, info = krylov_tpu_torch.solve(A, b, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+        x_e, info_e = krylov_tpu_torch.solve(A, b, **kw)
+    assert info["converged"] and info["chunks"] == info_e["chunks"] >= 2
+    assert info["iterations"] == info_e["iterations"]
+    np.testing.assert_array_equal(info["residual"], info_e["residual"])
+    assert torch.equal(x, x_e) and len(graph_blocks) == 1
+
+
+@pytest.mark.cuda
+def test_graph_route_on_a_hyb_operator(graph_blocks, monkeypatch):
+    """A non-stencil operator (HYB: gathers and a sorted scatter-add) takes
+    the graph route too, bit for bit the eager route."""
+    from krylov_tpu_torch.solvers import _common
+
+    A = to_device(convert.to_hyb(fixtures.powerlaw_spd(3000, seed=4, diag_scale_decades=0.5), device="cpu"),
+                  torch.device("cuda"))
+    b = torch.from_numpy(np.random.default_rng(45).standard_normal(A.shape[0])).to("cuda")
+    got = [krylov_tpu_torch.solvers.cg_kernel(A, b * s, torch.zeros_like(b), tol=0.0, maxiter=96) for s in (1, 2)]
+    with monkeypatch.context() as m:
+        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+        want = [krylov_tpu_torch.solvers.cg_kernel(A, b * s, torch.zeros_like(b), tol=0.0, maxiter=96)
+                for s in (1, 2)]
+    for g, e in zip(got, want):
+        _same_bits(g, e)
+    assert len(graph_blocks) == 1
+
+
+@pytest.mark.cuda
+def test_graph_replays_show_in_the_profilers_trace(graph_blocks):
+    """Under torch.profiler a replayed block's kernels are kernel records:
+    K1's records equal the move of its launch counter in a request that
+    captures (its warm-up launches, its capture records and launches
+    nothing, its replays launch) and in one that replays every block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A = fixtures.laplace2d(64, constant=True, device="cuda")
+    kw = dict(method="pcg", tol=0.0, maxiter=96)
+    A.matvec(_rhs(A.shape[0], 1, "cuda"))  # K1's weights are read once an operator
+    for seed, want in ((1, (1, 2)), (2, (0, 3))):
+        b = _rhs(A.shape[0], seed, "cuda")
+        torch.cuda.synchronize()
+        before, recorded = _graph_counts(), stencil.stencil_matvec_2d.captured
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            krylov_tpu_torch.solve_device(A, b, **kw)
+            torch.cuda.synchronize()
+        got = _since(before)
+        assert got[3:5] == want
+        assert stencil.stencil_matvec_2d.captured - recorded == 32 * want[0]
+        k1 = sum(e.count for e in prof.key_averages() if "stencil2d_kernel" in e.key)
+        assert k1 == got[2] == 96 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", ["two streams", "one stream"])
+def test_graph_route_threads_on_one_key(graph_blocks, monkeypatch, streams):
+    """Two threads solve on one operator at once, each on a stream of its
+    own or both on one: every result is bit for bit the eager route's for
+    its ``b``, so no request reads static state that another overwrites.
+    Each stream has its own key; on one stream a request whose block the
+    other thread holds runs eagerly."""
+    import threading
+
+    from krylov_tpu_torch.solvers import _common
+
+    A = fixtures.laplace2d(48, constant=True, device="cuda")
+    M = pc.chebyshev(A, 6)
+    bs = [_graph_batch(A, seed, None) for seed in range(50, 58)]
+    kw = dict(M=M, tol=0.0, maxiter=160)
+    with monkeypatch.context() as m:
+        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+        want = [krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    if streams == "one stream":
+        side[1] = side[0]
+    torch.cuda.synchronize()
+    got, errors, start = {}, [], threading.Barrier(2)
+
+    def client(t):
+        try:
+            with torch.cuda.stream(side[t]):
+                start.wait()
+                for j in range(t, len(bs), 2):
+                    got[j] = krylov_tpu_torch.solvers.pcg_kernel(A, bs[j], torch.zeros_like(bs[j]), **kw)
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # noqa: BLE001 - handed to the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for j, w in enumerate(want):
+        _same_bits(got[j], w)
+    assert len(graph_blocks) == (2 if streams == "two streams" else 1)
+
+
+@pytest.mark.cuda
+def test_graph_route_declines_a_user_operator(graph_blocks, monkeypatch):
+    """A user's preconditioner, duck-typed, whose ``matvec`` reads the card
+    on the host (a capture would refuse it) and whose scale may change
+    between requests: the loop takes no key and runs eagerly, bit for bit
+    the eager route."""
+    from krylov_tpu_torch.solvers import _common
+
+    class Scaled:
+        shape = None
+
+        def __init__(self):
+            self.scale = 0.25
+
+        def matvec(self, v):
+            return v * (self.scale / max(float(v.abs().max()), 1.0))
+
+    A = fixtures.laplace2d(24, constant=True, device="cuda")
+    M = Scaled()
+    b = _graph_batch(A, 47, None)
+    before, got = _graph_counts(), []
+    for scale in (0.25, 0.5):
+        M.scale = scale
+        got.append(krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96))
+    assert _since(before)[3:] == (0, 0, 0) and len(graph_blocks) == 0
+    with monkeypatch.context() as m:
+        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+        for scale, g in zip((0.25, 0.5), got):
+            M.scale = scale
+            _same_bits(g, krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96))
