@@ -35,7 +35,9 @@ RESULTS.md, printed only (CG, the k-skip family, Jacobi-preconditioned CG
 and the Chebyshev CA solvers); last, the preconditioned, pipelined and CA
 solves of the main-path system on the eager loops, whose every SpMV is K1,
 float64 held to the JAX package's counts and K1 timed on that path beside
-the same loop over K1's plain version.  Then the paths of chunked solves
+the same loop over K1's plain version; the Chebyshev step held bit for bit
+against the loop it replaces at that size and timed beside it (phase 11b,
+``--cheb`` runs it alone after the build).  Then the paths of chunked solves
 on the main-path system: ``solve(chunk_iters=)`` of the seven carry
 methods held against their unbroken eager solves, and ``fused=True``
 chunks (one K2/K3/K5 launch a chunk); a checkpoint of a first chunk saved,
@@ -182,6 +184,8 @@ BATCHED_RUNS = [("pcg", "none", 0), ("pcg", "jacobi", 0), ("pcg", "chebyshev6", 
 # asserts for their JAX twins, as (text, count; None: at least once)
 EXAMPLE_TIMEOUT = 300
 PROFILING_TIMEOUT = 300  # phase 18's process, in seconds
+CHEB_BATCH = 3  # phase 11b: the block's members
+CHEB_REPS = 200  # phase 11b: applications a timing
 EXAMPLE_MARKERS = {
     "basic_solve": (("converged", 5),),
     "preconditioned": (("converged=True", 12),),
@@ -203,7 +207,7 @@ from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
 name = sys.argv[1]
 sys.argv = [name, "--device", "cuda"]
 runpy.run_module("krylov_tpu_torch.examples." + name, run_name="__main__", alter_sys=True)
-counts = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches}
+counts = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches, "chebyshev_apply": stencil.chebyshev_apply.launches}
 for fn in (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipcg_solve_2d,
            fused_kskip.fused_kskipmrr_solve_2d):
     counts[fn.__name__] = [fn.launches_resident, fn.launches_streaming]
@@ -945,6 +949,30 @@ def row5_only() -> int:
     return 0
 
 
+def cheb_only() -> int:
+    """``chip_smoke.py --cheb``: the device line, the build and phase 11b
+    alone."""
+    import torch
+
+    from krylov_tpu_torch.kernels import _build, stencil
+    from krylov_tpu_torch.sparse import fixtures
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    mark("2 build")
+    _build.library()
+    mark("11b Chebyshev step")
+    dev = torch.device("cuda")
+    ops = {dt: fixtures.laplace2d(NX, dtype=dt, constant=True, device=dev) for dt in (torch.float64, torch.float32)}
+    print(json.dumps({"chebyshev step": chebyshev_step_phase(ops, stencil)}), flush=True)
+    mark("done")
+    return 0
+
+
 def stream_pass_alone(fused, stencil, m, coef, v, st, grid, sub, ns, name) -> None:
     """The first pass of the streaming K3 (``m="cg"``) or K2 instance's
     form alone (``fused.stream_probe`` on its walk: v = A p, or p = r +
@@ -1479,6 +1507,89 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
     return total, solves
 
 
+def cheb_step_bytes(steps: int, n: int, itemsize: int) -> int:
+    """Bytes a Chebyshev step application of ``steps`` rounds moves for a
+    member of ``n`` points: a round reads ``d``, ``r`` and ``z`` and writes
+    the three anew (``d``'s neighbours from cache), the first reads ``v``
+    alone and the last writes ``z`` alone; without steps one pass reads
+    ``v`` and writes ``z``."""
+    if steps == 0:
+        return 2 * n * itemsize
+    vectors = sum((1 if k == 0 else 3) + (1 if k == steps - 1 else 3) for k in range(steps))
+    return vectors * n * itemsize
+
+
+def chebyshev_step_phase(ops, stencil) -> tuple:
+    """11b. The Chebyshev step against the loop it replaces, on the
+    main-path system: ``chebyshev(A, 6)`` applied to a vector and a
+    (CHEB_BATCH, n) block of seed 17 (with negative zeros) in float64 and
+    float32, by ``chebyshev_apply`` and by ``precond.chebyshev_loop`` (K1
+    and torch's pointwise kernels, what every application off the step
+    runs), held bit for bit, signs of zeros included, with ``degree - 1``
+    launches an application and ``v`` left as it was.  Each route is then
+    timed: device time an application (torch.profiler, every kernel of a
+    call, over CHEB_REPS calls) and the time between CUDA events over as
+    many, in the order step, loop, loop, step, beside the bytes bound of
+    :func:`cheb_step_bytes`.  Returns ``(max abs err, ms, plain ms,
+    bound)`` of the float64 vector, for the kernels line, and how it was
+    timed."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch import precond
+    from krylov_tpu_torch.context import Context
+
+    n, failures, result = NX * NX, [], None
+    for dt in (torch.float64, torch.float32):
+        A = ops[dt]
+        M = precond.chebyshev(A, degree=6)
+        theta, steps = precond.chebyshev_schedule(M.lmin, M.lmax, M.degree)
+        bits = torch.int64 if dt == torch.float64 else torch.int32
+        for batch in (None, CHEB_BATCH):
+            v = torch.from_numpy(np.random.default_rng(17).standard_normal((batch or 1, n))).to(A.device, dt)
+            v[:, :4] = -0.0
+            if batch is None:
+                v = v[0].clone()
+            kept = v.clone()
+            before = stencil.chebyshev_apply.launches
+            got = stencil.chebyshev_apply(A, v, theta, steps)
+            launches = stencil.chebyshev_apply.launches - before
+            want = precond.chebyshev_loop(A, v, theta, steps, Context())
+            same = torch.equal(got.view(bits), want.view(bits)) and torch.equal(v.view(bits), kept.view(bits))
+            err = float((got - want).abs().max())
+
+            def step():
+                return stencil.chebyshev_apply(A, v, theta, steps)
+
+            def loop():
+                return precond.chebyshev_loop(A, v, theta, steps, Context())
+
+            device = {"step": kernels_us(step, CHEB_REPS), "loop": kernels_us(loop, CHEB_REPS)}
+            events = {"step": [], "loop": []}
+            for label in ("step", "loop", "loop", "step"):
+                events[label].append(cuda_ms(step if label == "step" else loop, reps=CHEB_REPS)[0])
+            events = {label: statistics.mean(v_) for label, v_ in events.items()}
+            nbytes = cheb_step_bytes(len(steps), n, dt.itemsize) * (batch or 1)
+            bnd = (nbytes / PEAK_BYTES * 1e3, "bytes")
+            shape = f"laplace2d({NX}, constant) {dt}, degree {M.degree}, " + (f"({batch}, n)" if batch else "(n,)")
+            phase(f"Chebyshev step {shape}: {launches} launches an application, bitwise the loop {same}, max abs "
+                  f"err {err:.3e}; device {us_text(device['step'])} an application against the loop's "
+                  f"{us_text(device['loop'])} (torch.profiler, every kernel, {CHEB_REPS} calls); CUDA events "
+                  f"{events['step'] * 1e3:.3f} us against {events['loop'] * 1e3:.3f} us a call (step, loop, loop, "
+                  f"step); bound {bnd[0] * 1e3:.3f} us ({nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s)")
+            if not same or launches != len(steps):
+                failures.append(f"Chebyshev step {shape}: bitwise {same}, {launches} launches for {len(steps)} steps")
+            if dt == torch.float64 and batch is None:
+                timed = device["step"] is not None and device["loop"] is not None
+                ms_ = (device["step"] / 1e3, device["loop"] / 1e3) if timed else (events["step"], events["loop"])
+                result = (err, ms_[0], ms_[1], bnd, "torch.profiler device time of every kernel of an application, "
+                          f"mean of {CHEB_REPS}" if timed else f"CUDA events, mean of {CHEB_REPS} applications")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 11b", failures)
+    return result
+
+
 def chunked(A, b_np, A_csr, fused, fused_kskip, stencil, unbroken: dict) -> dict:
     """12. ``solve(chunk_iters=CHUNK_ITERS)`` on the main-path system in
     float64.  The carry methods of CHUNK_RUNS chunk exactly on their eager
@@ -1689,7 +1800,8 @@ def batched_eager(ops, A_csr, B, stencil) -> int:
     and x bitwise equal to its solo solve; the host float64 true residuals
     below tol.  K1's counter is set to 0 before the batch and before each
     solo solve: a pipelined batch launches K1 as often as its longest
-    solo solve (one launch a batched SpMV, d a Chebyshev application); a
+    solo solve (one launch a batched SpMV; a Chebyshev application runs
+    the Chebyshev step, not K1); a
     CA batch may add, in an outer iteration where some members roll back
     while others advance, the rollback branch's SpMVs (one for cacg, two
     for camrr's half-step) to the advance's one, which a solo solve takes
@@ -1774,9 +1886,10 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     warm-started one (x0 = half the first solve's x) names K1 beside it,
     each on its first try; ``phase_times`` returns its five keys with 934
     iterations; :func:`graph_k1_check` holds K1's counter on the eager
-    loops' graph route against the profiler's kernel records.  Prints each
-    trace's kernel names with their summed device µs.  Returns the phase's
-    launches of K1 and of K2 on each route."""
+    loops' graph route, and the Chebyshev step's, against the profiler's
+    kernel records.  Prints each trace's kernel names with their summed
+    device µs.  Returns the phase's launches of K1 and of K2 on each
+    route."""
     import glob
     import os
 
@@ -1820,43 +1933,55 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     for f in failures:
         phase(f"  FAILED: {f}")
     raise_failures("phase 18", failures)
-    launches = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches}
+    launches = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches,
+                "chebyshev_apply": stencil.chebyshev_apply.launches}
     launches.update(route_counts(counted[1:]))
     return launches
 
 
 def graph_k1_check(A, b_np, stencil, failures: list) -> None:
     """18b. The eager loops' graph route on the main-path system: pcg
-    (M = None, float64) three times on one operator, the first capturing
-    its block after the warm-up block and the others replaying every block,
-    each request under torch.profiler.  A replay adds to K1's launch counter
-    the calls its capture recorded (the capture adds nothing), so in each
-    profile the counter must move by K1's kernel records, and the requests
-    must replay."""
+    (M = None, then M = Chebyshev(6), float64) three times on one
+    operator, the first capturing its block after the warm-up block and
+    the others replaying every block, each request under torch.profiler.
+    A replay adds to K1's launch counter, and to the Chebyshev step's, the
+    launches its capture recorded (the capture adds nothing), so in each
+    profile each counter must move by its kernel's records, and the
+    requests must replay.  With Chebyshev(6) every application must run
+    fused, in 5 launches of the Chebyshev step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import krylov_tpu_torch
-    from krylov_tpu_torch import tracing
+    from krylov_tpu_torch import precond, tracing
 
     b = torch.from_numpy(b_np).to(A.device, A.dtype)
-    g = tracing.totals.eager_graph
-    for run in ("capture", "replay", "replay"):
-        torch.cuda.synchronize()
-        k1, captures, replays = stencil.stencil_matvec_2d.launches, g.captures, g.replays
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = krylov_tpu_torch.solve_device(A, b, method="pcg", tol=TOL, maxiter=MAXITER)
+    g, applied = tracing.totals.eager_graph, tracing.totals.cheb_apply
+    kernels = {"K1": (stencil.stencil_matvec_2d, "stencil2d_kernel"),
+               "Chebyshev step": (stencil.chebyshev_apply, "cheb_step2d_kernel")}
+    for label, M in (("M=None", None), ("M=chebyshev6", precond.chebyshev(A, degree=6))):
+        for run in ("capture", "replay", "replay"):
             torch.cuda.synchronize()
-        counted = stencil.stencil_matvec_2d.launches - k1
-        recorded = sum(evt.count for evt in prof.key_averages()
-                       if "stencil2d_kernel" in evt.key and evt.device_type == DeviceType.CUDA)
-        captures, replays = g.captures - captures, g.replays - replays
-        phase(f"graph route pcg float64 N={NX * NX} ({run}): iterations {int(res.iterations)}, captures "
-              f"{captures}, replays {replays}; K1 counted {counted}, K1 kernel records {recorded}")
-        if counted != recorded or replays < 1 or captures != (run == "capture"):
-            failures.append(f"graph route pcg ({run}): K1 counted {counted}, kernel records {recorded}, "
-                            f"captures {captures}, replays {replays}")
+            before = {key: fn.launches for key, (fn, _) in kernels.items()}
+            captures, replays, calls, fused = g.captures, g.replays, applied.calls, applied.fused
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                res = krylov_tpu_torch.solve_device(A, b, method="pcg", M=M, tol=TOL, maxiter=MAXITER)
+                torch.cuda.synchronize()
+            counted = {key: fn.launches - before[key] for key, (fn, _) in kernels.items()}
+            recorded = {key: sum(evt.count for evt in prof.key_averages()
+                                 if name in evt.key and evt.device_type == DeviceType.CUDA)
+                        for key, (_, name) in kernels.items()}
+            captures, replays = g.captures - captures, g.replays - replays
+            calls, fused = applied.calls - calls, applied.fused - fused
+            phase(f"graph route pcg {label} float64 N={NX * NX} ({run}): iterations {int(res.iterations)}, "
+                  f"captures {captures}, replays {replays}; applications {calls}, fused {fused}; "
+                  + ", ".join(f"{key} counted {counted[key]}, kernel records {recorded[key]}" for key in kernels))
+            cheb_ok = (fused == calls == 0 if M is None else
+                       fused == calls == counted["K1"] and counted["Chebyshev step"] == 5 * calls)
+            if counted != recorded or replays < 1 or captures != (run == "capture") or not cheb_ok:
+                failures.append(f"graph route pcg {label} ({run}): counted {counted}, kernel records {recorded}, "
+                                f"captures {captures}, replays {replays}, applications {calls}, fused {fused}")
 
 
 def profiling_child(tmp: str) -> int:
@@ -2892,6 +3017,8 @@ def smoke(tmp: str, started: list) -> int:
     mark("11 preconditioned, pipelined and CA")
     k1_launches, unbroken = preconditioned(ops, b_np, A_csr, stencil)
     unbroken.update({(m, k): kres[m + " eager", f64] for m, k in KSKIP_RUNS.items()})
+    mark("11b Chebyshev step")
+    cheb = chebyshev_step_phase(ops, stencil)
     mark("12 chunked")
     chunk_launches = chunked(ops[f64], b_np, A_csr, fused, fused_kskip, stencil, unbroken)
     mark("13 checkpoint")
@@ -2955,6 +3082,16 @@ def smoke(tmp: str, started: list) -> int:
              shape=f"laplace2d({NX_STREAM}, constant) float64, {MAXITER_STREAM} iterations, "
                    "{} form on {}".format(*fused.stream_shape("cg", 5, f64)), sweep_bytes_bound_ms=stream["cg"][5]),
     ]
+    # the Chebyshev step: its launches in every phase and process (phase
+    # 11b's, the Chebyshev-preconditioned solves of 11, 17 and 18, the
+    # examples of 19); its error and times phase 11b's, against the loop
+    # it replaces, on the float64 vector
+    err, ms_, plain_ms, bnd, timed_by = cheb
+    kernels.append(dict(entry("chebyshev_apply (the Chebyshev step)", "krylov_tpu_torch/kernels/csrc/stencil.cu",
+                              "krylov_tpu/precond.py:188 (ChebyshevPreconditioner.matvec: no TPU kernel)",
+                              stencil.chebyshev_apply.launches + more("chebyshev_apply", 0), err, ms_, plain_ms,
+                              bnd),
+                        shape=f"laplace2d({NX}, constant) float64, degree 6, (n,)", timed_by=timed_by))
     kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
     for m, fn, line, witness in (("kskipmrr", "fused_kskipmrr_solve_2d", 528, ("adaptivekskipmrr", 8)),
@@ -3014,4 +3151,6 @@ if __name__ == "__main__":
         sys.exit(row5_only())
     if sys.argv[1:2] == ["--k23"]:
         sys.exit(k23_only())
+    if sys.argv[1:2] == ["--cheb"]:
+        sys.exit(cheb_only())
     sys.exit(main_path_digests() if sys.argv[1:2] == ["--digests"] else main())

@@ -660,8 +660,8 @@ def solve_batched(
     ``lax.map``).  On the eager route every method runs the whole batch as
     one loop over ``(batch, N)`` blocks, each member freezing on its own
     (the JAX package's ``vmap``), through one K1 launch an SpMV on a
-    stencil operator on the card (d launches a Chebyshev application of
-    ``M``, for the whole block).  The loops that read the host (the
+    stencil operator on the card (and d - 1 launches of the Chebyshev step
+    a degree-d Chebyshev application of ``M``, for the whole block).  The loops that read the host (the
     adaptive k-skip guard, the ``cacg``/``camrr`` divergence guard) read
     the whole batch's flags at once, once an outer iteration; the adaptive
     loop steps its members grouped by their current k, and the CA loops

@@ -2,8 +2,8 @@
 
     python -m krylov_tpu_torch.examples.preconditioned [--device cuda|cpu]
 
-On a card every SpMV of these eager loops on the stencil is K1 (d launches
-a Chebyshev application).
+On a card every SpMV of these eager loops on the stencil is K1, and a
+degree-d Chebyshev application is d - 1 launches of the Chebyshev step.
 """
 
 import torch

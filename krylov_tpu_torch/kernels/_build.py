@@ -92,6 +92,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     geom = [i, i, i, i, i, p]  # ns, g0, g1, g2, is_const, disp
     lib.krylov_stencil2d.argtypes = [i, p, p, p, i, p, p]  # dtype, coef, x, y, batch, params, stream
     lib.krylov_stencil2d.restype = i
+    f = ctypes.c_double
+    # dtype, coef, d, z, r, d_out, batch, params, first, last, inv, c1, c2, stream
+    lib.krylov_cheb_step2d.argtypes = [i, p, p, p, p, p, i, p, i, i, f, f, f, p]
+    lib.krylov_cheb_step2d.restype = i
+    lib.krylov_cheb_scale.argtypes = [i, p, p, ctypes.c_longlong, f, p]  # dtype, v, z, count, inv, stream
+    lib.krylov_cheb_scale.restype = i
     # method, form, walk, dtype, n, max_blocks, ns_pass, then the three outputs
     lib.krylov_fused_workspace.argtypes = [
         i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),

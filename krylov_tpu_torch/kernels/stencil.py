@@ -17,6 +17,11 @@ held in ``_PARAMS``; the weights cost a device-to-host copy at an
 operator's first call, again after the tensor is changed in place), and
 each call checks only device, dtype, contiguity and length, and passes
 seven arguments.
+
+The Chebyshev step (:func:`chebyshev_apply`) is K1 with a Chebyshev
+preconditioner's vector updates in its epilogue: a degree-d application on
+a stencil operator on the card in d - 1 launches of ``cheb_step2d_kernel``
+(one of ``cheb_scale_kernel`` at degree 1), from the same parameters.
 """
 
 from __future__ import annotations
@@ -190,6 +195,81 @@ def stencil_matvec_2d(
 # route adds a graph's recorded calls to ``launches`` at each replay)
 stencil_matvec_2d.launches = 0
 stencil_matvec_2d.captured = 0
+
+
+def chebyshev_rounds(lib, stream, params, coef: torch.Tensor, v: torch.Tensor, z: torch.Tensor, inv: float,
+                     steps) -> int:
+    """Launch the rounds of a Chebyshev application into ``z`` on
+    ``stream`` (the C entry points of ``lib``): with ``steps`` one
+    ``cheb_step2d_kernel`` a step, ``d`` read from ``v`` in the first and
+    then from two scratch directions in turn (neighbours read the old one),
+    ``r`` and ``z`` updated in place; without, one ``cheb_scale_kernel``.
+    Returns the launches."""
+    size = v.element_size()
+    if not steps:
+        _build.check(lib.krylov_cheb_scale(size, v.data_ptr(), z.data_ptr(), v.numel(), inv, stream),
+                     "chebyshev_apply")
+        return 1
+    batch = v.shape[0] if v.ndim == 2 else 1
+    # r, then one direction for two steps, two for more (the last step
+    # writes z alone)
+    work = v.new_empty((min(len(steps), 3),) + v.shape) if len(steps) > 1 else None
+    r = work[0].data_ptr() if work is not None else None
+    d = v.data_ptr()
+    for k, (c1, c2) in enumerate(steps):
+        last = k == len(steps) - 1
+        d_out = None if last else work[1 + k % (len(work) - 1)].data_ptr()
+        err = lib.krylov_cheb_step2d(size, coef.data_ptr(), d, z.data_ptr(), r, d_out, batch, params, int(k == 0),
+                                     int(last), inv, c1, c2, stream)
+        _build.check(err, "chebyshev_apply")
+        d = d_out
+    return len(steps)
+
+
+def chebyshev_apply(A: StencilMatrix, v: torch.Tensor, theta: float, steps) -> torch.Tensor:
+    """``z = p(A) v`` of a Chebyshev preconditioner: the recurrence of
+    :func:`krylov_tpu_torch.precond.chebyshev_loop` from ``theta`` and the
+    ``(c1, c2)`` of each step
+    (:func:`krylov_tpu_torch.precond.chebyshev_schedule`), on a CUDA
+    tensor ``v``, ``(n,)`` or ``(batch, n)``, of a 2-D or 3-D stencil
+    operator: one launch a step of the Chebyshev step (one altogether
+    without steps), whose SpMV is K1's sum and whose updates round each
+    operation as torch does, so ``z`` is the bits of the loop run by torch
+    on the card."""
+    index = v.get_device()
+    if len(A.grid) not in (2, 3):
+        raise ValueError(f"chebyshev_apply: takes a 2-D or 3-D grid, got {A.grid}")
+    coef = A.coef
+    params, n, numel = _params(coef, v, A.stencil, A.grid, None)
+    if not (index >= 0 and coef.get_device() == index and coef.dtype == v.dtype and v.dtype in _DTYPES
+            and v.is_contiguous() and coef.is_contiguous() and v.ndim in (1, 2) and v.shape[-1] == n
+            and coef.numel() == numel):
+        raise ValueError(f"chebyshev_apply: takes a contiguous float32 or float64 (n,) or (batch, n) vector on the "
+                         f"operator's card, got {tuple(v.shape)} {v.dtype} on {v.device} for grid {A.grid}")
+    lib = _build.library()
+    z = torch.empty_like(v)
+    # torch divides a CUDA tensor by a host number as a product with the
+    # float64 reciprocal rounded to the tensor's dtype (the C entry points
+    # round it so): in float32 not the reciprocal of float32 theta, which
+    # differs at some theta (4.198167673414332 among them)
+    inv = 1.0 / theta
+    if index == torch.cuda.current_device():
+        launches = chebyshev_rounds(lib, torch._C._cuda_getCurrentRawStream(index), params, coef, v, z, inv, steps)
+    else:
+        with torch.cuda.device(index):
+            launches = chebyshev_rounds(lib, torch._C._cuda_getCurrentRawStream(index), params, coef, v, z, inv,
+                                        steps)
+    if torch.cuda.is_current_stream_capturing():
+        chebyshev_apply.captured += launches  # recorded into a CUDA graph: its replays launch them
+    else:
+        chebyshev_apply.launches += launches
+    return z
+
+
+# launches made, and launches recorded into a CUDA graph (added to
+# ``launches`` at each replay, as K1's)
+chebyshev_apply.launches = 0
+chebyshev_apply.captured = 0
 
 
 def stencil_matvec(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,11 @@ The counterparts of :mod:`krylov_tpu.precond`: both are matvec-only.
 - :func:`jacobi`: inverse-diagonal scaling, a one-diagonal
   :class:`~krylov_tpu_torch.sparse.DiaMatrix` on the operator's device;
 - :class:`ChebyshevPreconditioner`: a degree-d Chebyshev polynomial
-  approximation of ``A^{-1}`` on a spectral interval ``[lmin, lmax]``, d
-  SpMVs an application (on a stencil operator on the card, d K1 launches)
-  and no inner product.
+  approximation of ``A^{-1}`` on a spectral interval ``[lmin, lmax]``,
+  d - 1 SpMVs an application (the JAX package's loop makes d, and never
+  reads the last) and no inner product; on a stencil operator on the
+  card, d - 1 fused launches an application (the Chebyshev step,
+  :func:`krylov_tpu_torch.kernels.stencil.chebyshev_apply`).
 
 The diagonal and the Gershgorin bounds are read on the host in numpy, as
 the JAX package reads them, so both packages give the same bits.
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from krylov_tpu_torch import tracing
+from krylov_tpu_torch.kernels import _build
+from krylov_tpu_torch.kernels.stencil import chebyshev_apply
 from krylov_tpu_torch.sparse.formats import DenseMatrix, DiaMatrix, EllMatrix, HybMatrix, StencilMatrix
 
 
@@ -128,16 +132,67 @@ def lanczos_bounds(A, m: int = 16, seed: int = 0, safety: float = 1.05) -> Tuple
     return max(float(theta[0]), 1e-30) / safety, float(theta[-1]) * safety
 
 
+def chebyshev_schedule(lmin: float, lmax: float, degree: int) -> tuple:
+    """``(theta, steps)`` of a degree-``degree`` application on
+    ``[lmin, lmax]``: the centre ``theta`` and, for each of the
+    ``degree - 1`` rounds after the first, the ``(c1, c2)`` that
+    :func:`chebyshev_loop` multiplies ``d`` and ``r`` by (the JAX
+    package's floats, formed in its order)."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+    steps = []
+    for _ in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        steps.append((rho_new * rho, 2.0 * rho_new / delta))
+        rho = rho_new
+    return theta, tuple(steps)
+
+
+def chebyshev_loop(A, v: torch.Tensor, theta: float, steps, ctx) -> torch.Tensor:
+    """The Chebyshev recurrence in torch's operations, each SpMV through
+    ``ctx.matvec``: ``d = v / theta``, ``z = 0 + d``, then for each
+    ``(c1, c2)`` of ``steps`` ``r = r - A d``, ``d = c1 d + c2 r``,
+    ``z = z + d`` (``r`` from ``v``).  The JAX package's loop less its last
+    SpMV and updates, whose results it never reads: the same ``z``, bit for
+    bit.  What the Chebyshev step
+    (:func:`krylov_tpu_torch.kernels.stencil.chebyshev_apply`) computes in
+    one launch a step."""
+    d = v / theta
+    z = torch.zeros_like(v) + d
+    r = v
+    for c1, c2 in steps:
+        r = r - ctx.matvec(A, d)
+        d = c1 * d + c2 * r
+        z = z + d
+    return z
+
+
+def fused_route(A, v: torch.Tensor, ctx) -> bool:
+    """Whether a Chebyshev application on ``A`` runs on the Chebyshev step
+    (:func:`krylov_tpu_torch.kernels.stencil.chebyshev_apply`): a 2-D or
+    3-D :class:`StencilMatrix` of at most ``MAX_TERMS`` terms, ``v`` on its
+    card in its dtype (float32 or float64), both contiguous, ``v`` of shape
+    ``(n,)`` or ``(batch, n)``, and a ``ctx`` without a process group.
+    Any other application runs :func:`chebyshev_loop`."""
+    return (isinstance(A, StencilMatrix) and v.is_cuda and ctx.group is None and len(A.grid) in (2, 3)
+            and len(A.stencil) <= _build.MAX_TERMS and v.dtype in (torch.float32, torch.float64)
+            and A.coef.dtype == v.dtype and A.coef.device == v.device and v.is_contiguous()
+            and A.coef.is_contiguous() and v.ndim in (1, 2) and v.shape[-1] == A.shape[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class ChebyshevPreconditioner:
-    """Apply ``z ≈ A^{-1} v`` by a degree-d Chebyshev recurrence (d SpMVs,
-    through ``ctx.matvec``)."""
+    """Apply ``z ≈ A^{-1} v`` by a degree-d Chebyshev recurrence
+    (:func:`chebyshev_loop`, d - 1 SpMVs through ``ctx.matvec``; on the
+    Chebyshev step where :func:`fused_route` says so).  Each application
+    counts in ``tracing.totals.cheb_apply``."""
 
     A: object
     lmin: float
     lmax: float
     degree: int
-
     needs_ctx = True
 
     @property
@@ -149,20 +204,20 @@ class ChebyshevPreconditioner:
         return self.A.dtype
 
     def matvec(self, v: torch.Tensor, ctx) -> torch.Tensor:
-        theta = 0.5 * (self.lmax + self.lmin)
-        delta = 0.5 * (self.lmax - self.lmin)
-        sigma1 = theta / delta
-        rho = 1.0 / sigma1
-        z = torch.zeros_like(v)
-        r = v
-        d = r / theta
-        for _ in range(self.degree):
-            z = z + d
-            r = r - ctx.matvec(self.A, d)
-            rho_new = 1.0 / (2.0 * sigma1 - rho)
-            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
-            rho = rho_new
-        return z
+        fused = self.degree >= 1 and fused_route(self.A, v, ctx)
+        applied = tracing.totals.cheb_apply
+        if v.is_cuda and torch.cuda.is_current_stream_capturing():
+            applied.captured += 1  # recorded into a CUDA graph: its replays add it
+            applied.captured_fused += fused
+        else:
+            applied.calls += 1
+            applied.fused += fused
+        if self.degree < 1:
+            return torch.zeros_like(v)  # the empty polynomial
+        theta, steps = chebyshev_schedule(self.lmin, self.lmax, self.degree)
+        if fused:
+            return chebyshev_apply(self.A, v, theta, steps)
+        return chebyshev_loop(self.A, v, theta, steps, ctx)
 
 
 def chebyshev(A, degree: int = 4, lmin: float | None = None, lmax: float | None = None,

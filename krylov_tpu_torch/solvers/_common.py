@@ -127,14 +127,14 @@ def run_bodies(body, state: tuple, steps: int, ctx: Context) -> tuple:
 class _Block:
     """A key's entry: weak references to the operators the key names, the
     lock its request holds, whether a request has warmed it up, and once
-    captured its graph's replay, its static state and the K1 launches of
-    one replay."""
+    captured its graph's replay, its static state and what one replay runs
+    of each counter of :func:`_replayed` (its capture's recorded counts)."""
 
-    __slots__ = ("held", "busy", "seen", "replay", "static", "launches")
+    __slots__ = ("held", "busy", "seen", "replay", "static", "counts")
 
     def __init__(self, held):
         self.held, self.busy, self.seen = held, threading.Lock(), False
-        self.replay, self.static, self.launches = None, None, 0
+        self.replay, self.static, self.counts = None, None, ()
 
 
 _BLOCKS: collections.OrderedDict = collections.OrderedDict()
@@ -206,10 +206,17 @@ def _block_key(body, state: tuple):
     return tuple(parts), held
 
 
-def _k1():
+def _replayed() -> tuple:
+    """The counters that count what a capture records apart from what runs,
+    as ``(owner, recorded, run)`` attribute names: K1's and the Chebyshev
+    step's launches and the Chebyshev applications, all and fused.  A
+    replay runs what its capture recorded (no body on one process calls a
+    fused whole-solve wrapper), so it adds that to the ``run`` counters."""
     from krylov_tpu_torch.kernels import stencil
 
-    return stencil.stencil_matvec_2d
+    applied = tracing.totals.cheb_apply
+    return ((stencil.stencil_matvec_2d, "captured", "launches"), (stencil.chebyshev_apply, "captured", "launches"),
+            (applied, "captured", "calls"), (applied, "captured_fused", "fused"))
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -251,13 +258,11 @@ def _capture(block: _Block, body, state: tuple) -> None:
                     raise ValueError(f"{body.__qualname__} moves a state entry to another slot")
                 dst.copy_(src)
 
-    # K1's wrapper counts what it records into a graph apart from what it
-    # launches; each replay launches what the capture recorded (no body on
-    # one process calls a fused wrapper)
-    k1 = _k1()
-    before = k1.captured
+    counters = _replayed()
+    before = [getattr(owner, recorded) for owner, recorded, _ in counters]
     block.replay = _record(run, state[-1].device)
-    block.static, block.launches = static, k1.captured - before
+    block.static = static
+    block.counts = tuple(getattr(owner, recorded) - b for (owner, recorded, _), b in zip(counters, before))
     tracing.totals.eager_graph.captures += 1
 
 
@@ -328,6 +333,7 @@ def _replays(block: _Block, step: int, steps: int):
     not every member has converged; returns ``(steps run, a copy of the
     static state, done)``."""
     static, g = block.static, tracing.totals.eager_graph
+    counters = tuple((owner, run, n) for (owner, _, run), n in zip(_replayed(), block.counts) if n)
     done = False
     while not done and steps - step >= SYNC_EVERY:
         block.replay()
@@ -335,7 +341,8 @@ def _replays(block: _Block, step: int, steps: int):
         g.replays += 1
         g.bodies += SYNC_EVERY
         tracing.totals.eager_bodies.calls += SYNC_EVERY
-        _k1().launches += block.launches
+        for owner, run, n in counters:
+            setattr(owner, run, getattr(owner, run) + n)
         done = all_converged(static[-1])
     return step, tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in static), done
 

@@ -44,7 +44,11 @@ The spans of the solve path:
 ones included, those replayed in a CUDA graph too.  ``totals.eager_graph``
 counts the graph route of :func:`krylov_tpu_torch.solvers._common.run_bodies`:
 ``captures`` (blocks of ``SYNC_EVERY`` bodies captured), ``replays`` and
-``bodies`` (the bodies run inside replays).  The totals are plain
+``bodies`` (the bodies run inside replays).  ``totals.cheb_apply`` counts
+the Chebyshev preconditioner's applications: ``calls``, and ``fused`` those
+on the Chebyshev step; an application recorded into a CUDA graph counts
+in ``captured`` (``captured_fused``) instead, and each replay of the graph
+adds it to ``calls`` (``fused``).  The totals are plain
 integers, cumulative from import; read the difference of two readings.  The spans keep their stack per
 thread; the totals are shared and not locked.
 """
@@ -81,9 +85,20 @@ class GraphTotal:
         self.captures = self.replays = self.bodies = 0
 
 
+class ApplyTotal:
+    """The totals of the Chebyshev preconditioner's applications
+    (``cheb_apply``)."""
+
+    __slots__ = ("calls", "fused", "captured", "captured_fused")
+
+    def __init__(self):
+        self.calls = self.fused = self.captured = self.captured_fused = 0
+
+
 NAMES = ("solve_device", "solve", "solve_batched", "plan", "run_fused", "launch", "restarts", "eager_loop",
          "host_read", "all_reduce", "halo", "eager_bodies")
-totals = types.SimpleNamespace(**{name: Total() for name in NAMES}, eager_graph=GraphTotal())
+totals = types.SimpleNamespace(**{name: Total() for name in NAMES}, eager_graph=GraphTotal(),
+                                cheb_apply=ApplyTotal())
 
 _ids = itertools.count(1)
 

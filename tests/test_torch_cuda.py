@@ -819,9 +819,11 @@ def test_batched_kskip_members_equal_solos_on_cuda(cuda, method, k):
                                                 ("cacg", 4, None), ("camrr", 4, None)])
 def test_batched_pipelined_and_ca_members_equal_solos_on_cuda(cuda, method, k, precond):
     """The pipelined family and the CA loops on a (4, n) block on the card:
-    the K1 launches of the longest solo solve (d a Chebyshev application,
-    for the whole block), and each member bitwise its solo solve (count,
-    nosl, residual trace, x)."""
+    the launches of the longest solo solve, for the whole block, of K1 (one
+    a batched SpMV) and of the Chebyshev step (degree - 1 an application:
+    pcg applies it once for each K1 launch, so twice as many at degree 3),
+    and each member bitwise its solo solve (count, nosl, residual trace,
+    x)."""
     from krylov_tpu_torch import precond as pc
 
     A = fixtures.laplace2d(40, constant=True, device=cuda)
@@ -831,21 +833,27 @@ def test_batched_pipelined_and_ca_members_equal_solos_on_cuda(cuda, method, k, p
         kw["M"] = pc.chebyshev(A, degree=3) if precond == "chebyshev" else pc.jacobi(A)
     if method in ("cacg", "camrr"):
         kw["spectral_bounds"] = pc.lanczos_bounds(A)
-    before = stencil.stencil_matvec_2d.launches
+
+    def launches():
+        return np.array([stencil.stencil_matvec_2d.launches, stencil.chebyshev_apply.launches])
+
+    before = launches()
     res = krylov_tpu_torch.solve_batched(A, B, **kw)
-    batched = stencil.stencil_matvec_2d.launches - before
+    batched = launches() - before
     solo_launches = []
     for j in range(4):
-        before = stencil.stencil_matvec_2d.launches
+        before = launches()
         solo = krylov_tpu_torch.solve_device(A, B[j], **kw)
-        solo_launches.append(stencil.stencil_matvec_2d.launches - before)
+        solo_launches.append(launches() - before)
         m = int(solo.index) + 1
         assert (int(res.iterations[j]), int(res.index[j])) == (int(solo.iterations), int(solo.index))
         assert bool(solo.converged) and bool(res.converged[j])
         assert torch.equal(res.nosl_trace[j, :m], solo.nosl_trace[:m])
         assert torch.equal(res.residual_trace[j, :m], solo.residual_trace[:m])
         assert torch.equal(res.x[j], solo.x)
-    assert batched == max(solo_launches)
+    longest = max(solo_launches, key=lambda c: c[0])
+    assert batched.tolist() == longest.tolist()
+    assert batched[1] == (2 * batched[0] if precond == "chebyshev" else 0)
 
 
 @pytest.mark.cuda
@@ -1080,12 +1088,13 @@ GRAPH_CARRIES = ("cg", "mrr", "kskipcg k=1", "kskipmrr k=1")
 
 
 def _graph_counts() -> tuple:
-    """(bodies, host reads, K1 launches, captures, replays, bodies in replays)."""
+    """(bodies, host reads, K1 launches, captures, replays, bodies in
+    replays, the Chebyshev step's launches)."""
     from krylov_tpu_torch import tracing
 
     g = tracing.totals.eager_graph
     return (tracing.totals.eager_bodies.calls, tracing.totals.host_read.calls, stencil.stencil_matvec_2d.launches,
-            g.captures, g.replays, g.bodies)
+            g.captures, g.replays, g.bodies, stencil.chebyshev_apply.launches)
 
 
 def _since(before: tuple) -> tuple:
@@ -1143,7 +1152,8 @@ def test_graph_route_equals_eager_route(graph_blocks, monkeypatch, name, dtype, 
     first warms up and captures, or the second where the first leaves one
     block after its warm-up; the last replays from its start) against the
     eager route, bit for bit, with equal bodies, host reads and K1
-    launches; one capture in all.  ``tol = 0`` runs all 154 steps (77
+    launches (and the Chebyshev step's); one capture in all.  ``tol = 0``
+    runs all 154 steps (77
     outer iterations at k = 1): full blocks, then an eager tail.  The first
     result is untouched by the later requests."""
     from krylov_tpu_torch.solvers import _common
@@ -1168,7 +1178,7 @@ def test_graph_route_equals_eager_route(graph_blocks, monkeypatch, name, dtype, 
     for g, e in zip(graph, eager):
         _same_bits(g, e)
     assert torch.equal(graph[0].x, first_x) and len({g.x.data_ptr() for g in graph}) == 3
-    assert on_graph[:3] == on_eager[:3] and on_eager[3:] == (0, 0, 0)
+    assert on_graph[:3] + on_graph[6:] == on_eager[:3] + on_eager[6:] and on_eager[3:6] == (0, 0, 0)
     if on_graph[3]:
         assert on_graph[3] == 1 and on_graph[4] >= 2 and on_graph[5] == 32 * on_graph[4]
     else:  # converged at the warm-up's read in each request: nothing to replay
@@ -1179,7 +1189,9 @@ def test_graph_route_equals_eager_route(graph_blocks, monkeypatch, name, dtype, 
 def test_graph_route_engages_on_the_pcg_cell_system(graph_blocks):
     """The benchmark's host-bound system at a tenth of its grid (pcg,
     Chebyshev(6), f64): after the first request every full block replays;
-    a later request's bodies all run in replays but its tail."""
+    a later request's bodies all run in replays but its tail.  K1 launches
+    once a body (``A p``) and for the start's residual; each of those
+    bodies and the start applies M in 5 launches of the Chebyshev step."""
     A = fixtures.laplace2d(158, constant=True, device="cuda")
     M = pc.chebyshev(A, 6)
     for seed in (1, 2):
@@ -1188,7 +1200,7 @@ def test_graph_route_engages_on_the_pcg_cell_system(graph_blocks):
         res = krylov_tpu_torch.solve_device(A, b, method="pcg", M=M, tol=1e-5, maxiter=3000)
         got = _since(before)
     assert bool(res.converged) and got[3] == 0 and got[5] == 32 * got[4] >= got[0] - 31
-    assert got[2] == 7 * got[0] + 7  # K1: one SpMV and six in M a body, and the start's
+    assert got[2] == got[0] + 1 and got[6] == 5 * got[2]
 
 
 @pytest.mark.cuda
@@ -1350,9 +1362,175 @@ def test_graph_route_declines_a_user_operator(graph_blocks, monkeypatch):
     for scale in (0.25, 0.5):
         M.scale = scale
         got.append(krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96))
-    assert _since(before)[3:] == (0, 0, 0) and len(graph_blocks) == 0
+    assert _since(before)[3:6] == (0, 0, 0) and len(graph_blocks) == 0
     with monkeypatch.context() as m:
         m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
         for scale, g in zip((0.25, 0.5), got):
             M.scale = scale
             _same_bits(g, krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96))
+
+
+# The Chebyshev step (kernels.stencil.chebyshev_apply): a degree-d
+# Chebyshev application on a stencil operator in d - 1 launches (one at
+# degree 1), held bit for bit against the loop it replaces, which runs
+# where precond.fused_route declines.
+CHEB_SYSTEMS = {
+    "2d": lambda dt: fixtures.laplace2d(24, 19, dtype=dt, device="cuda"),
+    "2d-const": lambda dt: fixtures.laplace2d(24, 19, constant=True, dtype=dt, device="cuda"),
+    "3d-const": lambda dt: fixtures.laplace3d(10, 9, 8, constant=True, dtype=dt, device="cuda"),
+}
+
+
+def _cheb_counts() -> tuple:
+    """(applications, fused ones, recorded ones, recorded fused ones, the
+    Chebyshev step's launches, its recorded launches, K1 launches)."""
+    from krylov_tpu_torch import tracing
+
+    a = tracing.totals.cheb_apply
+    return (a.calls, a.fused, a.captured, a.captured_fused, stencil.chebyshev_apply.launches,
+            stencil.chebyshev_apply.captured, stencil.stencil_matvec_2d.launches)
+
+
+def _cheb_since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_cheb_counts(), before))
+
+
+# Spectral intervals of the Chebyshev tests: centres with an inexact
+# reciprocal; at the second (main-path Lanczos bounds in float32) the
+# float32 reciprocal of float32 theta is not the float64 one rounded, which
+# torch's division by a host number multiplies by
+CHEB_INTERVALS = {"theta3.975": (0.05, 7.9), "theta4.198": (0.04192084707327978, 8.354414499755384)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", sorted(CHEB_INTERVALS))
+@pytest.mark.parametrize("run", ["eager", "graph"])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("degree", [1, 2, 3, 6])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(CHEB_SYSTEMS))
+def test_chebyshev_step_equals_the_loop(cuda, monkeypatch, name, dtype, degree, batch, run, interval):
+    """A Chebyshev application on the card through the Chebyshev step
+    equals the loop's, bit for bit and signs of zeros included (``v`` has
+    negative zeros), for a vector and a (3, n) block, launched eagerly or
+    captured into a CUDA graph and replayed on two inputs, on each of
+    CHEB_INTERVALS; ``v`` is left as it was.  Eagerly an application
+    counts as fused and launches max(d - 1, 1) kernels and no K1;
+    captured, the same counts land in the recorded counters."""
+    from krylov_tpu_torch.context import Context
+
+    A = CHEB_SYSTEMS[name](dtype)
+    M = pc.ChebyshevPreconditioner(A, *CHEB_INTERVALS[interval], degree)
+    rng = np.random.default_rng(12)
+    vs = []
+    for _ in range(2):
+        v = torch.from_numpy(rng.standard_normal((batch or 1, A.shape[0]))).to(cuda, dtype)
+        v[:, :4] = -0.0
+        vs.append(v if batch else v[0].clone())
+    kept = [v.clone() for v in vs]
+    with monkeypatch.context() as m:
+        m.setattr(pc, "fused_route", lambda A, v, ctx: False)
+        want = [M.matvec(v, Context()) for v in vs]
+    A.matvec(vs[0])  # K1's weights are read once an operator
+    steps = max(degree - 1, 1)
+    before = _cheb_counts()
+    if run == "eager":
+        got = [M.matvec(v, Context()) for v in vs]
+        assert _cheb_since(before) == (2, 2, 0, 0, 2 * steps, 0, 0)
+    else:
+        static = vs[0].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            M.matvec(static, Context())  # torch's warm-up before a capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = M.matvec(static, Context())
+        assert _cheb_since(before) == (1, 1, 1, 1, steps, steps, 0)
+        got = []
+        for v in vs:
+            static.copy_(v)
+            graph.replay()
+            got.append(out.clone())
+    torch.cuda.synchronize()
+    for g, w, v, k in zip(got, want, vs, kept):
+        assert torch.equal(_bits(g), _bits(w)) and torch.equal(_bits(v), _bits(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("method", ["pcg", "chronopoulos_gear", "gropp"])
+def test_chebyshev_solves_equal_the_unfused_route(cuda, graph_blocks, monkeypatch, method, dtype):
+    """pcg, Chronopoulos–Gear and Gropp with ``chebyshev(A, 6)`` through
+    solve_device on the card, two requests on one operator (the first
+    captures, the second replays), against the same requests with the
+    fused route declined: the same x, counts and residual traces, bit for
+    bit; every application fused, those in replays counted too."""
+    A = fixtures.laplace2d(160, constant=True, dtype=dtype, device=cuda)  # 60-110 iterations
+    M = pc.chebyshev(A, 6)
+    kw = dict(method=method, M=M, tol={torch.float64: 1e-10, torch.float32: 1e-5}[dtype], maxiter=2000)
+    bs = [_rhs(A.shape[0], seed, cuda, dtype) for seed in (61, 62)]
+    before, graphs = _cheb_counts(), _graph_counts()
+    got = [krylov_tpu_torch.solve_device(A, b, **kw) for b in bs]
+    moved, replays = _cheb_since(before), _since(graphs)[4]
+    graph_blocks.clear()  # the unfused route captures its own graph
+    with monkeypatch.context() as m:
+        m.setattr(pc, "fused_route", lambda A, v, ctx: False)
+        before = _cheb_counts()
+        want = [krylov_tpu_torch.solve_device(A, b, **kw) for b in bs]
+        unfused = _cheb_since(before)
+    for g, w in zip(got, want):
+        assert bool(g.converged)
+        _same_bits(g, w)
+    assert replays >= 2 and moved[0] == moved[1] == unfused[0] > 0 and unfused[1] == 0
+    assert moved[4] == 5 * moved[0] and unfused[4] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dia", "ell", "cpu"])
+def test_chebyshev_step_declines_other_operators(cuda, form):
+    """A DIA or ELL operator on the card, or a stencil and vector on the
+    CPU: the application runs the loop, counted as a call and not fused,
+    with no launch of the Chebyshev step."""
+    from krylov_tpu_torch.context import Context
+
+    if form == "dia":
+        A = fixtures.laplace2d(24, device=cuda).to_dia()
+    elif form == "ell":
+        A = convert.to_ell(fixtures.powerlaw_spd(600, seed=2), device=cuda)
+    else:
+        A = fixtures.laplace2d(24, device="cpu")
+    M = pc.ChebyshevPreconditioner(A, 0.1, 8.0, 3)
+    v = torch.from_numpy(np.random.default_rng(13).standard_normal(A.shape[0])).to(A.device, A.dtype)
+    assert not pc.fused_route(A, v, Context())
+    before = _cheb_counts()
+    M.matvec(v, Context())
+    assert _cheb_since(before)[:6] == (1, 0, 0, 0, 0, 0)
+
+
+@pytest.mark.cuda
+def test_chebyshev_step_records_match_its_counter(graph_blocks):
+    """Under torch.profiler, pcg with Chebyshev(6) in a request that
+    captures and one that replays every block: the Chebyshev step's kernel
+    records equal the move of its launch counter (5 an application), and
+    K1's records its counter's (1 a body and the start's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A = fixtures.laplace2d(64, constant=True, device="cuda")
+    M = pc.chebyshev(A, 6)
+    kw = dict(method="pcg", M=M, tol=0.0, maxiter=96)
+    A.matvec(_rhs(A.shape[0], 1, "cuda"))  # K1's weights are read once an operator
+    for seed, want in ((1, (1, 2)), (2, (0, 3))):
+        b = _rhs(A.shape[0], seed, "cuda")
+        torch.cuda.synchronize()
+        before = _graph_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            krylov_tpu_torch.solve_device(A, b, **kw)
+            torch.cuda.synchronize()
+        got = _since(before)
+        assert got[3:5] == want
+        records = {name: sum(e.count for e in prof.key_averages() if name in e.key)
+                   for name in ("stencil2d_kernel", "cheb_step2d_kernel")}
+        assert records == {"stencil2d_kernel": got[2], "cheb_step2d_kernel": got[6]}
+        assert got[2] == 96 + 1 and got[6] == 5 * got[2]

@@ -232,6 +232,67 @@ def test_emulated_graph_route_equals_eager(emulated, monkeypatch, name, tol, max
         assert on_graph[2] == 1 and on_graph[3] >= 2
 
 
+def test_emulated_replays_add_what_the_capture_recorded(emulated, monkeypatch):
+    """The counters that count what a capture records apart from what runs
+    (K1's and the Chebyshev step's launches, the Chebyshev applications
+    and those fused): the capture moves only the recorded counts, and each
+    replay adds them to the counts of what ran.  The capture here runs its
+    block once with the body counting as recorded, as the wrappers count
+    while the stream captures; a replay runs nothing."""
+    from krylov_tpu_torch.kernels import stencil
+
+    applied = tracing.totals.cheb_apply
+    counted = [(stencil.stencil_matvec_2d, "captured", "launches", 1), (stencil.chebyshev_apply, "captured",
+                                                                         "launches", 5),
+               (applied, "captured", "calls", 1), (applied, "captured_fused", "fused", 1)]
+    recording = [False]
+
+    def body(state, counted=counted, recording=recording):  # no closure: the block takes a key
+        n, _ = state
+        for owner, recorded, run, k in counted:
+            name = recorded if recording[0] else run
+            setattr(owner, name, getattr(owner, name) + k)
+        return n + 1, n + 1 >= 10**9
+
+    def record(fn, device):
+        recording[0] = True
+        try:
+            fn()
+        finally:
+            recording[0] = False
+        return lambda: None
+
+    monkeypatch.setattr(_common, "_record", record)
+    before = [(getattr(o, recorded), getattr(o, run)) for o, recorded, run, _ in counted]
+    state = (torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool))
+    start = _counts()
+    _common.run_bodies(body, state, 96, Context())
+    assert _delta(start)[2:] == (1, 2, 64)  # a warm-up block, its capture, two replays
+    for (owner, recorded, run, k), (was_recorded, was_run) in zip(counted, before):
+        assert getattr(owner, recorded) - was_recorded == 32 * k
+        assert getattr(owner, run) - was_run == 96 * k
+
+
+def test_emulated_chebyshev_applications_counted_as_on_the_eager_route(emulated, monkeypatch):
+    """pcg with Chebyshev(6) over 96 steps: the emulated graph route counts
+    the applications the eager route counts, one a body and the start's,
+    none fused off the card."""
+    A = _system()
+    M = chebyshev(A, 6)
+    b = _rhs(A, 3)
+    applied = tracing.totals.cheb_apply
+    got = []
+    for route in ("graph", "eager"):
+        with monkeypatch.context() as m:
+            if route == "eager":
+                m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+            before = (applied.calls, applied.fused, tracing.totals.eager_graph.replays)
+            solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96)
+            got.append((applied.calls - before[0], applied.fused - before[1],
+                        tracing.totals.eager_graph.replays - before[2]))
+    assert got == [(97, 0, 2), (97, 0, 0)]
+
+
 def test_emulated_new_operator_is_captured_anew(emulated):
     """A new operator object of the same shape (and one changed in place)
     is a new key: it never replays the block of another."""

@@ -6,7 +6,8 @@ Jacobi scaling and the Gershgorin bounds are read on the host in numpy by
 both packages: bitwise equal.  lanczos_bounds starts both packages from the
 same numpy vector; its inner products and projections sum in another order
 than XLA's, so the bounds agree to rtol 1e-10.  A Chebyshev application is
-d SpMVs and axpys, rtol 1e-12.
+d - 1 SpMVs and axpys (the JAX package's d, the last never read), rtol
+1e-12.
 """
 
 import jax.numpy as jnp
@@ -124,3 +125,183 @@ def test_float32_jacobi_keeps_the_dtype():
     M = precond.jacobi(from_jax_operator(A))
     assert M.dtype == torch.float32
     np.testing.assert_array_equal(M.data.numpy(), np.asarray(jprecond.jacobi(A).data))
+
+
+# The Chebyshev step (krylov_tpu_torch.kernels.stencil.chebyshev_apply): on
+# the card a degree-d application on a stencil operator runs d - 1 fused
+# launches; tests/test_torch_cuda.py holds it bitwise against the loop there.
+# Here: the route decision, its counters, the scalar schedule and the loop
+# (precond.chebyshev_loop) against the JAX package's recurrence.
+
+
+class _ScalarLog(torch.overrides.TorchFunctionMode):
+    """Log the Python floats a Chebyshev application multiplies or divides
+    a tensor by, in order: ``("div", theta)``, then ``("mul", c)``."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        for a in args:
+            if isinstance(a, float) and name in ("__truediv__", "div", "__mul__", "__rmul__", "mul"):
+                self.log.append(("div" if "div" in name else "mul", a))
+        return func(*args, **(kwargs or {}))
+
+
+def _jax_rounds(lmin: float, lmax: float, degree: int) -> tuple:
+    """``theta`` and the ``(c1, c2)`` of each of the ``degree`` rounds of
+    krylov_tpu.precond.ChebyshevPreconditioner.matvec, in its arithmetic."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+    pairs = []
+    for _ in range(degree):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        pairs.append(((rho_new * rho), (2.0 * rho_new / delta)))
+        rho = rho_new
+    return theta, pairs
+
+
+def _jax_recurrence(A, v: torch.Tensor, lmin: float, lmax: float, degree: int) -> torch.Tensor:
+    """The JAX package's Chebyshev loop in torch's operations: ``degree``
+    rounds, the last SpMV and updates included."""
+    theta, pairs = _jax_rounds(lmin, lmax, degree)
+    z = torch.zeros_like(v)
+    r = v
+    d = r / theta
+    for c1, c2 in pairs:
+        z = z + d
+        r = r - A.matvec(d)
+        d = c1 * d + c2 * r
+    return z
+
+
+@pytest.mark.parametrize("lmin, lmax, degree", [(0.05, 8.0, 6), (0.3, 7.7, 1), (1e-3, 2.5, 2), (0.27, 7.9, 9)])
+def test_chebyshev_schedule_is_the_loops_floats(lmin, lmax, degree):
+    """chebyshev_schedule gives theta and each round's (c1, c2) as the very
+    floats an application divides and multiplies by, in its order, and as
+    the JAX package's recurrence forms them (_jax_rounds)."""
+    A = fixtures.laplace2d(6, constant=True)
+    M = precond.ChebyshevPreconditioner(A, lmin, lmax, degree)
+    with _ScalarLog() as mode:
+        M.matvec(torch.ones(A.shape[0], dtype=torch.float64), Context())
+    theta, steps = precond.chebyshev_schedule(lmin, lmax, degree)
+    ops = mode.log
+    assert ops[0] == ("div", theta) and len(ops) == 1 + 2 * (degree - 1)
+    assert all(kind == "mul" for kind, _ in ops[1:])
+    assert steps == tuple((ops[1 + 2 * k][1], ops[2 + 2 * k][1]) for k in range(degree - 1))
+    jax_theta, jax_pairs = _jax_rounds(lmin, lmax, degree)
+    assert theta == jax_theta and steps == tuple(jax_pairs[: degree - 1])
+
+
+ROUTE_SYSTEMS = {
+    "stencil 2-D": lambda dt: fixtures.laplace2d(7, 5, dtype=dt),
+    "stencil 2-D constant": lambda dt: fixtures.laplace2d(7, 5, constant=True, dtype=dt),
+    "stencil 3-D constant": lambda dt: fixtures.laplace3d(4, 3, 5, constant=True, dtype=dt),
+    "stencil 3-D": lambda dt: fixtures.laplace3d(4, 3, 5, dtype=dt),
+}
+
+
+def _on_card(v: torch.Tensor, **change):
+    """What fused_route reads of ``v``, as if ``v`` lay on a card."""
+    import types
+
+    seen = dict(is_cuda=True, dtype=v.dtype, device=v.device, ndim=v.ndim, shape=tuple(v.shape),
+                is_contiguous=lambda: True)
+    seen.update(change)
+    return types.SimpleNamespace(**seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(ROUTE_SYSTEMS))
+def test_fused_route_takes_the_stencils_k1_takes(name, dtype):
+    """A vector on the operator's card, in its dtype, (n,) or (batch, n),
+    with a single-process context: the fused route for each stencil form
+    K1 takes; declined for another dtype, length or rank, a non-contiguous
+    vector, a process group, or a vector off the card."""
+    A = ROUTE_SYSTEMS[name](dtype)
+    n = A.shape[0]
+    v = torch.zeros(n, dtype=dtype)
+    assert precond.fused_route(A, _on_card(v), Context())
+    assert precond.fused_route(A, _on_card(torch.zeros((3, n), dtype=dtype)), Context())
+    grouped = Context(axis="rows", group=object())
+    other = torch.float32 if dtype == torch.float64 else torch.float64
+    for seen, ctx in ((_on_card(v), grouped), (_on_card(v, dtype=other), Context()),
+                      (_on_card(v, dtype=torch.float16), Context()), (_on_card(v, shape=(n + 1,)), Context()),
+                      (_on_card(v, ndim=3, shape=(2, 2, n)), Context()),
+                      (_on_card(v, is_contiguous=lambda: False), Context()), (v, Context())):
+        assert not precond.fused_route(A, seen, ctx)
+
+
+def test_fused_route_declines_other_operators():
+    """DIA, ELL, HYB, dense and 1-D stencil operators run the loop, on the
+    card too, as does a stencil of more terms than the kernels take."""
+    from krylov_tpu_torch.sparse import StencilMatrix
+
+    A = fixtures.laplace2d(6, 5)
+    n = A.shape[0]
+    seen = _on_card(torch.zeros(n, dtype=torch.float64))
+    others = [A.to_dia()] + [from_jax_operator(CONTAINERS[name]()) for name in ("ell", "hyb", "dense")] + [
+        StencilMatrix(torch.tensor([-1.0, 2.0, -1.0], dtype=torch.float64), ((-1,), (0,), (1,)), (n,))]
+    wide = tuple((i, j) for i in (-2, -1, 0, 1, 2) for j in (-2, -1, 0, 1, 2))
+    others.append(StencilMatrix(torch.ones(len(wide), dtype=torch.float64), wide, (6, 5)))
+    assert len(wide) > precond._build.MAX_TERMS
+    for B in others:
+        assert not precond.fused_route(B, seen, Context()), type(B).__name__
+
+
+@pytest.mark.parametrize("name", sorted(CONTAINERS))
+def test_application_counter_counts_the_loop(name):
+    """Off the card every application runs the loop: each counts one call
+    in tracing.totals.cheb_apply and none fused, and launches no Chebyshev
+    step."""
+    from krylov_tpu_torch import tracing
+    from krylov_tpu_torch.kernels import stencil
+
+    A = from_jax_operator(CONTAINERS[name]())
+    M = precond.ChebyshevPreconditioner(A, 0.1, 8.0, 3)
+    applied = tracing.totals.cheb_apply
+    before = (applied.calls, applied.fused, applied.captured, applied.captured_fused, stencil.chebyshev_apply.launches)
+    V = torch.from_numpy(np.random.default_rng(3).standard_normal((2, A.shape[0])))
+    M.matvec(V[0], Context())
+    M.matvec(V, Context())
+    after = (applied.calls, applied.fused, applied.captured, applied.captured_fused, stencil.chebyshev_apply.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 0, 0, 0, 0)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 6])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", sorted(ROUTE_SYSTEMS))
+def test_loop_equals_the_full_recurrence(name, dtype, degree, batch):
+    """An application off the card (precond.chebyshev_loop, degree - 1
+    SpMVs) gives bit for bit the z of the JAX package's recurrence of
+    degree SpMVs, signs of zeros included; v unchanged."""
+    A = ROUTE_SYSTEMS[name](dtype)
+    rng = np.random.default_rng(11)
+    v = torch.from_numpy(rng.standard_normal((batch or 1, A.shape[0]))).to(dtype)
+    v[:, :4] = -0.0
+    if batch is None:
+        v = v[0]
+    kept = v.clone()
+    want = _jax_recurrence(A, v, 0.05, 7.9, degree)
+    got = precond.ChebyshevPreconditioner(A, 0.05, 7.9, degree).matvec(v, Context())
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(v), _bits(kept))
+
+
+def test_chebyshev_step_refuses_a_cpu_tensor():
+    """The Chebyshev step runs on the card alone: on a CPU tensor it raises
+    (precond.fused_route never sends one there)."""
+    from krylov_tpu_torch.kernels import stencil
+
+    A = fixtures.laplace2d(6, 5)
+    v = torch.ones(A.shape[0], dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil.chebyshev_apply(A, v, *precond.chebyshev_schedule(0.05, 7.9, 3))
