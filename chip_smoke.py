@@ -203,14 +203,14 @@ BENCH_BUDGET = 240
 # counts of the hand kernels in its process as a last line
 EXAMPLE_RUNNER = """
 import json, runpy, sys
-from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
+from krylov_tpu_torch import tracing
 name = sys.argv[1]
 sys.argv = [name, "--device", "cuda"]
 runpy.run_module("krylov_tpu_torch.examples." + name, run_name="__main__", alter_sys=True)
-counts = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches, "chebyshev_apply": stencil.chebyshev_apply.launches}
-for fn in (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipcg_solve_2d,
-           fused_kskip.fused_kskipmrr_solve_2d):
-    counts[fn.__name__] = [fn.launches_resident, fn.launches_streaming]
+t = tracing.totals
+counts = {"stencil_matvec_2d": t.stencil_matvec_2d.launches, "chebyshev_apply": t.chebyshev_apply.launches}
+for fn in ("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d", "fused_kskipmrr_solve_2d"):
+    counts[fn] = [getattr(t, fn).resident, getattr(t, fn).streaming]
 print("launches " + json.dumps(counts), flush=True)
 """
 # chunked against unbroken eager solves: the same loop bodies on the same
@@ -618,19 +618,21 @@ def true_rel(A_csr, b, x) -> float:
     return float(np.linalg.norm(b64 - A_csr @ x64) / np.linalg.norm(b64))
 
 
+def launched(fn):
+    """The launch counts of the hand kernel ``fn``: ``tracing.totals.<its name>``."""
+    from krylov_tpu_torch import tracing
+    return getattr(tracing.totals, fn.__name__)
+
+
 def reset(fns) -> None:
     for fn in fns:
-        fn.launches = 0
-        for name in ("launches_resident", "launches_streaming", *(f"launches_ns{ns}" for ns in K4_PASSES),
-                     *(f"launches_streaming_ns{ns}" for ns in K4_PASSES)):
-            if hasattr(fn, name):
-                setattr(fn, name, 0)
+        vars(launched(fn)).update(dict.fromkeys(vars(launched(fn)), 0))
 
 
 def pass_counts(fns) -> dict:
     """``{name: {ns: resident launches}}`` of the K2/K3/K5/K6 wrappers, by
     the specialisation of K4 each resident launch took."""
-    return {fn.__name__: {ns: getattr(fn, f"launches_ns{ns}") for ns in K4_PASSES} for fn in fns}
+    return {fn.__name__: {ns: getattr(launched(fn), f"resident_ns{ns}") for ns in K4_PASSES} for fn in fns}
 
 
 def check_passes(label: str, fns, before: dict, want: int) -> dict:
@@ -680,13 +682,13 @@ def main_path_digests() -> int:
 def route_counts(fns) -> dict:
     """``{name: (resident, streaming)}`` launches of the K2/K3 or K5/K6
     wrappers."""
-    return {fn.__name__: (fn.launches_resident, fn.launches_streaming) for fn in fns}
+    return {fn.__name__: (launched(fn).resident, launched(fn).streaming) for fn in fns}
 
 
 def check_launched(path: str, fns) -> dict:
     """The launch counts of ``fns`` since :func:`reset`; raises when one of
     them never launched."""
-    counts = {fn.__name__: fn.launches for fn in fns}
+    counts = {fn.__name__: launched(fn).launches for fn in fns}
     phase(f"{path} launches: {counts}")
     for name, count in counts.items():
         if count < 1:
@@ -796,12 +798,11 @@ def row5_phase(dev, fused_kskip, stencil) -> dict:
         reset((k5, stencil.stencil_matvec_2d))
         res = krylov_tpu_torch.solve_device(A, b_np, **ROW5)
         x, info = krylov_tpu_torch.solve(A, b_np, **ROW5)
-        routes = (k5.launches_resident, k5.launches_streaming)
-        launches[0] += routes[0]
-        launches[1] += routes[1]
-        launches_ns7 += k5.launches_streaming_ns7
-        if k5.launches_streaming_ns7 != routes[1]:
-            failures.append(f"row 5 {name}: {routes[1] - k5.launches_streaming_ns7} streaming launches did not take "
+        routes = (launched(k5).resident, launched(k5).streaming)
+        launches = [a + b for a, b in zip(launches, routes)]
+        launches_ns7 += launched(k5).streaming_ns7
+        if launched(k5).streaming_ns7 != routes[1]:
+            failures.append(f"row 5 {name}: {routes[1] - launched(k5).streaming_ns7} streaming launches did not take "
                             f"the pass specialised on 7 terms")
         idx = int(res.index)
         got_dev = (int(res.iterations), idx, res.nosl_trace[:idx + 1].tolist(), res.k_trace[:idx + 1].tolist(),
@@ -810,11 +811,11 @@ def row5_phase(dev, fused_kskip, stencil) -> dict:
                info["final_k"])
         rel_dev, rel = laplace3d_rel(b_np, res.x, n3), laplace3d_rel(b_np, x, n3)
         phase(f"row 5 {name} N={n}: plan {p.route}, {p.blocks} blocks of {p.threads}; K5 launches (resident, "
-              f"streaming) {routes}, K1 {stencil.stencil_matvec_2d.launches}; solve: iters {got[0]}, outer {got[1]}, "
-              f"final k {got[4]}, converged {info['converged']}, recurred res {info['residual'][-1]:.6e}, device "
-              f"true res {info['true_residual']:.6e}, host f64 true res {rel:.6e}, solve() wall "
-              f"{info['time'] * 1e3:.3f} ms; solve_device: iters {got_dev[0]}, outer {got_dev[1]}, host f64 true res "
-              f"{rel_dev:.6e}; khistory {got[3]}")
+              f"streaming) {routes}, K1 {launched(stencil.stencil_matvec_2d).launches}; solve: iters {got[0]}, "
+              f"outer {got[1]}, final k {got[4]}, converged {info['converged']}, recurred res "
+              f"{info['residual'][-1]:.6e}, device true res {info['true_residual']:.6e}, host f64 true res {rel:.6e}, "
+              f"solve() wall {info['time'] * 1e3:.3f} ms; solve_device: iters {got_dev[0]}, outer {got_dev[1]}, host "
+              f"f64 true res {rel_dev:.6e}; khistory {got[3]}")
         if routes[0] or routes[1] < 2:
             failures.append(f"row 5 {name}: K5 launches by route {routes}, not streaming alone")
         if got_dev != got:
@@ -840,10 +841,10 @@ def row5_phase(dev, fused_kskip, stencil) -> dict:
             krylov_tpu_torch.solve_device(A, b_dev[SEEDS[0]], **ROW5, **kw)  # warm-up
             runs = []
             for s in SEEDS:
-                before = k5.launches
+                before = launched(k5).launches
                 t, r = cuda_ms(lambda: krylov_tpu_torch.solve_device(A, b_dev[s], **ROW5, **kw))
                 runs.append((t, int(r.index), int(r.iterations), r.k_trace[:int(r.index) + 1].tolist(),
-                             k5.launches - before))
+                             launched(k5).launches - before))
             runs.sort()
             t, outer, iters, kh, k5_calls = runs[1]
             words = sum(kskip_sweep_words("kskipmrr", kk, True) for kk in kh[1:])
@@ -907,10 +908,10 @@ def row5_phase(dev, fused_kskip, stencil) -> dict:
             maxiter = first_outer(m, k, 1) if first else ROW5["maxiter"]
             fn = k5 if m != "kskipcg" else fused_kskip.fused_kskipcg_solve_2d
             tp, want = cuda_ms(lambda: kskip_call(m, k, A, b, ROW5["tol"], maxiter, plain=True, plain64=first))
-            before = (fn.launches_resident, fn.launches_streaming)
+            before = (launched(fn).resident, launched(fn).streaming)
             t_runs = [cuda_ms(lambda: kskip_call(m, k, A, b, ROW5["tol"], maxiter)) for _ in range(3)]
             tk, got = sorted(t_runs, key=lambda r: r[0])[1][0], t_runs[-1][1]
-            routed = (fn.launches_resident - before[0], fn.launches_streaming - before[1])
+            routed = (launched(fn).resident - before[0], launched(fn).streaming - before[1])
             label = (f"{'K6' if m == 'kskipcg' else 'K5'} streaming {m} k={k} laplace3d({ROW5_MID}, constant) {name}"
                      + (f", maxiter {maxiter} against float64" if first else ""))
             err = held(failures, compare_kskip, label, got, want, **KSKIP_FULL[m, k, name])
@@ -1036,9 +1037,9 @@ def streaming(dev, fused, stencil) -> dict:
                                  f"constant) {name}, maxiter {MAXITER_STREAM}, {p.blocks} blocks", got, want,
                                  **TOLS[name])
             launches = routes[kern.__name__][1]
-            if launches != 1 or routes[kern.__name__][0] or kern.launches_streaming_ns5 != 1:
+            if launches != 1 or routes[kern.__name__][0] or launched(kern).streaming_ns5 != 1:
                 raise AssertionError(f"the streaming phase did not launch {m} on the streaming route with the pass "
-                                     f"specialised on 5 terms: {routes}, NS 5 {kern.launches_streaming_ns5}")
+                                     f"specialised on 5 terms: {routes}, NS 5 {launched(kern).streaming_ns5}")
             stream_pass_alone(fused, stencil, m, A.coef, b, A.stencil, A.grid, None, 5, name)
             iters = int(got[2])
             words = fused.stream_words(m, form)
@@ -1111,13 +1112,13 @@ def row5_k23_phase(dev, fused, stencil) -> dict:
             reset((*k23.values(), stencil.stencil_matvec_2d))
             res = krylov_tpu_torch.solve_device(A, b_np, **kw)
             x, info = krylov_tpu_torch.solve(A, b_np, **kw)
-            routes = (fn.launches_resident, fn.launches_streaming, fn.launches_streaming_ns7)
+            routes = (launched(fn).resident, launched(fn).streaming, launched(fn).streaming_ns7)
             launches[m] += routes[1]
             rel_dev, rel = laplace3d_rel(b_np, res.x, n3), laplace3d_rel(b_np, x, n3)
             xe, ie = krylov_tpu_torch.solve(A, b_np, **kw, fused=False)
             rel_e = laplace3d_rel(b_np, xe, n3)
             phase(f"{label} N={n}: launches (resident, streaming, streaming NS 7) {routes}, K1 "
-                  f"{stencil.stencil_matvec_2d.launches}; solve: iters {info['iterations']}, converged "
+                  f"{launched(stencil.stencil_matvec_2d).launches}; solve: iters {info['iterations']}, converged "
                   f"{info['converged']}, recurred res {info['residual'][-1]:.6e}, host f64 true res {rel:.6e}; "
                   f"solve_device: iters {int(res.iterations)}, host f64 true res {rel_dev:.6e}; eager loop "
                   f"(fused=False): iters {ie['iterations']}, converged {ie['converged']}, host f64 true res "
@@ -1470,9 +1471,9 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
               f"{Ms['chebyshev6'].lmax:.9g}], set-up {time.perf_counter() - t0:.2f} s")
         for run in PRECOND_RUNS:
             m, p, k = run
-            stencil.stencil_matvec_2d.launches = 0
+            launched(stencil.stencil_matvec_2d).launches = 0
             x, info = krylov_tpu_torch.solve(A, b_np, method=m, M=Ms[p], k=k, tol=TOL, maxiter=MAXITER)
-            launches = stencil.stencil_matvec_2d.launches
+            launches = launched(stencil.stencil_matvec_2d).launches
             total += launches
             if dt == f64 and p == "none":
                 solves[m, k] = (x, info)
@@ -1551,9 +1552,9 @@ def chebyshev_step_phase(ops, stencil) -> tuple:
             if batch is None:
                 v = v[0].clone()
             kept = v.clone()
-            before = stencil.chebyshev_apply.launches
+            before = launched(stencil.chebyshev_apply).launches
             got = stencil.chebyshev_apply(A, v, theta, steps)
-            launches = stencil.chebyshev_apply.launches - before
+            launches = launched(stencil.chebyshev_apply).launches - before
             want = precond.chebyshev_loop(A, v, theta, steps, Context())
             same = torch.equal(got.view(bits), want.view(bits)) and torch.equal(v.view(bits), kept.view(bits))
             err = float((got - want).abs().max())
@@ -1613,9 +1614,9 @@ def chunked(A, b_np, A_csr, fused, fused_kskip, stencil, unbroken: dict) -> dict
         if (m, k) not in unbroken:
             unbroken[m, k] = krylov_tpu_torch.solve(A, b_np, fused=False, **kw)
         _, whole = unbroken[m, k]
-        stencil.stencil_matvec_2d.launches = 0
+        launched(stencil.stencil_matvec_2d).launches = 0
         x, info = krylov_tpu_torch.solve(A, b_np, chunk_iters=CHUNK_ITERS, **kw)
-        k1 = stencil.stencil_matvec_2d.launches
+        k1 = launched(stencil.stencil_matvec_2d).launches
         launches["K1"] += k1
         true_res = true_rel(A_csr, b_np, x)
         m_res = len(info["residual"]) == len(whole["residual"])
@@ -1645,14 +1646,14 @@ def chunked(A, b_np, A_csr, fused, fused_kskip, stencil, unbroken: dict) -> dict
         reset((fn, stencil.stencil_matvec_2d))
         x, info = krylov_tpu_torch.solve(A, b_np, method=m, k=k, tol=TOL, maxiter=MAXITER, chunk_iters=CHUNK_ITERS,
                                          fused=True)
-        res, stream = fn.launches_resident, fn.launches_streaming
+        res, stream = launched(fn).resident, launched(fn).streaming
         launches[fn.__name__] += res + stream
-        launches["K1"] += stencil.stencil_matvec_2d.launches
+        launches["K1"] += launched(stencil.stencil_matvec_2d).launches
         true_res = true_rel(A_csr, b_np, x)
         phase(f"chunked {m}{f' k={k}' if k else ''} float64 fused=True (warm restarts), chunks of {CHUNK_ITERS}: "
               f"iters {info['iterations']} (unbroken {CHUNK_RUNS[m, k]}), chunks {info['chunks']}, converged "
               f"{info['converged']}, host f64 true res {true_res:.6e}, {fn.__name__} launches (resident, streaming) "
-              f"({res}, {stream}), K1 launches (x0 shifts) {stencil.stencil_matvec_2d.launches}; "
+              f"({res}, {stream}), K1 launches (x0 shifts) {launched(stencil.stencil_matvec_2d).launches}; "
               f"{info['time'] * 1e3:.3f} ms a solve")
         if not (res == info["chunks"] and stream == 0 and info["converged"] and true_res < TOL):
             failures.append(f"fused chunks {m}: {res} resident and {stream} streaming launches for "
@@ -1688,7 +1689,7 @@ def checkpoint_phase(A, b_np, A_csr, fused_kskip) -> int:
             keys = sorted(z.files)
         x_saved, state = checkpoint.load(path)
         x, info = checkpoint.resume(A, b_np, path, maxiter=MAXITER, **kw)
-    launches = fused_kskip.fused_kskipmrr_solve_2d.launches
+    launches = launched(fused_kskip.fused_kskipmrr_solve_2d).launches
     true_res = true_rel(A_csr, b_np, x)
     phase(f"checkpoint: first chunk {info1['iterations']} iterations (true res {true_rel(A_csr, b_np, x1):.6e}), "
           f"keys {keys}; resumed from {state['meta']['iterations']}: iters {info['iterations']}, converged "
@@ -1750,17 +1751,17 @@ def batched_kskip(A, A_csr, hyb, dev, stencil) -> int:
     for op, rhs, m, k, label in ((A, B, "kskipcg", 4, "stencil"), (A, B, "kskipmrr", 4, "stencil"),
                                  (A, B, "adaptivekskipmrr", 8, "stencil"), (H, BH, "kskipmrr", 4, "HYB")):
         kw = dict(method=m, k=k, tol=TOL, maxiter=MAXITER, fused=False)
-        stencil.stencil_matvec_2d.launches = 0
+        launched(stencil.stencil_matvec_2d).launches = 0
         t_batch, res = cuda_ms(lambda: krylov_tpu_torch.solve_batched(op, rhs, **kw))
-        k1_batch = stencil.stencil_matvec_2d.launches
+        k1_batch = launched(stencil.stencil_matvec_2d).launches
         total += k1_batch
         solos, k1_solo = [], []
 
         def run_solos():
             for b in rhs:
-                stencil.stencil_matvec_2d.launches = 0
+                launched(stencil.stencil_matvec_2d).launches = 0
                 solos.append(krylov_tpu_torch.solve_device(op, b, **kw))
-                k1_solo.append(stencil.stencil_matvec_2d.launches)
+                k1_solo.append(launched(stencil.stencil_matvec_2d).launches)
 
         t_solo, _ = cuda_ms(run_solos)
         x_rel = max(rel_err(res.x[j], s.x) for j, s in enumerate(solos))
@@ -1834,17 +1835,17 @@ def batched_eager(ops, A_csr, B, stencil) -> int:
             if m in ("cacg", "camrr"):
                 kw["spectral_bounds"] = bounds
             mixed[0] = 0
-            stencil.stencil_matvec_2d.launches = 0
+            launched(stencil.stencil_matvec_2d).launches = 0
             t_batch, res = cuda_ms(lambda: krylov_tpu_torch.solve_batched(A, B, **kw))
-            k1_batch, n_mixed = stencil.stencil_matvec_2d.launches, mixed[0]
+            k1_batch, n_mixed = launched(stencil.stencil_matvec_2d).launches, mixed[0]
             total += k1_batch
             solos, k1_solo = [], []
 
             def run_solos():
                 for b in B:
-                    stencil.stencil_matvec_2d.launches = 0
+                    launched(stencil.stencil_matvec_2d).launches = 0
                     solos.append(krylov_tpu_torch.solve_device(A, b, **kw))
-                    k1_solo.append(stencil.stencil_matvec_2d.launches)
+                    k1_solo.append(launched(stencil.stencil_matvec_2d).launches)
 
             t_solo, _ = cuda_ms(run_solos)
             true_res = max(true_rel(A_csr, B[j].cpu().numpy(), res.x[j]) for j in range(NRHS))
@@ -1933,10 +1934,8 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     for f in failures:
         phase(f"  FAILED: {f}")
     raise_failures("phase 18", failures)
-    launches = {"stencil_matvec_2d": stencil.stencil_matvec_2d.launches,
-                "chebyshev_apply": stencil.chebyshev_apply.launches}
-    launches.update(route_counts(counted[1:]))
-    return launches
+    launches = {fn.__name__: launched(fn).launches for fn in (stencil.stencil_matvec_2d, stencil.chebyshev_apply)}
+    return {**launches, **route_counts(counted[1:])}
 
 
 def graph_k1_check(A, b_np, stencil, failures: list) -> None:
@@ -1963,12 +1962,12 @@ def graph_k1_check(A, b_np, stencil, failures: list) -> None:
     for label, M in (("M=None", None), ("M=chebyshev6", precond.chebyshev(A, degree=6))):
         for run in ("capture", "replay", "replay"):
             torch.cuda.synchronize()
-            before = {key: fn.launches for key, (fn, _) in kernels.items()}
+            before = {key: launched(fn).launches for key, (fn, _) in kernels.items()}
             captures, replays, calls, fused = g.captures, g.replays, applied.calls, applied.fused
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 res = krylov_tpu_torch.solve_device(A, b, method="pcg", M=M, tol=TOL, maxiter=MAXITER)
                 torch.cuda.synchronize()
-            counted = {key: fn.launches - before[key] for key, (fn, _) in kernels.items()}
+            counted = {key: launched(fn).launches - before[key] for key, (fn, _) in kernels.items()}
             recorded = {key: sum(evt.count for evt in prof.key_averages()
                                  if name in evt.key and evt.device_type == DeviceType.CUDA)
                         for key, (_, name) in kernels.items()}
@@ -2147,7 +2146,7 @@ def fixup_on_card(ops, stencil) -> None:
             want = stencil.stencil_matvec(A, x)
             kind, arrays, offsets, strategy, grid = partition(A, P)
             n, parts = A.shape[0] // P, []
-            launches = stencil.stencil_matvec_2d.launches
+            launches = launched(stencil.stencil_matvec_2d).launches
             for rank in range(P):
                 op = ShardedOperator(kind=kind, arrays=local_block(kind, arrays, P, rank), offsets=offsets,
                                      shape=A.shape, n_devices=P, strategy=strategy, rank=rank, grid=grid)
@@ -2156,7 +2155,7 @@ def fixup_on_card(ops, stencil) -> None:
                 top = x[:, s0 - plane: s0].contiguous() if rank > 0 else None
                 bottom = x[:, s0 + n: s0 + n + plane].contiguous() if rank < P - 1 else None
                 parts.append(stencil_boundary(op, x_l, stencil_bulk(op, x_l), top, bottom))
-            launches = stencil.stencil_matvec_2d.launches - launches
+            launches = launched(stencil.stencil_matvec_2d).launches - launches
             got = torch.cat(parts, -1)
             err = rel_err(got, want)
             phase(f"sharded stencil matvec at 4 ranks, laplace2d({NX}) {label} {dt}, (2, n) block: {launches} K1 "
@@ -2221,9 +2220,9 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
             nonlocal k1_total
             x_e, i_e = krylov_tpu_torch.solve(A_, b_, fused=False, **kw)
             want_iters = i_e["iterations"] if want_iters is None else want_iters
-            stencil.stencil_matvec_2d.launches, all_reduce.calls, gathers = 0, 0, sharded_matvec.gather_bytes
+            launched(stencil.stencil_matvec_2d).launches, all_reduce.calls, gathers = 0, 0, sharded_matvec.gather_bytes
             x_s, i_s = krylov_tpu_torch.solve(A_, b_, mesh=mesh, **kw)
-            k1, reduces = stencil.stencil_matvec_2d.launches, all_reduce.calls
+            k1, reduces = launched(stencil.stencil_matvec_2d).launches, all_reduce.calls
             k1_total += k1
             true_res = float(np.linalg.norm(b_ - A_csr_ @ x_s.double().cpu().numpy()) / np.linalg.norm(b_))
             phase(f"sharded {label}: iters {i_s['iterations']} (eager {i_e['iterations']}, want {want_iters}), "
@@ -2265,13 +2264,13 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
             if m == "cacg":
                 kw["spectral_bounds"] = bounds
             eager = krylov_tpu_torch.solve_batched(A, B4, **kw)
-            stencil.stencil_matvec_2d.launches, all_reduce.calls = 0, 0
+            launched(stencil.stencil_matvec_2d).launches, all_reduce.calls = 0, 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = krylov_tpu_torch.solve_batched(A, B4, mesh=mesh, **kw)
             torch.cuda.synchronize()
             t_batch = time.perf_counter() - t0
-            k1, reduces = stencil.stencil_matvec_2d.launches, all_reduce.calls
+            k1, reduces = launched(stencil.stencil_matvec_2d).launches, all_reduce.calls
             k1_total += k1
             solo_reduces, t_solo = [], 0.0
             for b in B4:
@@ -2514,18 +2513,18 @@ def degenerate_phase(ops, A_csr, B, fused, fused_kskip, stencil) -> dict:
             fused.ROUTE = None if route == "eager" else route
             try:
                 run = dict(kw, fused=False) if route == "eager" else kw
-                before = {fn.__name__: fn.launches for fn in counted}
-                before_route = {fn.__name__: getattr(fn, f"launches_{route}", 0) for fn in fused_fns}
+                before = {fn.__name__: launched(fn).launches for fn in counted}
+                before_route = {fn.__name__: getattr(launched(fn), route, 0) for fn in fused_fns}
                 x, info = krylov_tpu_torch.solve(A, b_exact, x0=x0, **run)
-                warm = {fn.__name__: fn.launches - before[fn.__name__] for fn in fused_fns}
-                on_route = sum(getattr(fn, f"launches_{route}", 0) - before_route[fn.__name__] for fn in fused_fns)
+                warm = {fn.__name__: launched(fn).launches - before[fn.__name__] for fn in fused_fns}
+                on_route = sum(getattr(launched(fn), route, 0) - before_route[fn.__name__] for fn in fused_fns)
                 for name, v in warm.items():
                     warm_launches[name] += v
                 ok_warm = (torch.equal(x, x0) and info["converged"] and info["iterations"] <= (
                     0 if m == "chronopoulos_gear" else 1) and (route == "eager" or on_route == sum(warm.values()) == 1))
-                before = {fn.__name__: fn.launches for fn in counted}
+                before = {fn.__name__: launched(fn).launches for fn in counted}
                 xz, infoz = krylov_tpu_torch.solve(A, b_zero, x0=x0, **run)
-                zero_launches = {name: fn.launches - before[name] for name, fn in zip(before, counted)}
+                zero_launches = {name: launched(fn).launches - before[name] for name, fn in zip(before, counted)}
             finally:
                 fused.ROUTE = None
             ok_zero = (bool((xz == 0).all()) and xz.dtype == x0.dtype and infoz["converged"]
@@ -2544,12 +2543,12 @@ def degenerate_phase(ops, A_csr, B, fused, fused_kskip, stencil) -> dict:
     tol = torch.tensor(TOL, dtype=B.dtype, device=B.device)
     for m, on_fused, fn in (("mrr", True, fused.fused_mrr_solve_2d), ("cg", False, stencil.stencil_matvec_2d)):
         kw = dict(method=m, tol=tol, maxiter=MAXITER, fused=None if on_fused else False)
-        before = fn.launches
+        before = launched(fn).launches
         res = krylov_tpu_torch.solve_batched(A, Bz, **kw)
-        launched = fn.launches - before
-        before = fn.launches
+        ran = launched(fn).launches - before
+        before = launched(fn).launches
         alone = krylov_tpu_torch.solve_batched(A, B.index_select(0, keep), **kw)
-        launched_alone = fn.launches - before
+        ran_alone = launched(fn).launches - before
         same = all(torch.equal(res.x[j], alone.x[i]) and int(res.iterations[j]) == int(alone.iterations[i])
                    and torch.equal(res.residual_trace[j, : int(alone.index[i]) + 1],
                                    alone.residual_trace[i, : int(alone.index[i]) + 1])
@@ -2559,10 +2558,10 @@ def degenerate_phase(ops, A_csr, B, fused, fused_kskip, stencil) -> dict:
         true_res = max(true_rel(A_csr, B[j].cpu().numpy(), res.x[j]) for j in keep.tolist())
         phase(f"degenerate batch {m} {'fused' if on_fused else 'eager'}, {B.shape[0]} RHS with member 3 zero: "
               f"iterations {res.iterations.tolist()}, the others bitwise the batch without it {same}, member 3 x = 0 "
-              f"and converged at 0 iterations {zero_ok}; {fn.__name__} launches {launched} (batch without member 3: "
-              f"{launched_alone}); host f64 true res max {true_res:.3e}")
-        if not (same and zero_ok and launched == launched_alone and true_res < TOL
-                and (not on_fused or launched == B.shape[0] - 1)):
+              f"and converged at 0 iterations {zero_ok}; {fn.__name__} launches {ran} (batch without member 3: "
+              f"{ran_alone}); host f64 true res max {true_res:.3e}")
+        if not (same and zero_ok and ran == ran_alone and true_res < TOL
+                and (not on_fused or ran == B.shape[0] - 1)):
             failures.append(f"degenerate batch {m}: a zero member changed the batch")
     raise_failures("phase 5c", failures)
     return warm_launches
@@ -3089,8 +3088,8 @@ def smoke(tmp: str, started: list) -> int:
     err, ms_, plain_ms, bnd, timed_by = cheb
     kernels.append(dict(entry("chebyshev_apply (the Chebyshev step)", "krylov_tpu_torch/kernels/csrc/stencil.cu",
                               "krylov_tpu/precond.py:188 (ChebyshevPreconditioner.matvec: no TPU kernel)",
-                              stencil.chebyshev_apply.launches + more("chebyshev_apply", 0), err, ms_, plain_ms,
-                              bnd),
+                              launched(stencil.chebyshev_apply).launches + more("chebyshev_apply", 0), err, ms_,
+                              plain_ms, bnd),
                         shape=f"laplace2d({NX}, constant) float64, degree 6, (n,)", timed_by=timed_by))
     kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}

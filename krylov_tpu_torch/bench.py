@@ -296,6 +296,7 @@ class Bench:
         """2. The build, the checked first solve of the baseline's ``b``,
         then the timed fresh right-hand sides."""
         import krylov_tpu_torch
+        from krylov_tpu_torch import tracing
         from krylov_tpu_torch.kernels import _build
 
         a, e = self.args, self.extra
@@ -325,8 +326,8 @@ class Bench:
                            f"{got} iterations, the NumPy {e['baseline_method']} baseline {base} (within {slack:g})")
 
         _stage(f"headline: {TRIALS} fresh right-hand sides of solve_device")
-        fn = self.wrapper()
-        before = fn.launches_resident, fn.launches_streaming
+        launched = getattr(tracing.totals, self.wrapper().__name__)
+        before = launched.resident, launched.streaming
         trials = []
         for _ in range(TRIALS):
             b = self.fresh(self.n)
@@ -337,7 +338,7 @@ class Bench:
 
             secs, host, (res, iters) = self.timed(one)
             trials.append((secs, host, res, iters, b))
-        route = {"resident": fn.launches_resident - before[0], "streaming": fn.launches_streaming - before[1]}
+        route = {"resident": launched.resident - before[0], "streaming": launched.streaming - before[1]}
         trials.sort(key=lambda t: t[0])
         secs, host, res, iters, b = trials[TRIALS // 2]
         self.time_to_solution_s = secs

@@ -30,10 +30,9 @@ import torch
 import torch.distributed as dist
 
 import krylov_tpu_torch
-from krylov_tpu_torch import precond
+from krylov_tpu_torch import precond, tracing
 from krylov_tpu_torch.context import all_reduce
 from krylov_tpu_torch.dist.spmv import sharded_matvec
-from krylov_tpu_torch.kernels import stencil
 from krylov_tpu_torch.sparse import convert, fixtures
 from krylov_tpu_torch.sparse.formats import to_device
 
@@ -96,10 +95,10 @@ def main_path(mesh, nx: int) -> dict:
         ms = {"eager": [], "sharded": []}
         for route in runs:
             if route == "sharded":
-                counts = (stencil.stencil_matvec_2d.launches, all_reduce.calls, sharded_matvec.halo_bytes)
+                counts = (tracing.totals.stencil_matvec_2d.launches, all_reduce.calls, sharded_matvec.halo_bytes)
                 x, info = krylov_tpu_torch.solve(A, b, mesh=mesh, **kw)
                 k1, reduces, halo = (now - then for now, then in zip(
-                    (stencil.stencil_matvec_2d.launches, all_reduce.calls, sharded_matvec.halo_bytes), counts))
+                    (tracing.totals.stencil_matvec_2d.launches, all_reduce.calls, sharded_matvec.halo_bytes), counts))
                 sharded = info
             else:
                 x_e, eager = krylov_tpu_torch.solve(A, b, fused=False, **kw)

@@ -368,7 +368,7 @@ __device__ __forceinline__ void stencil_pass(const StencilGeom& g, const T* __re
 // path's instances (4 points a thread, NS 5) take a specialised form only
 // where their solves beat the masked pass's in 9 of 10 alternating pairs,
 // the medians further apart than the masked pass's own quartiles
-// (diagnostics/resident_timing.py --against), else kMasked.  The others
+// (two builds' solves timed in turns on one card), else kMasked.  The others
 // take kPredicated, but kMasked where it spilled more than the masked pass
 // (nvcc -Xptxas -v).
 constexpr int pass_shape(int K, bool f64, int ppt, int ns) {

@@ -27,11 +27,12 @@ the shift ``A (x0 + dx) = b  =>  A dx = b - A x0``, so both solve from zero.
 Each returns ``(x, trace, iters, conv)``: ``trace`` has
 ``min(maxiter, TRACE_CAP) + 1`` slots and a solve running past the cap
 keeps iterating, recording its residuals in the last slot.  Each wrapper
-counts its launches in ``launches``, and by route in ``launches_resident``
-and ``launches_streaming``; its resident launches also by the
-specialisation of K4, the stencil pass inside them (:func:`pass_terms`), in
-``launches_ns0``, ``launches_ns5`` and ``launches_ns7``, and its streaming
-ones by their pass in ``launches_streaming_ns0`` and so on.
+counts its launches in ``tracing.totals.<its name>`` (:func:`count_launch`):
+``launches``, by route in ``resident`` and ``streaming``, its resident
+launches also by the specialisation of K4, the stencil pass inside them
+(:func:`pass_terms`), in ``resident_ns0``, ``resident_ns5`` and
+``resident_ns7``, and its streaming ones by their pass in
+``streaming_ns0`` and so on.
 """
 
 from __future__ import annotations
@@ -397,22 +398,11 @@ def stream_probe(coef, v, method: str, pass_name: str, *, stencil, grid, sub=Non
     return work.view(-1, v.numel())
 
 
-def _count(fn, route: str, ns_pass) -> None:
-    """One launch of ``fn`` on ``route``; a resident one also under its K4
-    specialisation ``ns_pass``, a streaming one that names its pass under
-    ``launches_streaming_ns{ns_pass}``."""
-    fn.launches += 1
-    setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
-    if route == "resident":
-        setattr(fn, f"launches_ns{ns_pass}", getattr(fn, f"launches_ns{ns_pass}") + 1)
-    elif ns_pass is not None:
-        setattr(fn, f"launches_streaming_ns{ns_pass}", getattr(fn, f"launches_streaming_ns{ns_pass}") + 1)
-
-
-def reset_counts(fn) -> None:
-    """Set every launch count of the fused wrapper ``fn`` to 0."""
-    for name in COUNTS:
-        setattr(fn, name, 0)
+def count_launch(name: str, route: str, ns_pass) -> None:
+    """One launch of the wrapper ``name`` on ``route``, in
+    ``tracing.totals.<name>``: under ``launches``, ``route`` and, where it
+    names its stencil pass (a resident one always does), ``<route>_ns<ns_pass>``."""
+    tracing.count(name, "launches", route, *(() if ns_pass is None else (f"{route}_ns{ns_pass}",)))
 
 
 def _scalars(b, tol, b_norm):
@@ -504,7 +494,7 @@ def fused_cg_solve_2d(
         )
     with tracing.span("launch"):
         out, route, ns_pass = _launch("cg", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
-    _count(fused_cg_solve_2d, route, ns_pass)
+    count_launch("fused_cg_solve_2d", route, ns_pass)
     return out
 
 
@@ -519,13 +509,5 @@ def fused_mrr_solve_2d(
         )
     with tracing.span("launch"):
         out, route, ns_pass = _launch("mrr", coef, b, tol, b_norm, stencil, grid, maxiter, sub)
-    _count(fused_mrr_solve_2d, route, ns_pass)
+    count_launch("fused_mrr_solve_2d", route, ns_pass)
     return out
-
-
-# the launch counts of each fused wrapper (K2/K3 here, K5/K6 in fused_kskip;
-# streaming launches also by their pass, the streaming form of K4)
-COUNTS = ("launches", "launches_resident", "launches_streaming", *(f"launches_ns{n}" for n in (0, *PASS_TERMS)),
-          *(f"launches_streaming_ns{n}" for n in (0, *PASS_TERMS)))
-for _fn in (fused_cg_solve_2d, fused_mrr_solve_2d):
-    reset_counts(_fn)

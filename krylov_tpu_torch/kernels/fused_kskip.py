@@ -25,12 +25,8 @@ a CPU tensor the wrappers run the plain PyTorch versions beside them, which
 are the eager loops of :mod:`krylov_tpu_torch.solvers` on the stencil
 operator.  Both solve from x0 = 0 (the caller shifts for x0).  ``k`` is a
 runtime value in ``[0, k_max]``.  Each wrapper counts its launches in
-``launches``, by route in ``launches_resident`` and
-``launches_streaming``, its resident launches by K4's specialisation in
-``launches_ns0``, ``launches_ns5`` and ``launches_ns7``
-(:func:`krylov_tpu_torch.kernels.fused.pass_terms`), and its streaming
-launches by their pass in ``launches_streaming_ns0``, ``_ns5`` and
-``_ns7``.
+``tracing.totals.<its name>`` as K2/K3 do
+(:func:`krylov_tpu_torch.kernels.fused.count_launch`).
 
 Traces have ``min(maxiter, TRACE_CAP) + 2`` slots, indexed by the outer
 iteration; a solve past the cap keeps iterating and records in the last
@@ -323,7 +319,7 @@ def fused_kskipcg_solve_2d(
         (x, trace, nosl, _, stats), route, ns_pass = _launch(
             "kskipcg", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, False, sub
         )
-    fused._count(fused_kskipcg_solve_2d, route, ns_pass)
+    fused.count_launch("fused_kskipcg_solve_2d", route, ns_pass)
     return x, trace, nosl, stats[0], stats[1].bool(), stats[2]
 
 
@@ -343,9 +339,5 @@ def fused_kskipmrr_solve_2d(
         (x, trace, nosl, ktrace, stats), route, ns_pass = _launch(
             "kskipmrr", coef, b, tol, b_norm, _check_k(k, k_max), stencil, grid, maxiter, k_max, adaptive, sub
         )
-    fused._count(fused_kskipmrr_solve_2d, route, ns_pass)
+    fused.count_launch("fused_kskipmrr_solve_2d", route, ns_pass)
     return x, trace, nosl, ktrace, stats[0], stats[1].bool(), stats[2], stats[3]
-
-
-for _fn in (fused_kskipcg_solve_2d, fused_kskipmrr_solve_2d):
-    fused.reset_counts(_fn)

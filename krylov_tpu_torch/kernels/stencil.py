@@ -22,6 +22,8 @@ The Chebyshev step (:func:`chebyshev_apply`) is K1 with a Chebyshev
 preconditioner's vector updates in its epilogue: a degree-d application on
 a stencil operator on the card in d - 1 launches of ``cheb_step2d_kernel``
 (one of ``cheb_scale_kernel`` at degree 1), from the same parameters.
+Their launches count in ``tracing.totals.stencil_matvec_2d`` and
+``tracing.totals.chebyshev_apply`` (:func:`krylov_tpu_torch.tracing.count`).
 """
 
 from __future__ import annotations
@@ -184,17 +186,8 @@ def stencil_matvec_2d(
         with torch.cuda.device(index):
             err = lib.krylov_stencil2d(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check(err, "stencil_matvec_2d")
-    if torch.cuda.is_current_stream_capturing():
-        stencil_matvec_2d.captured += 1  # recorded into a CUDA graph: its replays launch it
-    else:
-        stencil_matvec_2d.launches += 1
+    tracing.count("stencil_matvec_2d", "launches")
     return y
-
-
-# launches made, and calls recorded into a CUDA graph (the eager loops' graph
-# route adds a graph's recorded calls to ``launches`` at each replay)
-stencil_matvec_2d.launches = 0
-stencil_matvec_2d.captured = 0
 
 
 def chebyshev_rounds(lib, stream, params, coef: torch.Tensor, v: torch.Tensor, z: torch.Tensor, inv: float,
@@ -259,17 +252,8 @@ def chebyshev_apply(A: StencilMatrix, v: torch.Tensor, theta: float, steps) -> t
         with torch.cuda.device(index):
             launches = chebyshev_rounds(lib, torch._C._cuda_getCurrentRawStream(index), params, coef, v, z, inv,
                                         steps)
-    if torch.cuda.is_current_stream_capturing():
-        chebyshev_apply.captured += launches  # recorded into a CUDA graph: its replays launch them
-    else:
-        chebyshev_apply.launches += launches
+    tracing.count("chebyshev_apply", "launches", n=launches)
     return z
-
-
-# launches made, and launches recorded into a CUDA graph (added to
-# ``launches`` at each replay, as K1's)
-chebyshev_apply.launches = 0
-chebyshev_apply.captured = 0
 
 
 def stencil_matvec(A: StencilMatrix, x: torch.Tensor) -> torch.Tensor:

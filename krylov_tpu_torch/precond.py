@@ -205,13 +205,7 @@ class ChebyshevPreconditioner:
 
     def matvec(self, v: torch.Tensor, ctx) -> torch.Tensor:
         fused = self.degree >= 1 and fused_route(self.A, v, ctx)
-        applied = tracing.totals.cheb_apply
-        if v.is_cuda and torch.cuda.is_current_stream_capturing():
-            applied.captured += 1  # recorded into a CUDA graph: its replays add it
-            applied.captured_fused += fused
-        else:
-            applied.calls += 1
-            applied.fused += fused
+        tracing.count("cheb_apply", "calls", *(("fused",) if fused else ()))
         if self.degree < 1:
             return torch.zeros_like(v)  # the empty polynomial
         theta, steps = chebyshev_schedule(self.lmin, self.lmax, self.degree)

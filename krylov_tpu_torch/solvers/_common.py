@@ -127,8 +127,9 @@ def run_bodies(body, state: tuple, steps: int, ctx: Context) -> tuple:
 class _Block:
     """A key's entry: weak references to the operators the key names, the
     lock its request holds, whether a request has warmed it up, and once
-    captured its graph's replay, its static state and what one replay runs
-    of each counter of :func:`_replayed` (its capture's recorded counts)."""
+    captured its graph's replay, its static state and what its capture
+    recorded of the counters (:class:`~krylov_tpu_torch.tracing.recording`),
+    which each replay runs."""
 
     __slots__ = ("held", "busy", "seen", "replay", "static", "counts")
 
@@ -206,19 +207,6 @@ def _block_key(body, state: tuple):
     return tuple(parts), held
 
 
-def _replayed() -> tuple:
-    """The counters that count what a capture records apart from what runs,
-    as ``(owner, recorded, run)`` attribute names: K1's and the Chebyshev
-    step's launches and the Chebyshev applications, all and fused.  A
-    replay runs what its capture recorded (no body on one process calls a
-    fused whole-solve wrapper), so it adds that to the ``run`` counters."""
-    from krylov_tpu_torch.kernels import stencil
-
-    applied = tracing.totals.cheb_apply
-    return ((stencil.stencil_matvec_2d, "captured", "launches"), (stencil.chebyshev_apply, "captured", "launches"),
-            (applied, "captured", "calls"), (applied, "captured_fused", "fused"))
-
-
 def _side_stream(device) -> torch.cuda.Stream:
     side = _SIDE.get(device)
     if side is None:
@@ -245,10 +233,15 @@ def _record(fn, device):
 def _capture(block: _Block, body, state: tuple) -> None:
     """Capture :data:`SYNC_EVERY` bodies into ``block`` from static copies
     of ``state``, ending with the copy of the last body's state back into
-    them."""
+    them.  What the bodies count while the capture records, and the block's
+    own count of one replay of :data:`SYNC_EVERY` bodies, is the block's
+    ``counts``, which :func:`_replays` credits at each replay."""
     static = tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in state)
 
     def run():
+        tracing.count("eager_graph", "replays")
+        tracing.count("eager_graph", "bodies", n=SYNC_EVERY)
+        tracing.count("eager_bodies", n=SYNC_EVERY)
         out = static
         for _ in range(SYNC_EVERY):
             out = body(out)
@@ -258,11 +251,9 @@ def _capture(block: _Block, body, state: tuple) -> None:
                     raise ValueError(f"{body.__qualname__} moves a state entry to another slot")
                 dst.copy_(src)
 
-    counters = _replayed()
-    before = [getattr(owner, recorded) for owner, recorded, _ in counters]
-    block.replay = _record(run, state[-1].device)
-    block.static = static
-    block.counts = tuple(getattr(owner, recorded) - b for (owner, recorded, _), b in zip(counters, before))
+    with tracing.recording() as recorded:
+        block.replay = _record(run, state[-1].device)
+    block.static, block.counts = static, recorded.counts
     tracing.totals.eager_graph.captures += 1
 
 
@@ -332,17 +323,11 @@ def _replays(block: _Block, step: int, steps: int):
     """Replay ``block`` from step ``step`` while a full block is left and
     not every member has converged; returns ``(steps run, a copy of the
     static state, done)``."""
-    static, g = block.static, tracing.totals.eager_graph
-    counters = tuple((owner, run, n) for (owner, _, run), n in zip(_replayed(), block.counts) if n)
-    done = False
+    static, done = block.static, False
     while not done and steps - step >= SYNC_EVERY:
         block.replay()
+        tracing.credit(block.counts)
         step += SYNC_EVERY
-        g.replays += 1
-        g.bodies += SYNC_EVERY
-        tracing.totals.eager_bodies.calls += SYNC_EVERY
-        for owner, run, n in counters:
-            setattr(owner, run, getattr(owner, run) + n)
         done = all_converged(static[-1])
     return step, tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in static), done
 

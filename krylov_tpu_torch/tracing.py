@@ -40,17 +40,32 @@ The spans of the solve path:
   and ``refine=`` read the result after the solve, outside these;
 - ``all_reduce``, ``halo``: a collective and a sharded SpMV's exchange.
 
-``totals.eager_bodies.calls`` counts the eager loop bodies run, frozen
-ones included, those replayed in a CUDA graph too.  ``totals.eager_graph``
-counts the graph route of :func:`krylov_tpu_torch.solvers._common.run_bodies`:
-``captures`` (blocks of ``SYNC_EVERY`` bodies captured), ``replays`` and
-``bodies`` (the bodies run inside replays).  ``totals.cheb_apply`` counts
-the Chebyshev preconditioner's applications: ``calls``, and ``fused`` those
-on the Chebyshev step; an application recorded into a CUDA graph counts
-in ``captured`` (``captured_fused``) instead, and each replay of the graph
-adds it to ``calls`` (``fused``).  The totals are plain
-integers, cumulative from import; read the difference of two readings.  The spans keep their stack per
-thread; the totals are shared and not locked.
+The counters of the package are groups of plain integer fields in
+``totals``, each group and field declared in :data:`GROUPS`:
+
+- ``eager_bodies.calls``: the eager loop bodies run, frozen ones
+  included, those replayed in a CUDA graph too;
+- ``eager_graph``: the graph route of
+  :func:`krylov_tpu_torch.solvers._common.run_bodies`: ``captures``
+  (blocks of ``SYNC_EVERY`` bodies captured), ``replays`` and ``bodies``
+  (the bodies run inside replays);
+- ``cheb_apply``: the Chebyshev preconditioner's applications, ``calls``,
+  and ``fused`` those on the Chebyshev step;
+- ``stencil_matvec_2d.launches`` and ``chebyshev_apply.launches``: the
+  launches of K1 and of the Chebyshev step;
+- ``fused_cg_solve_2d``, ``fused_mrr_solve_2d``, ``fused_kskipcg_solve_2d``
+  and ``fused_kskipmrr_solve_2d``: the launches of each whole-solve
+  wrapper (``launches``), by route (``resident``, ``streaming``), and by
+  the stencil pass inside them (``resident_ns0``, ``_ns5``, ``_ns7``:
+  K4's specialisation; ``streaming_ns0`` and so on: the streaming pass).
+
+A count made while the current CUDA stream captures a graph goes to the
+twin store ``recorded``, of the same shape, instead (:func:`count`): it
+is recorded, not run.  :class:`recording` holds what a capture recorded
+and :func:`credit` adds it to ``totals`` at each replay of the graph.
+The totals are cumulative from import; read the difference of two
+readings.  The spans keep their stack per thread; the totals are shared
+and not locked.
 """
 
 from __future__ import annotations
@@ -67,38 +82,76 @@ _clock = time.perf_counter_ns
 _profiling = torch._C._autograd._profiler_enabled
 
 
-class Total:
-    """The totals of one span name (``eager_bodies``: ``calls`` alone)."""
-
-    __slots__ = ("calls", "total_ns", "self_ns", "read_ns")
-
-    def __init__(self):
-        self.calls = self.total_ns = self.self_ns = self.read_ns = 0
-
-
-class GraphTotal:
-    """The totals of the eager loops' graph route (``eager_graph``)."""
-
-    __slots__ = ("captures", "replays", "bodies")
-
-    def __init__(self):
-        self.captures = self.replays = self.bodies = 0
-
-
-class ApplyTotal:
-    """The totals of the Chebyshev preconditioner's applications
-    (``cheb_apply``)."""
-
-    __slots__ = ("calls", "fused", "captured", "captured_fused")
-
-    def __init__(self):
-        self.calls = self.fused = self.captured = self.captured_fused = 0
-
-
 NAMES = ("solve_device", "solve", "solve_batched", "plan", "run_fused", "launch", "restarts", "eager_loop",
          "host_read", "all_reduce", "halo", "eager_bodies")
-totals = types.SimpleNamespace(**{name: Total() for name in NAMES}, eager_graph=GraphTotal(),
-                                cheb_apply=ApplyTotal())
+_FUSED = ("launches", "resident", "streaming",
+          *(f"{route}_ns{ns}" for route in ("resident", "streaming") for ns in (0, 5, 7)))
+# every counter group and its fields: the spans' (and eager_bodies') totals,
+# then the counts of what a CUDA graph capture can record
+GROUPS = {
+    **dict.fromkeys(NAMES, ("calls", "total_ns", "self_ns", "read_ns")),
+    "eager_graph": ("captures", "replays", "bodies"),
+    "cheb_apply": ("calls", "fused"),
+    "stencil_matvec_2d": ("launches",),
+    "chebyshev_apply": ("launches",),
+    **dict.fromkeys(("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d",
+                     "fused_kskipmrr_solve_2d"), _FUSED),
+}
+
+
+def _store() -> types.SimpleNamespace:
+    return types.SimpleNamespace(**{group: types.SimpleNamespace(**dict.fromkeys(fields, 0))
+                                    for group, fields in GROUPS.items()})
+
+
+totals = _store()  # what ran
+recorded = _store()  # what CUDA graph captures recorded
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream captures a graph (no CUDA call
+    before CUDA is initialised)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
+def count(group: str, *fields: str, n: int = 1) -> None:
+    """Add ``n`` to each of ``fields`` (``calls`` without any) of
+    ``totals.<group>``, or of ``recorded.<group>`` while the current
+    stream captures a CUDA graph: a replay of the graph runs it then."""
+    g = getattr(recorded if _capturing() else totals, group)
+    for field in fields or ("calls",):
+        setattr(g, field, getattr(g, field) + n)
+
+
+def _reading(store) -> dict:
+    return {(group, field): n for group, g in vars(store).items() for field, n in vars(g).items()}
+
+
+class recording:
+    """Context manager around a CUDA graph's capture: on its end
+    ``counts`` holds what the capture recorded, ``(group, field, n)`` for
+    each field it moved, which :func:`credit` adds at each replay."""
+
+    __slots__ = ("before", "counts")
+
+    def __enter__(self):
+        self.before = _reading(recorded)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        before = self.before
+        self.counts = tuple((group, field, n - before[group, field])
+                            for (group, field), n in _reading(recorded).items() if n != before[group, field])
+        return False
+
+
+def credit(counts: tuple) -> None:
+    """Add a capture's :class:`recording` ``counts`` to ``totals``: what
+    one replay of its graph runs."""
+    for group, field, n in counts:
+        g = getattr(totals, group)
+        setattr(g, field, getattr(g, field) + n)
+
 
 _ids = itertools.count(1)
 
@@ -171,7 +224,7 @@ def host_read() -> span:
     """The span of one call that waits for the card.  Raises while the
     current CUDA stream captures a graph: a replay would not repeat the
     wait, so a read there is a fault of the captured code."""
-    if torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing():
+    if _capturing():
         raise RuntimeError("a host read inside a CUDA graph capture: the captured code must not wait for the card")
     return span("host_read")
 

@@ -23,6 +23,7 @@ import torch
 
 import krylov_tpu_torch
 from krylov_tpu_torch import precond as pc
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
 from krylov_tpu_torch.sparse import StencilMatrix, convert, fixtures, to_device
 
@@ -60,8 +61,6 @@ def cuda():
 ])
 def test_front_door_host_reads_on_the_card(cuda, kw, reads):
     """The host reads (krylov_tpu_torch.tracing) of a fused solve on the card."""
-    from krylov_tpu_torch import tracing
-
     A = fixtures.laplace2d(24, constant=True, dtype=torch.float64, device=cuda)
     b = _rhs(A.shape[0], 3, cuda, torch.float64)
     krylov_tpu_torch.solve_device(A, b, tol=1e-8, **kw)  # K1's weights are read once an operator
@@ -76,6 +75,11 @@ def _rhs(n, seed, device, dtype=torch.float64):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(n)).to(device, dtype)
 
 
+def _launched(fn):
+    """The launch counts of the fused wrapper ``fn``: ``tracing.totals.<its name>``."""
+    return getattr(tracing.totals, fn.__name__)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 @pytest.mark.parametrize("name", sorted(OPERATORS))
@@ -83,9 +87,9 @@ def test_stencil_kernel_matches_plain(cuda, name, dtype, rtol):
     A = OPERATORS[name](dtype=dtype, device=cuda)
     x = _rhs(A.shape[0], 5, cuda, dtype)
     coef2, stencil2, grid2, sub = A.collapse_to_2d()
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     y = stencil.stencil_matvec_2d(coef2, x, stencil=stencil2, grid=grid2, sub=sub)
-    assert stencil.stencil_matvec_2d.launches == before + 1
+    assert tracing.totals.stencil_matvec_2d.launches == before + 1
     y_ref = stencil.stencil_matvec_2d_reference(coef2, x, stencil=stencil2, grid=grid2, sub=sub)
     torch.testing.assert_close(y, y_ref, rtol=0, atol=rtol * float(y_ref.abs().max()))
 
@@ -99,9 +103,9 @@ def test_fused_kernel_matches_plain(cuda, method, name):
     coef2, stencil2, grid2, sub = A.collapse_to_2d()
     kw = dict(stencil=stencil2, grid=grid2, maxiter=A.shape[0], sub=sub)
     b_norm = torch.linalg.vector_norm(b)
-    before = KERNEL[method].launches
+    before = _launched(KERNEL[method]).launches
     x, t, i, c = KERNEL[method](coef2, b, 1e-8, b_norm, **kw)
-    assert KERNEL[method].launches == before + 1
+    assert _launched(KERNEL[method]).launches == before + 1
     xr, tr, ir, cr = PLAIN[method](coef2, b, 1e-8, b_norm, **kw)
     assert int(i) == int(ir) and bool(c) and bool(cr)
     m = int(i) + 1
@@ -181,9 +185,9 @@ def test_streaming_forms_match_plain(cuda, method, name, dtype, monkeypatch):
     b_norm = torch.linalg.vector_norm(b)
     monkeypatch.setattr(fused, "ROUTE", "streaming")
     fn = KERNEL[method]
-    before = getattr(fn, f"launches_streaming_ns{ns}")
+    before = getattr(_launched(fn), f"streaming_ns{ns}")
     x, t, i, c = fn(coef2, b, tol, b_norm, **kw)
-    assert getattr(fn, f"launches_streaming_ns{ns}") == before + 1
+    assert getattr(_launched(fn), f"streaming_ns{ns}") == before + 1
     xr, tr, ir, cr = PLAIN[method](coef2, b, tol, b_norm, **kw)
     assert int(i) == int(ir) and bool(c) and bool(cr)
     m = int(i) + 1
@@ -249,9 +253,9 @@ def test_fused_routes_match_plain(cuda, method, name, route, dtype, monkeypatch)
     monkeypatch.setattr(fused, "ROUTE", route)
     assert fused.device_plan(method, grid2, stencil2, dtype).route == route
     fn = KERNEL[method]
-    before, before_route = fn.launches, getattr(fn, f"launches_{route}")
+    before, before_route = _launched(fn).launches, getattr(_launched(fn), route)
     x, t, i, c = fn(coef2, b, tol, b_norm, **kw)
-    assert fn.launches == before + 1 and getattr(fn, f"launches_{route}") == before_route + 1
+    assert _launched(fn).launches == before + 1 and getattr(_launched(fn), route) == before_route + 1
     xr, tr, ir, cr = PLAIN[method](coef2, b, tol, b_norm, **kw)
     assert int(i) == int(ir) and bool(c) and bool(cr)
     m = int(i) + 1
@@ -337,7 +341,7 @@ def _kskip_pair(A, b, method, k, adaptive, tol, maxiter, route=None):
     try:
         p = fused_kskip.device_plan(method, grid2, stencil2, b.dtype, kw["k_max"])
         assert route is None or p.route == route
-        before, before_route = fn.launches, getattr(fn, f"launches_{p.route}")
+        before, before_route = _launched(fn).launches, getattr(_launched(fn), p.route)
         if method == "kskipcg":
             x, t, n, i, c, idx = fn(coef2, b, tol, b_norm, k, **kw)
             got = (x, t, n, None, i, c, idx, None)
@@ -345,7 +349,7 @@ def _kskip_pair(A, b, method, k, adaptive, tol, maxiter, route=None):
             got = fn(coef2, b, tol, b_norm, k, adaptive=adaptive, **kw)
     finally:
         fused.ROUTE = previous
-    assert fn.launches == before + 1 and getattr(fn, f"launches_{p.route}") == before_route + 1
+    assert _launched(fn).launches == before + 1 and getattr(_launched(fn), p.route) == before_route + 1
     if method == "kskipcg":
         xr, tr, nr, ir, cr, idr = fused_kskip.fused_kskipcg_solve_2d_reference(coef2, b, tol, b_norm, k, **kw)
         return got, (xr, tr, nr, None, ir, cr, idr, None)
@@ -475,9 +479,9 @@ def test_streaming_launches_count_their_pass(cuda, method, monkeypatch):
     monkeypatch.setattr(fused, "ROUTE", "streaming")
     fn = getattr(fused_kskip, f"fused_{method}_solve_2d")
     for A, ns in ((fixtures.laplace3d(10, constant=True, device=cuda), 7), (fixtures.laplace2d(24, device=cuda), 0)):
-        before = getattr(fn, f"launches_streaming_ns{ns}")
+        before = getattr(_launched(fn), f"streaming_ns{ns}")
         krylov_tpu_torch.solve(A, _rhs(A.shape[0], 6, cuda), method=method, k=2, tol=1e-8)
-        assert getattr(fn, f"launches_streaming_ns{ns}") == before + 1
+        assert getattr(_launched(fn), f"streaming_ns{ns}") == before + 1
 
 
 @pytest.mark.cuda
@@ -605,9 +609,9 @@ def test_solve_batched_fused_members_equal_solo_on_cuda(cuda, method):
     B = torch.from_numpy(np.random.default_rng(9).standard_normal((3, A.shape[0]))).to(cuda)
     fn = {**KERNEL, "kskipcg": fused_kskip.fused_kskipcg_solve_2d, "kskipmrr": fused_kskip.fused_kskipmrr_solve_2d,
           "adaptivekskipmrr": fused_kskip.fused_kskipmrr_solve_2d}[method]
-    before = fn.launches_resident
+    before = _launched(fn).resident
     res = krylov_tpu_torch.solve_batched(A, B, method=method, k=2, tol=1e-8)
-    assert fn.launches_resident == before + 3
+    assert _launched(fn).resident == before + 3
     for j in range(3):
         solo = krylov_tpu_torch.solve_device(A, B[j], method=method, k=2, tol=1e-8)
         assert int(res.iterations[j]) == int(solo.iterations) and bool(res.converged[j])
@@ -634,9 +638,9 @@ def test_restarts_and_refine_on_cuda(cuda):
     below tol by the host float64 residual."""
     A = fixtures.laplace2d(64, dtype=torch.float32, constant=True, device=cuda)
     b = np.random.default_rng(11).standard_normal(A.shape[0]).astype(np.float32)
-    k1, k2 = stencil.stencil_matvec_2d.launches, fused.fused_mrr_solve_2d.launches
+    k1, k2 = tracing.totals.stencil_matvec_2d.launches, tracing.totals.fused_mrr_solve_2d.launches
     res = krylov_tpu_torch.solve_device(A, b, method="mrr", tol=1e-6, restarts=2)
-    assert stencil.stencil_matvec_2d.launches > k1 and fused.fused_mrr_solve_2d.launches > k2 + 1
+    assert tracing.totals.stencil_matvec_2d.launches > k1 and tracing.totals.fused_mrr_solve_2d.launches > k2 + 1
     x, info = krylov_tpu_torch.solve(A, b, method="mrr", tol=1e-7, refine=3)
     assert x.dtype == torch.float64 and x.device.type == "cuda"
     A64 = convert.host_matvec64
@@ -672,10 +676,10 @@ def test_k1_matches_plain(cuda, name, dtype):
     coef2, stencil2, grid2, sub = A.collapse_to_2d()
     kw = dict(stencil=stencil2, grid=grid2, sub=sub)
     X = torch.from_numpy(np.random.default_rng(31).standard_normal((8, A.shape[0]))).to(cuda, dtype)
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     Y = stencil.stencil_matvec_2d(coef2, X, **kw)
     y = stencil.stencil_matvec_2d(coef2, X[3], **kw)
-    assert stencil.stencil_matvec_2d.launches == before + 2 and Y.shape == X.shape
+    assert tracing.totals.stencil_matvec_2d.launches == before + 2 and Y.shape == X.shape
     for j in range(8):
         ref = stencil.stencil_matvec_2d_reference(coef2, X[j], **kw)
         torch.testing.assert_close(Y[j], ref, rtol=0, atol=K1_RTOL[dtype] * float(ref.abs().max()))
@@ -715,17 +719,17 @@ def test_stencil_matvec_on_cuda_launches_k1(cuda, name):
     grid keeps the chain."""
     A = OPERATORS[name](device=cuda)
     X = torch.from_numpy(np.random.default_rng(32).standard_normal((3, A.shape[0])))
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     y, Y = A.matvec(X[0].to(cuda)), A.matvec(X.to(cuda))
-    assert stencil.stencil_matvec_2d.launches == before + 2
+    assert tracing.totals.stencil_matvec_2d.launches == before + 2
     A_cpu = to_device(A, "cpu")
     for got, x in ((y, X[0]), (Y, X)):
         ref = A_cpu.matvec(x)
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-12 * float(ref.abs().max()))
     line = StencilMatrix(torch.tensor([-1.0, 2.0, -1.0], device=cuda), ((-1,), (0,), (1,)), (40,))
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     line.matvec(torch.ones(40, dtype=torch.float64, device=cuda))
-    assert stencil.stencil_matvec_2d.launches == before
+    assert tracing.totals.stencil_matvec_2d.launches == before
 
 
 NEW_METHODS = [(m, p) for m in ("pcg", "chronopoulos_gear", "gropp", "pipelined_cg")
@@ -751,10 +755,10 @@ def test_new_methods_on_cuda_match_cpu(cuda, method, precond):
             kw["M"] = pc.jacobi(A)
         elif precond == "chebyshev":
             kw["M"] = pc.chebyshev(A, degree=4, lmin=0.05, lmax=8.0)
-        before = stencil.stencil_matvec_2d.launches
+        before = tracing.totals.stencil_matvec_2d.launches
         out[dev] = krylov_tpu_torch.solve(A, np.random.default_rng(33).standard_normal(A.shape[0]), **kw)
         if dev != "cpu":
-            assert stencil.stencil_matvec_2d.launches - before >= out[dev][1]["iterations"]
+            assert tracing.totals.stencil_matvec_2d.launches - before >= out[dev][1]["iterations"]
     (x_c, info_c), (x_g, info_g) = out["cpu"], out[cuda]
     assert info_g["converged"] and info_g["iterations"] == info_c["iterations"]
     np.testing.assert_array_equal(info_g["nosl"], info_c["nosl"])
@@ -797,14 +801,14 @@ def test_batched_kskip_members_equal_solos_on_cuda(cuda, method, k):
     A = fixtures.laplace2d(40, constant=True, device=cuda)
     B = torch.from_numpy(np.random.default_rng(34).standard_normal((4, A.shape[0]))).to(cuda)
     kw = dict(method=method, k=k, tol=1e-8, maxiter=2000, fused=False)
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     res = krylov_tpu_torch.solve_batched(A, B, **kw)
-    batched = stencil.stencil_matvec_2d.launches - before
+    batched = tracing.totals.stencil_matvec_2d.launches - before
     solo_launches = []
     for j in range(4):
-        before = stencil.stencil_matvec_2d.launches
+        before = tracing.totals.stencil_matvec_2d.launches
         solo = krylov_tpu_torch.solve_device(A, B[j], **kw)
-        solo_launches.append(stencil.stencil_matvec_2d.launches - before)
+        solo_launches.append(tracing.totals.stencil_matvec_2d.launches - before)
         m = int(solo.index) + 1
         assert (int(res.iterations[j]), int(res.index[j])) == (int(solo.iterations), int(solo.index))
         assert torch.equal(res.nosl_trace[j, :m], solo.nosl_trace[:m]) and bool(solo.converged)
@@ -835,7 +839,7 @@ def test_batched_pipelined_and_ca_members_equal_solos_on_cuda(cuda, method, k, p
         kw["spectral_bounds"] = pc.lanczos_bounds(A)
 
     def launches():
-        return np.array([stencil.stencil_matvec_2d.launches, stencil.chebyshev_apply.launches])
+        return np.array([tracing.totals.stencil_matvec_2d.launches, tracing.totals.chebyshev_apply.launches])
 
     before = launches()
     res = krylov_tpu_torch.solve_batched(A, B, **kw)
@@ -954,9 +958,9 @@ def test_sharded_stencil_matvec_launches_k1(cuda, nccl_mesh, name):
     op = shard_operator(A, nccl_mesh)
     ctx = Context(axis="rows", group=nccl_mesh.get_group())
     x = _rhs(A.shape[0], 16, cuda)
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     y = op.matvec(x, ctx)
-    assert stencil.stencil_matvec_2d.launches == before + 1 and op.strategy == "halo"
+    assert tracing.totals.stencil_matvec_2d.launches == before + 1 and op.strategy == "halo"
     assert y.device.type == "cuda" and torch.equal(y, stencil.stencil_matvec(A, x))
 
 
@@ -976,7 +980,7 @@ def test_sharded_stencil_boundary_planes_on_card(cuda, name, dtype):
     P = 2
     kind, arrays, offsets, strategy, grid = partition(A, P)
     n = A.shape[0] // P
-    before = stencil.stencil_matvec_2d.launches
+    before = tracing.totals.stencil_matvec_2d.launches
     for rank in range(P):
         op = ShardedOperator(kind=kind, arrays=local_block(kind, arrays, P, rank), offsets=offsets, shape=A.shape,
                              n_devices=P, strategy=strategy, rank=rank, grid=grid)
@@ -985,7 +989,7 @@ def test_sharded_stencil_boundary_planes_on_card(cuda, name, dtype):
         top = x[:, s0 - plane: s0].contiguous() if rank > 0 else None
         bottom = x[:, s0 + n: s0 + n + plane].contiguous() if rank < P - 1 else None
         assert torch.equal(stencil_boundary(op, x_l, stencil_bulk(op, x_l), top, bottom), want[:, s0: s0 + n])
-    assert stencil.stencil_matvec_2d.launches == before + P + 2 * (P - 1)
+    assert tracing.totals.stencil_matvec_2d.launches == before + P + 2 * (P - 1)
 
 
 # K4, the resident stencil pass: systems whose resident plans cover the
@@ -1041,11 +1045,10 @@ def test_resident_launches_count_k4_specialisation(cuda, method, name, ns):
     else:
         fn = KERNEL[method]
         args = (coef2, b, 1e-8, torch.linalg.vector_norm(b))
-    before = {name_: getattr(fn, name_) for name_ in fused.COUNTS}
+    before = dict(vars(_launched(fn)))
     fn(*args, **kw)
-    after = {name_: getattr(fn, name_) - v for name_, v in before.items()}
-    assert after == {**{name_: 0 for name_ in fused.COUNTS}, "launches": 1, "launches_resident": 1,
-                     f"launches_ns{ns}": 1}
+    after = {name_: v - before[name_] for name_, v in vars(_launched(fn)).items()}
+    assert after == {**dict.fromkeys(before, 0), "launches": 1, "resident": 1, f"resident_ns{ns}": 1}
 
 
 @pytest.mark.cuda
@@ -1057,9 +1060,9 @@ def test_degenerate_systems_on_cuda(cuda, method):
     x0 = _rhs(A.shape[0], 20, cuda)
     k = 4 if method == "kskipmrr" else 0
     fns = (fused.fused_cg_solve_2d, fused.fused_mrr_solve_2d, fused_kskip.fused_kskipmrr_solve_2d)
-    before = [fn.launches for fn in fns]
+    before = [_launched(fn).launches for fn in fns]
     x, info = krylov_tpu_torch.solve(A, torch.zeros_like(x0), method=method, x0=x0, k=k)
-    assert [fn.launches for fn in fns] == before
+    assert [_launched(fn).launches for fn in fns] == before
     assert x.is_cuda and bool((x == 0).all()) and info["converged"] and info["iterations"] == 0
     x, info = krylov_tpu_torch.solve(A, A.matvec(x0), method=method, x0=x0, k=k)
     assert torch.equal(x, x0) and info["converged"] and info["iterations"] <= 1
@@ -1090,11 +1093,9 @@ GRAPH_CARRIES = ("cg", "mrr", "kskipcg k=1", "kskipmrr k=1")
 def _graph_counts() -> tuple:
     """(bodies, host reads, K1 launches, captures, replays, bodies in
     replays, the Chebyshev step's launches)."""
-    from krylov_tpu_torch import tracing
-
     g = tracing.totals.eager_graph
-    return (tracing.totals.eager_bodies.calls, tracing.totals.host_read.calls, stencil.stencil_matvec_2d.launches,
-            g.captures, g.replays, g.bodies, stencil.chebyshev_apply.launches)
+    return (tracing.totals.eager_bodies.calls, tracing.totals.host_read.calls, tracing.totals.stencil_matvec_2d.launches,
+            g.captures, g.replays, g.bodies, tracing.totals.chebyshev_apply.launches)
 
 
 def _since(before: tuple) -> tuple:
@@ -1280,13 +1281,13 @@ def test_graph_replays_show_in_the_profilers_trace(graph_blocks):
     for seed, want in ((1, (1, 2)), (2, (0, 3))):
         b = _rhs(A.shape[0], seed, "cuda")
         torch.cuda.synchronize()
-        before, recorded = _graph_counts(), stencil.stencil_matvec_2d.captured
+        before, recorded = _graph_counts(), tracing.recorded.stencil_matvec_2d.launches
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             krylov_tpu_torch.solve_device(A, b, **kw)
             torch.cuda.synchronize()
         got = _since(before)
         assert got[3:5] == want
-        assert stencil.stencil_matvec_2d.captured - recorded == 32 * want[0]
+        assert tracing.recorded.stencil_matvec_2d.launches - recorded == 32 * want[0]
         k1 = sum(e.count for e in prof.key_averages() if "stencil2d_kernel" in e.key)
         assert k1 == got[2] == 96 + 1
 
@@ -1384,11 +1385,9 @@ CHEB_SYSTEMS = {
 def _cheb_counts() -> tuple:
     """(applications, fused ones, recorded ones, recorded fused ones, the
     Chebyshev step's launches, its recorded launches, K1 launches)."""
-    from krylov_tpu_torch import tracing
-
-    a = tracing.totals.cheb_apply
-    return (a.calls, a.fused, a.captured, a.captured_fused, stencil.chebyshev_apply.launches,
-            stencil.chebyshev_apply.captured, stencil.stencil_matvec_2d.launches)
+    a, r = tracing.totals, tracing.recorded
+    return (a.cheb_apply.calls, a.cheb_apply.fused, r.cheb_apply.calls, r.cheb_apply.fused,
+            a.chebyshev_apply.launches, r.chebyshev_apply.launches, a.stencil_matvec_2d.launches)
 
 
 def _cheb_since(before: tuple) -> tuple:

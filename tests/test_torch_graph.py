@@ -233,44 +233,43 @@ def test_emulated_graph_route_equals_eager(emulated, monkeypatch, name, tol, max
 
 
 def test_emulated_replays_add_what_the_capture_recorded(emulated, monkeypatch):
-    """The counters that count what a capture records apart from what runs
-    (K1's and the Chebyshev step's launches, the Chebyshev applications
-    and those fused): the capture moves only the recorded counts, and each
-    replay adds them to the counts of what ran.  The capture here runs its
-    block once with the body counting as recorded, as the wrappers count
-    while the stream captures; a replay runs nothing."""
-    from krylov_tpu_torch.kernels import stencil
+    """The counts a captured body makes (K1's and the Chebyshev step's
+    launches, the Chebyshev applications and those fused): the capture
+    moves only ``tracing.recorded``, and each replay adds what it recorded
+    to ``tracing.totals``.  The capture here runs its block once with the
+    stream taken as capturing, as a CUDA graph's capture runs it; a replay
+    runs nothing."""
+    counted = [("stencil_matvec_2d", ("launches",), 1), ("chebyshev_apply", ("launches",), 5),
+               ("cheb_apply", ("calls", "fused"), 1)]
+    capturing = [False]
+    monkeypatch.setattr(tracing, "_capturing", lambda: capturing[0])
 
-    applied = tracing.totals.cheb_apply
-    counted = [(stencil.stencil_matvec_2d, "captured", "launches", 1), (stencil.chebyshev_apply, "captured",
-                                                                         "launches", 5),
-               (applied, "captured", "calls", 1), (applied, "captured_fused", "fused", 1)]
-    recording = [False]
-
-    def body(state, counted=counted, recording=recording):  # no closure: the block takes a key
+    def body(state, counted=counted):  # no closure: the block takes a key
         n, _ = state
-        for owner, recorded, run, k in counted:
-            name = recorded if recording[0] else run
-            setattr(owner, name, getattr(owner, name) + k)
+        for group, fields, k in counted:
+            tracing.count(group, *fields, n=k)
         return n + 1, n + 1 >= 10**9
 
     def record(fn, device):
-        recording[0] = True
+        capturing[0] = True
         try:
             fn()
         finally:
-            recording[0] = False
+            capturing[0] = False
         return lambda: None
 
+    def reading(store):
+        return [getattr(getattr(store, group), f) for group, fields, _ in counted for f in fields]
+
     monkeypatch.setattr(_common, "_record", record)
-    before = [(getattr(o, recorded), getattr(o, run)) for o, recorded, run, _ in counted]
+    before = reading(tracing.recorded), reading(tracing.totals)
     state = (torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool))
     start = _counts()
     _common.run_bodies(body, state, 96, Context())
     assert _delta(start)[2:] == (1, 2, 64)  # a warm-up block, its capture, two replays
-    for (owner, recorded, run, k), (was_recorded, was_run) in zip(counted, before):
-        assert getattr(owner, recorded) - was_recorded == 32 * k
-        assert getattr(owner, run) - was_run == 96 * k
+    per_body = [k for _, fields, k in counted for _ in fields]
+    assert [a - b for a, b in zip(reading(tracing.recorded), before[0])] == [32 * k for k in per_body]
+    assert [a - b for a, b in zip(reading(tracing.totals), before[1])] == [96 * k for k in per_body]
 
 
 def test_emulated_chebyshev_applications_counted_as_on_the_eager_route(emulated, monkeypatch):

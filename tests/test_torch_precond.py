@@ -256,20 +256,23 @@ def test_fused_route_declines_other_operators():
 @pytest.mark.parametrize("name", sorted(CONTAINERS))
 def test_application_counter_counts_the_loop(name):
     """Off the card every application runs the loop: each counts one call
-    in tracing.totals.cheb_apply and none fused, and launches no Chebyshev
-    step."""
+    in tracing.totals.cheb_apply and none fused, records nothing in
+    tracing.recorded, and launches no Chebyshev step."""
     from krylov_tpu_torch import tracing
-    from krylov_tpu_torch.kernels import stencil
 
     A = from_jax_operator(CONTAINERS[name]())
     M = precond.ChebyshevPreconditioner(A, 0.1, 8.0, 3)
-    applied = tracing.totals.cheb_apply
-    before = (applied.calls, applied.fused, applied.captured, applied.captured_fused, stencil.chebyshev_apply.launches)
+
+    def counts():
+        return tuple(getattr(getattr(store, group), field) for store in (tracing.totals, tracing.recorded)
+                     for group, field in (("cheb_apply", "calls"), ("cheb_apply", "fused"),
+                                          ("chebyshev_apply", "launches")))
+
+    before = counts()
     V = torch.from_numpy(np.random.default_rng(3).standard_normal((2, A.shape[0])))
     M.matvec(V[0], Context())
     M.matvec(V, Context())
-    after = (applied.calls, applied.fused, applied.captured, applied.captured_fused, stencil.chebyshev_apply.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (2, 0, 0, 0, 0)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 0, 0, 0, 0)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

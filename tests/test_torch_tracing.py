@@ -268,3 +268,99 @@ def test_all_reduce_and_halo_spans(tmp_path):
     assert got["all_reduce"] == context.all_reduce.calls - reduces > 0
     assert got["halo"] == spmv.sharded_matvec.calls - matvecs > 0
     assert got["host_read"] >= 2 and got["eager_loop"] == 1
+
+
+def _reading(store, group: str) -> dict:
+    return dict(vars(getattr(store, group)))
+
+
+def test_a_count_outside_a_capture_lands_in_totals(monkeypatch):
+    """Off a capture a count adds to ``totals`` (``calls`` without a field)
+    and leaves ``recorded`` as it was; with CUDA not initialised it asks
+    CUDA nothing."""
+    def refuse():
+        raise AssertionError("a CUDA call before CUDA is initialised")
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", refuse)
+    before = {store: _reading(getattr(tracing, store), "cheb_apply") for store in ("totals", "recorded")}
+    tracing.count("cheb_apply")
+    tracing.count("cheb_apply", "calls", "fused", n=3)
+    assert _reading(tracing.totals, "cheb_apply") == {"calls": before["totals"]["calls"] + 4,
+                                                      "fused": before["totals"]["fused"] + 3}
+    assert _reading(tracing.recorded, "cheb_apply") == before["recorded"]
+
+
+def test_a_count_under_a_capture_lands_in_recorded(monkeypatch):
+    """While the current stream captures, a count adds to ``recorded``
+    alone: what a replay of the graph will run."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    before = {store: _reading(getattr(tracing, store), "stencil_matvec_2d") for store in ("totals", "recorded")}
+    tracing.count("stencil_matvec_2d", "launches", n=2)
+    assert _reading(tracing.recorded, "stencil_matvec_2d") == {"launches": before["recorded"]["launches"] + 2}
+    assert _reading(tracing.totals, "stencil_matvec_2d") == before["totals"]
+
+
+def test_a_group_the_runner_never_names_is_credited_once_a_replay(monkeypatch):
+    """An emulated graph route (its streams no-ops, a capture that runs the
+    block once as capturing and a replay that runs nothing): a fused
+    wrapper's group, which the block runner never names, counted by the
+    body, is recorded once a body at the capture and credited to
+    ``totals`` once a replay, as if each replayed body had counted it."""
+    import contextlib
+
+    from krylov_tpu_torch.context import Context
+    from krylov_tpu_torch.solvers import _common
+
+    stream = type("Stream", (), {"cuda_stream": 0, "wait_stream": lambda self, other: None})()
+    capturing = [False]
+
+    def record(fn, device):
+        capturing[0] = True
+        try:
+            fn()
+        finally:
+            capturing[0] = False
+        return lambda: None
+
+    monkeypatch.setattr(_common, "graph_route", lambda ctx, state, steps: True)
+    monkeypatch.setattr(_common, "_record", record)
+    monkeypatch.setattr(_common, "_side_stream", lambda device: stream)
+    monkeypatch.setattr(_common, "_BLOCKS", type(_common._BLOCKS)())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tracing, "_capturing", lambda: capturing[0])
+    assert "fused_kskipcg" not in open(_common.__file__).read()
+
+    def body(state):
+        n, _ = state
+        tracing.count("fused_kskipcg_solve_2d", "launches", "streaming")
+        return n + 1, n + 1 >= 10**9
+
+    group = "fused_kskipcg_solve_2d"
+    before = _reading(tracing.totals, group), _reading(tracing.recorded, group)
+    graph = tracing.totals.eager_graph.replays
+    state = (torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool))
+    _common.run_bodies(body, state, 32 * 5 + 3, Context())
+    replays = tracing.totals.eager_graph.replays - graph
+    ran, recorded = _reading(tracing.totals, group), _reading(tracing.recorded, group)
+    assert replays == 4  # a warm-up block, its capture, four replays, the tail
+    for field in ("launches", "streaming"):
+        assert recorded[field] - before[1][field] == 32
+        assert ran[field] - before[0][field] == 32 + 32 * replays + 3
+    assert ran["resident"] == before[0]["resident"]
+
+
+def test_fused_groups_hold_every_route_and_pass():
+    """Each fused wrapper's group has a field for each route and for each
+    stencil pass a launch can name on it (K4's specialisations and the
+    masked pass)."""
+    from krylov_tpu_torch.kernels import fused
+
+    for name in ("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d", "fused_kskipmrr_solve_2d"):
+        fields = set(vars(getattr(tracing.totals, name)))
+        assert fields == set(vars(getattr(tracing.recorded, name)))
+        assert {"launches", "resident", "streaming"} <= fields
+        assert {f"{route}_ns{ns}" for route in ("resident", "streaming") for ns in (0, *fused.PASS_TERMS)} <= fields
