@@ -37,7 +37,9 @@ solves of the main-path system on the eager loops, whose every SpMV is K1,
 float64 held to the JAX package's counts and K1 timed on that path beside
 the same loop over K1's plain version; the Chebyshev step held bit for bit
 against the loop it replaces at that size and timed beside it (phase 11b,
-``--cheb`` runs it alone after the build).  Then the paths of chunked solves
+``--cheb`` runs it alone after the build); the four kernels of pcg's eager
+body held against the same steps on torch's passes and timed beside them
+(phase 11c, ``--pcg``).  Then the paths of chunked solves
 on the main-path system: ``solve(chunk_iters=)`` of the seven carry
 methods held against their unbroken eager solves, and ``fused=True``
 chunks (one K2/K3/K5 launch a chunk); a checkpoint of a first chunk saved,
@@ -186,6 +188,17 @@ EXAMPLE_TIMEOUT = 300
 PROFILING_TIMEOUT = 300  # phase 18's process, in seconds
 CHEB_BATCH = 3  # phase 11b: the block's members
 CHEB_REPS = 200  # phase 11b: applications a timing
+# Phase 11c, the four kernels of pcg's eager body (kernels.pcg): the vectors
+# of n points each step's kernel moves (step_alpha reads s, p; step_xr reads
+# x, p, r, s and writes x, r; step_ru reads r, u; step_p reads u, p and
+# writes p), calls a timing, the tol of step_alpha's inputs (member 1 of
+# the block converged, 0 and 2 not) and the limit of an inner product's
+# error, a share of the sum of its terms' magnitudes: a partial lost or
+# summed twice moves it by some 1e-4
+PCG_STEP_VECTORS = {"alpha": 2, "xr": 6, "ru": 2, "p": 3}
+PCG_STEP_REPS = 200
+PCG_STEP_TOL = 1e-3
+PCG_STEP_REL = {"torch.float64": 1e-12, "torch.float32": 1e-5}
 EXAMPLE_MARKERS = {
     "basic_solve": (("converged", 5),),
     "preconditioned": (("converged=True", 12),),
@@ -209,6 +222,7 @@ sys.argv = [name, "--device", "cuda"]
 runpy.run_module("krylov_tpu_torch.examples." + name, run_name="__main__", alter_sys=True)
 t = tracing.totals
 counts = {"stencil_matvec_2d": t.stencil_matvec_2d.launches, "chebyshev_apply": t.chebyshev_apply.launches}
+counts["pcg_launches"] = [getattr(t.pcg_launches, step) for step in ("alpha", "xr", "ru", "p")]
 for fn in ("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d", "fused_kskipmrr_solve_2d"):
     counts[fn] = [getattr(t, fn).resident, getattr(t, fn).streaming]
 print("launches " + json.dumps(counts), flush=True)
@@ -950,9 +964,9 @@ def row5_only() -> int:
     return 0
 
 
-def cheb_only() -> int:
-    """``chip_smoke.py --cheb``: the device line, the build and phase 11b
-    alone."""
+def phase_alone(flag: str) -> int:
+    """``chip_smoke.py --cheb`` or ``--pcg``: the device line, the build and
+    phase 11b (the Chebyshev step) or 11c (pcg's step kernels) alone."""
     import torch
 
     from krylov_tpu_torch.kernels import _build, stencil
@@ -966,10 +980,14 @@ def cheb_only() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     mark("2 build")
     _build.library()
-    mark("11b Chebyshev step")
     dev = torch.device("cuda")
     ops = {dt: fixtures.laplace2d(NX, dtype=dt, constant=True, device=dev) for dt in (torch.float64, torch.float32)}
-    print(json.dumps({"chebyshev step": chebyshev_step_phase(ops, stencil)}), flush=True)
+    if flag == "--cheb":
+        mark("11b Chebyshev step")
+        print(json.dumps({"chebyshev step": chebyshev_step_phase(ops, stencil)}), flush=True)
+    else:
+        mark("11c pcg steps")
+        print(json.dumps({"pcg steps": pcg_steps_phase(ops)}), flush=True)
     mark("done")
     return 0
 
@@ -1448,7 +1466,9 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
     (held: the JAX package's counts, PRECOND_F64, and the host float64 true
     residual below tol) and float32 (printed).  K1's counter is set to 0
     before each solve and read after it: every solve must launch K1 at
-    least once an iteration.  Then eager preconditioned CG (M = None,
+    least once an iteration.  The counters of pcg's four step kernels are
+    set to 0 before the first solve and read around each: a pcg solve must
+    launch each at least once an iteration, the other methods none.  Then eager preconditioned CG (M = None,
     float64) is timed through K1 against the same loop over K1's plain
     version (PlainChainOperator), in turns.  Returns the K1 launches of the
     phase's solves and its float64 ``(x, info)`` by ``(method, k)``, which
@@ -1457,12 +1477,14 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
     import torch
 
     import krylov_tpu_torch
-    from krylov_tpu_torch import precond
+    from krylov_tpu_torch import precond, tracing
     from krylov_tpu_torch.context import Context
     from krylov_tpu_torch.solvers import pcg_kernel
 
     f64 = torch.float64
     total, failures, solves = 0, [], {}
+    pcg_launched = tracing.totals.pcg_launches
+    vars(pcg_launched).update(dict.fromkeys(vars(pcg_launched), 0))
     for dt in (f64, torch.float32):
         A = ops[dt]
         t0 = time.perf_counter()
@@ -1472,8 +1494,10 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
         for run in PRECOND_RUNS:
             m, p, k = run
             launched(stencil.stencil_matvec_2d).launches = 0
+            steps_before = dict(vars(pcg_launched))
             x, info = krylov_tpu_torch.solve(A, b_np, method=m, M=Ms[p], k=k, tol=TOL, maxiter=MAXITER)
             launches = launched(stencil.stencil_matvec_2d).launches
+            steps = {step: n - steps_before[step] for step, n in vars(pcg_launched).items()}
             total += launches
             if dt == f64 and p == "none":
                 solves[m, k] = (x, info)
@@ -1481,10 +1505,13 @@ def preconditioned(ops, b_np, A_csr, stencil) -> tuple:
             true_res = true_rel(A_csr, b_np, x)
             phase(f"solve {m} M={p}{f' k={k}' if k else ''} {dt}: iters {info['iterations']}, outer {outer}, "
                   f"converged {info['converged']}, recurred res {info['residual'][-1]:.6e}, host f64 true res "
-                  f"{true_res:.6e}, K1 launches {launches}, solve() wall {info['time'] * 1e3:.3f} ms "
+                  f"{true_res:.6e}, K1 launches {launches}, pcg step kernel launches {steps}, solve() wall {info['time'] * 1e3:.3f} ms "
                   f"({info['time'] * 1e3 / max(info['iterations'], 1):.4f} ms an iteration)")
             if launches < info["iterations"]:
                 failures.append(f"{m} M={p} k={k} {dt}: {launches} K1 launches for {info['iterations']} iterations")
+            if (min(steps.values()) < info["iterations"]) if m == "pcg" else any(steps.values()):
+                failures.append(f"{m} M={p} k={k} {dt}: pcg step kernel launches {steps} for {info['iterations']} "
+                                "iterations (pcg launches each once a body, the other methods none)")
             if dt == f64 and not ((info["iterations"], outer) == PRECOND_F64[run] and info["converged"]
                                   and true_res < TOL):
                 failures.append(f"{m} M={p} k={k} f64: {info['iterations']} iterations, {outer} outer, true res "
@@ -1588,6 +1615,131 @@ def chebyshev_step_phase(ops, stencil) -> tuple:
     for f in failures:
         phase(f"  FAILED: {f}")
     raise_failures("phase 11b", failures)
+    return result
+
+
+def pcg_steps_phase(ops) -> dict:
+    """11c. The four kernels of pcg's eager body (``kernels.pcg``: the
+    steps given a scratch) against their plain versions (the same steps on
+    torch's passes, given none) on the same inputs: the main-path vector
+    and a (CHEB_BATCH, n) block of seed 18 whose member 1 has converged, in
+    float64 and float32.  Held: x, r, p, the trace, ``conv`` and ``i`` bit
+    for bit; the inner products (``alpha``, ``rr``, ``ru``, ``beta``) of the
+    members that have not converged within PCG_STEP_REL of the sum of their
+    terms' magnitudes; the converged member's ``rr`` and ``ru`` kept bit for
+    bit and its ``beta`` 0; the tickets back at 0; one launch a call in
+    ``tracing.totals.pcg_launches``.  Each step is then timed against its
+    plain version: device time a call (torch.profiler, every kernel of a
+    call, over PCG_STEP_REPS calls) and the time between CUDA events over
+    as many, in the order kernel, plain, plain, kernel, beside the bytes
+    bound of PCG_STEP_VECTORS.  Returns ``{step: (max abs err, ms, plain ms,
+    bound, how it was timed)}`` of the float64 vector, for the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from krylov_tpu_torch import tracing
+    from krylov_tpu_torch.context import Context
+    from krylov_tpu_torch.kernels import pcg
+
+    n, ctx, failures, result = NX * NX, Context(), [], {}
+    counted = tracing.totals.pcg_launches
+    for dt in (torch.float64, torch.float32):
+        dev, rel = ops[dt].device, PCG_STEP_REL[str(dt)]
+        bits = torch.int64 if dt == torch.float64 else torch.int32
+        for batch in (None, CHEB_BATCH):
+            rows, rng = batch or 1, np.random.default_rng(18)
+
+            def member(t):
+                return t if batch else t[0]
+
+            def scalars(*values):
+                return member(torch.tensor(values[:rows], dtype=dt, device=dev))
+
+            x, p, r, s, u = (member(torch.from_numpy(rng.standard_normal((rows, n))).to(dev, dt)) for _ in range(5))
+            conv = member(torch.tensor([False, True, False][:rows], device=dev))
+            alpha, beta = scalars(0.37, -1.25, 0.61), scalars(-0.73, 0.5, 2.3)
+            rr, ru, b_norm = scalars(3.5, 0.25, 7.0), scalars(1.5, -2.0, 0.75), scalars(1700.0, 1100.0, 2300.0)
+            i = member(torch.tensor([3, 5, 0][:rows], device=dev))
+            traces = {route: member(torch.zeros(rows, 16, dtype=dt, device=dev)) for route in ("kernel", "plain")}
+            work = pcg.scratch(x)
+
+            def call(step, route):
+                w = work if route == "kernel" else None
+                return {"alpha": lambda: pcg.step_alpha(ctx, s, p, rr, b_norm, ru, PCG_STEP_TOL, traces[route], i, w),
+                        "xr": lambda: pcg.step_xr(ctx, x, p, r, s, alpha, conv, rr, w),
+                        "ru": lambda: pcg.step_ru(ctx, r, u, ru, conv, w),
+                        "p": lambda: pcg.step_p(u, p, beta, conv, w)}[step]
+
+            def size(a, c):  # the sum of the magnitudes of an inner product's terms, a member
+                return (a.double() * c.double()).abs().sum(-1)
+
+            shape = f"laplace2d({NX}, constant) {dt}, " + (f"({batch}, n)" if batch else "(n,)")
+            for step in PCG_STEP_VECTORS:
+                before = getattr(counted, step)
+                got = call(step, "kernel")()
+                launches = getattr(counted, step) - before
+                want = call(step, "plain")()
+                got, want = (v if isinstance(v, tuple) else (v,) for v in (got, want))
+                # exact: (got, want) pairs held bit for bit; near: (got, want,
+                # magnitudes, members) held within rel; kept: (got, what the
+                # converged member keeps)
+                live, exact, near, kept = ~conv, list(zip(got, want)), [], []
+                if step == "alpha":
+                    sp = (s.double() * p.double()).sum(-1)
+                    limit = torch.where(sp != 0, ru.double().abs() * size(s, p) / sp**2, 0.0)
+                    exact = [(got[0], want[0]), (got[2], want[2]), (traces["kernel"], traces["plain"])]
+                    near = [(got[1], want[1], limit, torch.ones_like(conv))]
+                elif step == "xr":
+                    exact, near, kept = exact[:2], [(got[2], want[2], size(want[1], want[1]), live)], [(got[2], rr)]
+                elif step == "ru":
+                    sz = size(r, u)
+                    exact = []
+                    near = [(got[0], want[0], sz, live), (got[1], want[1], sz / ru.double().abs(), live)]
+                    kept = [(got[0], ru), (got[1], torch.zeros_like(ru))]
+                same = all(torch.equal(a.view(bits) if a.is_floating_point() else a,
+                                       c.view(bits) if c.is_floating_point() else c) for a, c in exact)
+                within = all(bool(((g.double() - w.double()).abs() <= rel * lim)[m].all()) for g, w, lim, m in near)
+                held = all(torch.equal(g[conv], k[conv]) for g, k in kept)
+                tickets = bool((work[-rows:] == 0).all())
+                diffs = [(a.double() - c.double()).abs() for a, c in exact if a.is_floating_point()]
+                diffs += [(g.double() - w.double()).abs()[m] for g, w, _, m in near]
+                err = max(float(d.max()) if d.numel() else 0.0 for d in diffs)
+
+                def kernel():
+                    return call(step, "kernel")()
+
+                def plain():
+                    return call(step, "plain")()
+
+                device = {"kernel": kernels_us(kernel, PCG_STEP_REPS), "plain": kernels_us(plain, PCG_STEP_REPS)}
+                events = {"kernel": [], "plain": []}
+                for label in ("kernel", "plain", "plain", "kernel"):
+                    events[label].append(cuda_ms(kernel if label == "kernel" else plain, reps=PCG_STEP_REPS)[0])
+                events = {label: statistics.mean(v_) for label, v_ in events.items()}
+                nbytes = PCG_STEP_VECTORS[step] * n * dt.itemsize * rows
+                bnd = (nbytes / PEAK_BYTES * 1e3, "bytes")
+                phase(f"pcg step_{step} {shape}: {launches} launch a call; exact outputs bitwise {same}, inner "
+                      f"products within {rel:g} of their terms' magnitudes {within}, converged member kept "
+                      f"{held}, tickets at 0 {tickets}, max abs err {err:.3e}; device "
+                      f"{us_text(device['kernel'])} a call against the plain version's "
+                      f"{us_text(device['plain'])} (torch.profiler, every kernel, {PCG_STEP_REPS} calls); CUDA "
+                      f"events {events['kernel'] * 1e3:.3f} us against {events['plain'] * 1e3:.3f} us a call "
+                      f"(kernel, plain, plain, kernel); bound {bnd[0] * 1e3:.3f} us ({nbytes / 1e6:.1f} MB at "
+                      f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+                if not (same and within and held and tickets and launches == 1):
+                    failures.append(f"pcg step_{step} {shape}: bitwise {same}, within {within}, kept {held}, "
+                                    f"tickets {tickets}, {launches} launches")
+                if dt == torch.float64 and batch is None:
+                    timed = device["kernel"] is not None and device["plain"] is not None
+                    ms_ = ((device["kernel"] / 1e3, device["plain"] / 1e3) if timed
+                           else (events["kernel"], events["plain"]))
+                    result[step] = (err, ms_[0], ms_[1], bnd, "torch.profiler device time of every kernel of a "
+                                    f"call, mean of {PCG_STEP_REPS}" if timed
+                                    else f"CUDA events, mean of {PCG_STEP_REPS} calls")
+    for f in failures:
+        phase(f"  FAILED: {f}")
+    raise_failures("phase 11c", failures)
     return result
 
 
@@ -1889,11 +2041,12 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
     iterations; :func:`graph_k1_check` holds K1's counter on the eager
     loops' graph route, and the Chebyshev step's, against the profiler's
     kernel records.  Prints each trace's kernel names with their summed
-    device µs.  Returns the phase's launches of K1 and of K2 on each
-    route."""
+    device µs.  Returns the phase's launches of K1, of the Chebyshev step,
+    of pcg's four step kernels and of K2 on each route."""
     import glob
     import os
 
+    from krylov_tpu_torch import tracing
     from krylov_tpu_torch.diagnostics import profiling
 
     counted = (stencil.stencil_matvec_2d, fused.fused_mrr_solve_2d)
@@ -1935,6 +2088,7 @@ def profiling_phase(A, b_np, tmp: str, fused, stencil) -> dict:
         phase(f"  FAILED: {f}")
     raise_failures("phase 18", failures)
     launches = {fn.__name__: launched(fn).launches for fn in (stencil.stencil_matvec_2d, stencil.chebyshev_apply)}
+    launches["pcg_launches"] = list(vars(tracing.totals.pcg_launches).values())
     return {**launches, **route_counts(counted[1:])}
 
 
@@ -2169,7 +2323,8 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     """16. ``solve(mesh=)`` in an NCCL world of one (a ``file://`` store in
     ``tmp``, ``device_id`` the card): each run of SHARDED_RUNS on the
     main-path system in float64 held against the eager single-device solve
-    of the same method (fused=False): its count and SHARDED_RUNS's, nosl,
+    of the same method (fused=False; pcg on torch's passes, as its sharded
+    body runs): its count and SHARDED_RUNS's, nosl,
     khistory, residual history and x bitwise equal (the slab is the whole
     grid and the sum of one rank is its input), the host float64 true
     residual below tol; one float32 CG likewise; CG on the phase-9 HYB
@@ -2198,6 +2353,7 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     from krylov_tpu_torch.context import all_reduce
     from krylov_tpu_torch.dist import make_mesh
     from krylov_tpu_torch.dist.spmv import gather_rows, sharded_matvec
+    from krylov_tpu_torch.solvers import pipelined
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -2207,6 +2363,9 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl_store"), rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
     k1_total, failures = 0, []
+    # a sharded pcg body runs torch's passes (its inner products sum over
+    # the group), so the eager pcg it is held against runs them too
+    route, pipelined.pcg_route = pipelined.pcg_route, lambda *args: False
     try:
         mesh = make_mesh()
         A = ops[torch.float64]
@@ -2320,6 +2479,7 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
                   f"{[round(v, 6) for v in shard]}, eager {[round(v, 6) for v in eager]}; median sharded / eager "
                   f"{statistics.median(shard) / statistics.median(eager):.4f}")
     finally:
+        pipelined.pcg_route = route
         dist.destroy_process_group()
     for f in failures:
         phase(f"  FAILED: {f}")
@@ -2595,6 +2755,7 @@ def smoke(tmp: str, started: list) -> int:
     import numpy as np
 
     import krylov_tpu_torch
+    from krylov_tpu_torch import tracing
     from krylov_tpu_torch.bench import laplace2d_csr_f64
     from krylov_tpu_torch.kernels import _build, fused, fused_kskip, stencil
     from krylov_tpu_torch.sparse import fixtures
@@ -3018,6 +3179,8 @@ def smoke(tmp: str, started: list) -> int:
     unbroken.update({(m, k): kres[m + " eager", f64] for m, k in KSKIP_RUNS.items()})
     mark("11b Chebyshev step")
     cheb = chebyshev_step_phase(ops, stencil)
+    mark("11c pcg steps")
+    pcg_steps = pcg_steps_phase(ops)
     mark("12 chunked")
     chunk_launches = chunked(ops[f64], b_np, A_csr, fused, fused_kskip, stencil, unbroken)
     mark("13 checkpoint")
@@ -3091,6 +3254,17 @@ def smoke(tmp: str, started: list) -> int:
                               launched(stencil.chebyshev_apply).launches + more("chebyshev_apply", 0), err, ms_,
                               plain_ms, bnd),
                         shape=f"laplace2d({NX}, constant) float64, degree 6, (n,)", timed_by=timed_by))
+    # pcg's four step kernels: their launches since phase 11 set them to 0
+    # (its solves and timing, 11c's, the batched pcg of 17) and those of the
+    # processes of phases 18 and 19; their errors and times phase 11c's,
+    # against the same steps on torch's passes, on the float64 vector
+    elsewhere = [a + b for a, b in zip(prof.get("pcg_launches", [0] * 4), ex.get("pcg_launches", [0] * 4))]
+    for j, (step, (err, ms_, plain_ms, bnd, timed_by)) in enumerate(pcg_steps.items()):
+        kernels.append(dict(entry(f"pcg_{step}_kernel (kernels.pcg.step_{step})", "krylov_tpu_torch/kernels/csrc/pcg.cu",
+                                  "krylov_tpu/solvers/pipelined.py:86 (pcg_kernel's body: XLA's fusions, no TPU "
+                                  "kernel)", getattr(tracing.totals.pcg_launches, step) + elsewhere[j], err, ms_,
+                                  plain_ms, bnd),
+                            shape=f"laplace2d({NX}, constant) float64, (n,)", timed_by=timed_by))
     kskip_src = {"resident": "krylov_tpu_torch/kernels/csrc/fused_kskip_resident.cu",
                  "streaming": "krylov_tpu_torch/kernels/csrc/fused_kskip.cu"}
     for m, fn, line, witness in (("kskipmrr", "fused_kskipmrr_solve_2d", 528, ("adaptivekskipmrr", 8)),
@@ -3150,6 +3324,6 @@ if __name__ == "__main__":
         sys.exit(row5_only())
     if sys.argv[1:2] == ["--k23"]:
         sys.exit(k23_only())
-    if sys.argv[1:2] == ["--cheb"]:
-        sys.exit(cheb_only())
+    if sys.argv[1:2] in (["--cheb"], ["--pcg"]):
+        sys.exit(phase_alone(sys.argv[1]))
     sys.exit(main_path_digests() if sys.argv[1:2] == ["--digests"] else main())

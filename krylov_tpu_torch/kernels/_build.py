@@ -22,7 +22,7 @@ from pathlib import Path
 _CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("stencil.cu", "fused.cu", "fused_resident.cu", "fused_kskip.cu", "fused_kskip_resident.cu",
-           "resident_probe.cu")
+           "resident_probe.cu", "pcg.cu")
 HEADERS = ("stencil.cuh", "reduce.cuh", "resident.cuh")
 # sources compiled once for each of their parts (-DKRYLOV_PART=p), each
 # part holding some of the kernel instances, so that no one nvcc holds the
@@ -98,6 +98,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.krylov_cheb_step2d.restype = i
     lib.krylov_cheb_scale.argtypes = [i, p, p, ctypes.c_longlong, f, p]  # dtype, v, z, count, inv, stream
     lib.krylov_cheb_scale.restype = i
+    # pcg's body: dtype, n, batch, then s, p, rr, b_norm, ru, tol_at, tol, trace, trace_len, i, conv, alpha,
+    # i_out, scratch, stream
+    lib.krylov_pcg_alpha.argtypes = [i, i, i, p, p, p, p, p, p, f, p, ctypes.c_longlong, p, p, p, p, p, p]
+    # x, p, r, s, alpha, conv, rr, x_out, r_out, rr_out, scratch, stream
+    lib.krylov_pcg_xr.argtypes = [i, i, i] + [p] * 12
+    # r, u, ru, conv, ru_out, beta, scratch, stream
+    lib.krylov_pcg_ru.argtypes = [i, i, i] + [p] * 8
+    # u, p, beta, conv, p_out, stream
+    lib.krylov_pcg_p.argtypes = [i, i, i] + [p] * 6
+    for entry in ("alpha", "xr", "ru", "p"):
+        getattr(lib, f"krylov_pcg_{entry}").restype = i
     # method, form, walk, dtype, n, max_blocks, ns_pass, then the three outputs
     lib.krylov_fused_workspace.argtypes = [
         i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),

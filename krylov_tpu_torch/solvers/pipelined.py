@@ -21,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
+from krylov_tpu_torch.kernels import pcg
 from krylov_tpu_torch.solvers._common import (
     SolveResult,
     record_final,
@@ -60,37 +62,54 @@ def _finish(ctx, b_norm, maxiter, x, r, i, conv, trace) -> SolveResult:
     )
 
 
+def pcg_route(ctx: Context, b: torch.Tensor, x0: torch.Tensor, tol) -> bool:
+    """Whether preconditioned CG's body runs its vector and scalar work on
+    the four kernels of :mod:`krylov_tpu_torch.kernels.pcg`: ``b`` a
+    contiguous float32 or float64 CUDA tensor ``(n,)`` or ``(batch, n)``
+    (:func:`~krylov_tpu_torch.kernels.pcg.takes`), ``x0`` of its shape,
+    dtype and device and contiguous, ``tol`` a number or a 0-d tensor of
+    its dtype and device, a ``ctx`` without a process group (a mesh's
+    inner products sum over it) whose scalar dtype is ``b``'s.  Any
+    operator and preconditioner: the kernels never look inside them.
+    Elsewhere the body runs torch's passes."""
+    return (pcg.takes(b) and ctx.group is None and scalar_dtype_of(ctx, b) == b.dtype
+            and x0.shape == b.shape and x0.dtype == b.dtype and x0.device == b.device and x0.is_contiguous()
+            and (not isinstance(tol, torch.Tensor) or (tol.ndim == 0 and tol.dtype == b.dtype
+                                                       and tol.device == b.device)))
+
+
 def pcg_kernel(A, b, x0, *, tol=1e-5, maxiter: int, M=None, ctx: Context = DEFAULT_CONTEXT) -> SolveResult:
     """Preconditioned CG; with ``M=None`` the same bits as
-    :func:`~krylov_tpu_torch.solvers.cg.cg_kernel`."""
+    :func:`~krylov_tpu_torch.solvers.cg.cg_kernel` where :func:`pcg_route`
+    declines.  A body is the four steps of :mod:`krylov_tpu_torch.kernels.pcg`
+    around ``A p`` and ``M r``, with ``<r, r>`` carried from body to body:
+    where the route takes the solve each step is one launch, whose inner
+    products sum in the kernels' order, else torch's passes.  Each body
+    counts in ``tracing.totals.pcg_body`` (``calls``, and ``fused`` on the
+    kernels)."""
     b_norm = ctx.norm(b)
     x = x0
     r = b - ctx.matvec(A, x0)
-    u = _apply_M(ctx, M, r)
-    p = u
-    ru = ctx.dot(r, u)
+    p = _apply_M(ctx, M, r)
+    ru = ctx.dot(r, p)
     trace, i, conv = _start(b, maxiter, scalar_dtype_of(ctx, b))
+    work = pcg.scratch(b) if pcg_route(ctx, b, x0, tol) else None
+    counted = ("calls",) if work is None else ("calls", "fused")
 
     def body(state):
-        tol, b_norm, x, r, u, p, ru, trace, i, conv = state
-        res = torch.sqrt(ctx.dot(r, r)) / b_norm
-        set_at(trace, i, res)
-        conv = res < tol
-
+        # u = M r is not carried: no later body reads it
+        tol, b_norm, x, r, p, rr, ru, trace, i, work, conv = state
+        tracing.count("pcg_body", *counted)
         s = ctx.matvec(A, p)
-        alpha = safe_div(ru, ctx.dot(s, p))
-        x_n = x + scale(alpha, p)
-        r_n = r - scale(alpha, s)
-        u_n = _apply_M(ctx, M, r_n)
-        ru_n = ctx.dot(r_n, u_n)
-        p_n = u_n + scale(safe_div(ru_n, ru), p)
+        conv, alpha, i = pcg.step_alpha(ctx, s, p, rr, b_norm, ru, tol, trace, i, work)
+        x, r, rr = pcg.step_xr(ctx, x, p, r, s, alpha, conv, rr, work)
+        u = _apply_M(ctx, M, r)
+        ru, beta = pcg.step_ru(ctx, r, u, ru, conv, work)
+        p = pcg.step_p(u, p, beta, conv, work)
+        return tol, b_norm, x, r, p, rr, ru, trace, i, work, conv
 
-        x, r, u, p, ru = tree_select(conv, (x, r, u, p, ru), (x_n, r_n, u_n, p_n, ru_n))
-        i = i + (~conv).to(i.dtype)
-        return tol, b_norm, x, r, u, p, ru, trace, i, conv
-
-    *_, x, r, u, p, ru, trace, i, conv = run_bodies(body, (tol, b_norm, x, r, u, p, ru, trace, i, conv), maxiter,
-                                                    ctx)
+    state = (tol, b_norm, x, r, p, ctx.dot(r, r), ru, trace, i, work, conv)
+    *_, x, r, p, rr, ru, trace, i, work, conv = run_bodies(body, state, maxiter, ctx)
     return _finish(ctx, b_norm, maxiter, x, r, i, conv, trace)
 
 

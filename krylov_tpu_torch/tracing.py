@@ -51,6 +51,11 @@ The counters of the package are groups of plain integer fields in
   (the bodies run inside replays);
 - ``cheb_apply``: the Chebyshev preconditioner's applications, ``calls``,
   and ``fused`` those on the Chebyshev step;
+- ``pcg_body``: preconditioned CG's eager bodies, ``calls``, and
+  ``fused`` those whose vector and scalar work ran on the kernels of
+  :mod:`krylov_tpu_torch.kernels.pcg`;
+- ``pcg_launches``: the launches of those four kernels, ``alpha``,
+  ``xr``, ``ru`` and ``p``;
 - ``stencil_matvec_2d.launches`` and ``chebyshev_apply.launches``: the
   launches of K1 and of the Chebyshev step;
 - ``fused_cg_solve_2d``, ``fused_mrr_solve_2d``, ``fused_kskipcg_solve_2d``
@@ -92,6 +97,8 @@ GROUPS = {
     **dict.fromkeys(NAMES, ("calls", "total_ns", "self_ns", "read_ns")),
     "eager_graph": ("captures", "replays", "bodies"),
     "cheb_apply": ("calls", "fused"),
+    "pcg_body": ("calls", "fused"),
+    "pcg_launches": ("alpha", "xr", "ru", "p"),
     "stencil_matvec_2d": ("launches",),
     "chebyshev_apply": ("launches",),
     **dict.fromkeys(("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d",

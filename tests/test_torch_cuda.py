@@ -24,6 +24,7 @@ import torch
 import krylov_tpu_torch
 from krylov_tpu_torch import precond as pc
 from krylov_tpu_torch import tracing
+from krylov_tpu_torch.context import Context
 from krylov_tpu_torch.kernels import fused, fused_kskip, stencil
 from krylov_tpu_torch.sparse import StencilMatrix, convert, fixtures, to_device
 
@@ -924,11 +925,16 @@ def nccl_mesh(cuda, tmp_path):
 @pytest.mark.parametrize("method, k, precond", [("cg", 0, None), ("mrr", 0, None), ("kskipmrr", 2, None),
                                                 ("adaptivekskipmrr", 2, None), ("pcg", 0, "jacobi"),
                                                 ("cacg", 4, None)])
-def test_sharded_solve_in_nccl_world_of_one_equals_eager(nccl_mesh, method, k, precond, form):
+def test_sharded_solve_in_nccl_world_of_one_equals_eager(nccl_mesh, monkeypatch, method, k, precond, form):
     """solve(mesh=) in an NCCL world of one against the eager solve on the
     same card: the slab is the whole grid and the sum of one rank is its
-    input, so count, traces and x are equal bitwise."""
+    input, so count, traces and x are equal bitwise.  A sharded pcg body
+    runs torch's passes (its inner products sum over the group), so the
+    eager pcg it is held against runs them too (``pcg_route`` declined)."""
     from krylov_tpu_torch import precond as pc
+    from krylov_tpu_torch.solvers import pipelined
+
+    monkeypatch.setattr(pipelined, "pcg_route", lambda *args: False)
 
     A = fixtures.laplace2d(32, constant=form == "constant", device="cuda")
     b = np.random.default_rng(14).standard_normal(A.shape[0])
@@ -1533,3 +1539,205 @@ def test_chebyshev_step_records_match_its_counter(graph_blocks):
                    for name in ("stencil2d_kernel", "cheb_step2d_kernel")}
         assert records == {"stencil2d_kernel": got[2], "cheb_step2d_kernel": got[6]}
         assert got[2] == 96 + 1 and got[6] == 5 * got[2]
+
+
+# pcg's body on the four kernels of kernels.pcg (csrc/pcg.cu), where
+# solvers.pipelined.pcg_route takes the solve, against the same body on
+# torch's passes (the route declined).  The updates round as torch's do, so
+# for given scalars they are bitwise; the inner products sum in the
+# kernels' fixed order, so whole solves are held as the fused K2/K3 are
+# (ROUTE_TOLS), with counts within one.
+PCG_MS = {"none": lambda A: None, "jacobi": pc.jacobi, "chebyshev(6)": lambda A: pc.chebyshev(A, 6)}
+PCG_KERNELS = ("pcg_alpha_kernel", "pcg_xr_kernel", "pcg_ru_kernel", "pcg_p_kernel")
+
+
+def _pcg_counts() -> tuple:
+    g = tracing.totals.pcg_body
+    return g.calls, g.fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("precond", sorted(PCG_MS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_body_kernels_match_the_torch_body(graph_blocks, monkeypatch, dtype, precond, batch):
+    """pcg on ``laplace2d(48)`` (with a batch, member 1 converges in the
+    first block and freezes) on the kernels against torch's passes: counts
+    within one, traces and x within ROUTE_TOLS, every body counted as
+    fused on the kernels and none on torch's passes."""
+    from krylov_tpu_torch.solvers import pipelined
+
+    A = fixtures.laplace2d(48, constant=True, dtype=dtype, device="cuda")
+    M = PCG_MS[precond](A)
+    b = _graph_batch(A, 71, batch)
+    kw = dict(M=M, tol=1e-10 if dtype == torch.float64 else 1e-5, maxiter=800)
+    assert pipelined.pcg_route(Context(), b, torch.zeros_like(b), kw["tol"])
+    before = _pcg_counts()
+    got = pipelined.pcg_kernel(A, b, torch.zeros_like(b), **kw)
+    calls, on_kernels = (a - c for a, c in zip(_pcg_counts(), before))
+    graph_blocks.clear()
+    with monkeypatch.context() as m:
+        m.setattr(pipelined, "pcg_route", lambda *args: False)
+        before = _pcg_counts()
+        want = pipelined.pcg_kernel(A, b, torch.zeros_like(b), **kw)
+        torch_calls, torch_fused = (a - c for a, c in zip(_pcg_counts(), before))
+    assert calls == on_kernels > 0 and torch_calls > 0 and torch_fused == 0
+    assert bool(got.converged.all()) and bool(want.converged.all())
+    assert int((got.iterations - want.iterations).abs().max()) <= 1
+    trace_rtol, x_rtol, x_atol = ROUTE_TOLS[dtype]
+    rows = batch or 1
+    for j in range(rows):
+        m = min(int(r.index.reshape(-1)[j]) for r in (got, want)) + 1
+        g, w = (r.residual_trace.reshape(rows, -1)[j, :m] for r in (got, want))
+        torch.testing.assert_close(g, w, rtol=trace_rtol, atol=1e-14)
+    torch.testing.assert_close(got.x, want.x, rtol=x_rtol, atol=x_atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_kernels_update_as_torch_does(cuda, dtype, batch):
+    """The four kernels on given scalars, n = 300,001 (more points than
+    the grid has threads): step_xr's x and r and step_p's p are torch's
+    scale-plus-add bit for bit where a member has not converged and the
+    old bits where it has (member 1 of a batch); the kept rr and ru are
+    the old bits, the others and beta the inner products within rounding
+    (beta 0 where the member has converged, which no step reads);
+    step_alpha writes torch's ``sqrt(rr) / |b|`` at ``i`` alone, its
+    ``conv`` and ``i + !conv``, and ``alpha`` is 0 where ``<s, p>`` is
+    (member 2's ``s`` is 0)."""
+    from krylov_tpu_torch.kernels import pcg
+    from krylov_tpu_torch.solvers._common import bcast, safe_div, scale
+
+    n, rows = 300_001, batch or 1
+    rng = np.random.default_rng(72)
+
+    def vec():
+        v = torch.from_numpy(rng.standard_normal((rows, n))).to(cuda, dtype)
+        return v if batch else v[0]
+
+    def scalars(*values):
+        t = torch.tensor(values[:rows], dtype=dtype, device=cuda)
+        return t if batch else t[0]
+
+    x, p, r, s, u, bvec = (vec() for _ in range(6))
+    if batch:
+        s[2] = 0.0
+    conv = torch.tensor([False, True, False][:rows], device=cuda)
+    conv = conv if batch else conv[0]
+    alpha, beta = scalars(0.37, -1.25, 0.61), scalars(-0.73, 0.5, 2.3)
+    rr, ru = scalars(3.5, 0.25, 7.0), scalars(1.5, -2.0, 0.75)
+    work = pcg.scratch(x)
+
+    def kept(new, old):
+        return torch.where(bcast(conv, new), old, new)
+
+    ctx = Context()
+    x_n, r_n, rr_n = pcg.step_xr(ctx, x, p, r, s, alpha, conv, rr, work)
+    assert torch.equal(_bits(x_n), _bits(kept(x + scale(alpha, p), x)))
+    assert torch.equal(_bits(r_n), _bits(kept(r - scale(alpha, s), r)))
+    ru_n, beta_n = pcg.step_ru(ctx, r_n, u, ru, conv, work)
+    p_n = pcg.step_p(u, p, beta, conv, work)
+    assert torch.equal(_bits(p_n), _bits(kept(u + scale(beta, p), p)))
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+
+    def near(got, want, size):
+        """``got`` within ``rel`` of ``size`` (a sum of magnitudes) of ``want``."""
+        assert bool(((got.double() - want).abs() <= rel * size).all()), (got, want)
+
+    def dot(a, c):
+        return (a.double() * c.double()).sum(-1), (a.double() * c.double()).abs().sum(-1)
+
+    (rr_w, rr_size), (ru_w, ru_size) = dot(r_n, r_n), dot(r_n, u)
+    near(rr_n, torch.where(conv, rr.double(), rr_w), rr_size)
+    near(ru_n, torch.where(conv, ru.double(), ru_w), ru_size)
+    live = ~conv  # beta is read where a member has not converged; the kernel writes 0 where it has
+    near(beta_n[live], (ru_w / ru.double())[live], (ru_size / ru.double().abs())[live])
+    assert bool((beta_n[conv] == 0).all())
+    for got, old in ((rr_n, rr), (ru_n, ru)):
+        assert torch.equal(_bits(got[conv]), _bits(old[conv]))
+
+    trace = torch.full((rows, 9), -1.0, dtype=dtype, device=cuda)
+    trace = trace if batch else trace[0]
+    i = torch.tensor([3, 5, 0][:rows], device=cuda)
+    i = i if batch else i[0]
+    b_norm = torch.linalg.vector_norm(bvec, dim=-1)
+    tol = 1.1 * float((torch.sqrt(rr) / b_norm).reshape(-1)[0])  # member 0 converges
+    conv_n, alpha_n, i_n = pcg.step_alpha(ctx, s, p, rr, b_norm, ru, tol, trace, i, work)
+    res = torch.sqrt(rr) / b_norm
+    want_trace = torch.full_like(trace, -1.0)
+    want_trace.scatter_(-1, i.unsqueeze(-1), res.unsqueeze(-1))
+    assert torch.equal(_bits(trace), _bits(want_trace))
+    assert torch.equal(conv_n, res < tol) and torch.equal(i_n, i + (~(res < tol)).long())
+    sp, sp_size = dot(s, p)
+    near(alpha_n, safe_div(ru.double(), sp), torch.where(sp != 0, ru.double().abs() * sp_size / sp**2, 0.0))
+    if batch:
+        assert float(alpha_n[2]) == 0.0
+    assert bool((work.view(-1)[-rows:] == 0).all())  # the tickets are back at 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precond", sorted(PCG_MS))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_body_batch_members_equal_their_solo_solves(graph_blocks, dtype, precond):
+    """pcg on the kernels on a (3, n) block (member 1 converges in the
+    first block): each member's count, residual trace and x are its solo
+    solve's bit for bit."""
+    from krylov_tpu_torch.solvers import pcg_kernel
+
+    A = fixtures.laplace2d(40, constant=True, dtype=dtype, device="cuda")
+    M = PCG_MS[precond](A)
+    B = _graph_batch(A, 73, 3)
+    kw = dict(M=M, tol=1e-10 if dtype == torch.float64 else 1e-5, maxiter=600)
+    res = pcg_kernel(A, B, torch.zeros_like(B), **kw)
+    for j in range(3):
+        solo = pcg_kernel(A, B[j].clone(), torch.zeros_like(B[j]), **kw)
+        m = int(solo.index) + 1
+        assert int(res.iterations[j]) == int(solo.iterations) and bool(solo.converged)
+        assert torch.equal(_bits(res.residual_trace[j, :m]), _bits(solo.residual_trace[:m]))
+        assert torch.equal(_bits(res.x[j]), _bits(solo.x))
+
+
+@pytest.mark.cuda
+def test_pcg_body_takes_a_tol_on_the_card(cuda, monkeypatch):
+    """``restarts=1``: the defect's inner solve gets its tol as a 0-d
+    tensor on the card, which the kernels read there; the solve converges
+    as the torch body's does, counts within two."""
+    from krylov_tpu_torch.solvers import pipelined
+
+    A = fixtures.laplace2d(48, constant=True, device=cuda)
+    b = _rhs(A.shape[0], 74, cuda)
+    kw = dict(method="pcg", M=pc.jacobi(A), tol=1e-9, maxiter=800, restarts=1)
+    before = _pcg_counts()
+    x, info = krylov_tpu_torch.solve(A, b, **kw)
+    calls, on_kernels = (a - c for a, c in zip(_pcg_counts(), before))
+    with monkeypatch.context() as m:
+        m.setattr(pipelined, "pcg_route", lambda *args: False)
+        x_t, info_t = krylov_tpu_torch.solve(A, b, **kw)
+    assert info["converged"] and info_t["converged"] and calls == on_kernels > 0
+    assert abs(info["iterations"] - info_t["iterations"]) <= 2
+    torch.testing.assert_close(x, x_t, rtol=1e-7, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_pcg_body_records_match_its_counter(graph_blocks):
+    """Under torch.profiler, pcg with Chebyshev(6) in a request that
+    captures and one that replays every block: the four kernels' records
+    equal 4 x the move of ``pcg_body.fused`` (96 bodies each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A = fixtures.laplace2d(64, constant=True, device="cuda")
+    M = pc.chebyshev(A, 6)
+    kw = dict(method="pcg", M=M, tol=0.0, maxiter=96)
+    A.matvec(_rhs(A.shape[0], 1, "cuda"))  # K1's weights are read once an operator
+    for seed, want in ((1, (1, 2)), (2, (0, 3))):
+        b = _rhs(A.shape[0], seed, "cuda")
+        torch.cuda.synchronize()
+        before, counts = _graph_counts(), _pcg_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            krylov_tpu_torch.solve_device(A, b, **kw)
+            torch.cuda.synchronize()
+        assert _since(before)[3:5] == want
+        calls, on_kernels = (a - c for a, c in zip(_pcg_counts(), counts))
+        records = sum(e.count for e in prof.key_averages() if any(k in e.key for k in PCG_KERNELS))
+        assert calls == on_kernels == 96 and records == 4 * on_kernels

@@ -292,6 +292,31 @@ def test_emulated_chebyshev_applications_counted_as_on_the_eager_route(emulated,
     assert got == [(97, 0, 2), (97, 0, 0)]
 
 
+@pytest.mark.parametrize("precond", ["none", "chebyshev(6)"])
+@pytest.mark.parametrize("batch", [None, 4])
+def test_emulated_pcg_body_counted_through_replays(emulated, monkeypatch, precond, batch):
+    """pcg's body on its steps (torch's passes: the route declines on the
+    CPU, and the state carries no scratch) over 96 steps, two requests on
+    one key: the emulated graph route equals the eager route bit for bit,
+    one capture, and every body, replayed ones too, counts in
+    ``pcg_body.calls`` and none in ``fused``."""
+    A = _system(16)
+    M = chebyshev(A, 6) if precond != "none" else None
+    bs = [_rhs(A, seed, batch) for seed in (5, 6)]
+    bodies = tracing.totals.pcg_body
+    got, moved = [], []
+    for route in ("graph", "eager"):
+        with monkeypatch.context() as m:
+            if route == "eager":
+                m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
+            before = (bodies.calls, bodies.fused), _counts()
+            got.append([solvers.pcg_kernel(A, b, torch.zeros_like(b), M=M, tol=0.0, maxiter=96) for b in bs])
+            moved.append((bodies.calls - before[0][0], bodies.fused - before[0][1], _delta(before[1])[2]))
+    for g, e in zip(*got):
+        _same(g, e)
+    assert moved == [(192, 0, 1), (192, 0, 0)]
+
+
 def test_emulated_new_operator_is_captured_anew(emulated):
     """A new operator object of the same shape (and one changed in place)
     is a new key: it never replays the block of another."""
