@@ -2332,6 +2332,10 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     all-reduces an iteration, ms an iteration sharded against eager on the
     host clock (paired: eager, sharded, sharded, eager, twice) and the
     all-gather's µs on the HYB, with the card's name and power limit.
+    16c: adaptive k=8, with and without ``restarts=1``, through
+    ``solve_device(mesh=)`` twice, its steps replayed as CUDA graphs with
+    their all-reduces captured, bitwise the eager single-device loop with
+    every step launched from Python (the true residuals within 1e-13).
     16b: ``solve_batched(mesh=)`` of SHARDED_BATCHED on 4 of ``B``'s
     right-hand sides, bitwise equal to the eager batch, with as many
     all-reduces as its longest member's solo sharded solve, and ms an
@@ -2349,11 +2353,11 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
     import torch.distributed as dist
 
     import krylov_tpu_torch
-    from krylov_tpu_torch import precond
+    from krylov_tpu_torch import precond, tracing
     from krylov_tpu_torch.context import all_reduce
     from krylov_tpu_torch.dist import make_mesh
     from krylov_tpu_torch.dist.spmv import gather_rows, sharded_matvec
-    from krylov_tpu_torch.solvers import pipelined
+    from krylov_tpu_torch.solvers import _common, pipelined
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -2406,6 +2410,32 @@ def sharded_phase(ops, b_np, A_csr, hyb, tmp: str, stencil, B) -> int:
             if m == "cacg":
                 kw["spectral_bounds"] = bounds
             hold(f"{m}{f' k={k}' if k else ''}{f' M={p}' if p else ''} float64", A, A_csr, b_np, kw, want)
+        # 16c. the adaptive loop's steps as CUDA graphs under the mesh, their
+        # all-reduces captured, against the eager single-device loop (every
+        # step launched from Python), restarts=1 included
+        b_t = torch.from_numpy(b_np).to(A.coef.device)
+        for restarts in (0, 1):
+            kw = dict(method="adaptivekskipmrr", k=8, tol=TOL, maxiter=MAXITER, restarts=restarts)
+            route_of, _common.step_route = _common.step_route, lambda state: False
+            try:
+                e = krylov_tpu_torch.solve_device(A, b_t, fused=False, **kw)
+            finally:
+                _common.step_route = route_of
+            replays = tracing.totals.eager_graph.replays
+            runs = [krylov_tpu_torch.solve_device(A, b_t, mesh=mesh, **kw) for _ in range(2)]
+            replays = tracing.totals.eager_graph.replays - replays
+            same = all(torch.equal(getattr(r, f), getattr(e, f)) for r in runs
+                       for f in ("x", "residual_trace", "nosl_trace", "k_trace", "final_k", "iterations"))
+            close = restarts == 0 or all(abs(float(r.true_residual) - float(e.true_residual))
+                                         <= 1e-13 * float(e.true_residual) for r in runs)
+            phase(f"sharded adaptive k=8 restarts={restarts} float64, steps as CUDA graphs: iterations "
+                  f"{[int(r.iterations) for r in runs]} (eager single-device loop {int(e.iterations)}), replayed steps "
+                  f"{replays} over two requests, bitwise equal to the eager loop {same}"
+                  + (f", true res {[float(r.true_residual) for r in runs]} (eager {float(e.true_residual)})"
+                     if restarts else ""))
+            if not (same and close and replays > 0 and all(bool(r.converged) for r in runs)):
+                failures.append(f"sharded adaptive restarts={restarts}: the graph route is not the eager loop's "
+                                f"bits, or replayed no step ({replays})")
         # float32: its true residual is printed, not held (phase 5's)
         hold("cg float32", ops[torch.float32], A_csr, b_np, dict(method="cg", tol=TOL, maxiter=MAXITER),
              below_tol=False)

@@ -23,6 +23,7 @@ loops row-partitioned over the ranks of a ``torch.distributed`` world
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -313,9 +314,13 @@ def _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_
 
 
 def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
-                restarts=0, M=None, bounds=None) -> SolveResult:
+                restarts=0, M=None, bounds=None, ctx=None) -> SolveResult:
     """One solve, then ``restarts`` device-side defect-correction passes
-    (:func:`krylov_tpu.api._run_single`).
+    (:func:`krylov_tpu.api._run_single`).  ``ctx`` is the loop's context
+    (:func:`_run_base`): with a process group, ``A`` is the rank's
+    sharded operator and ``b``, ``x0`` its rows, the defect's SpMV makes
+    the operator's exchange and its norms are all-reduced, the same on
+    every rank, so that every rank takes the same branch.
 
     The solvers converge on the recurred residual, which in float32 drifts
     from the true one.  Each pass forms ``r = b - A x`` in working
@@ -326,25 +331,29 @@ def _run_single(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basi
     decides with ``lax.cond`` on the device, this reads ``true_rel >= tol``
     on the host once a pass.  The result then carries ``true_residual``,
     and ``converged`` is ``true_residual < tol``."""
-    result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M, bounds)
+    result = _run_base(A, b, x0, tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm, M, bounds, ctx=ctx)
     if restarts == 0:
         return result
+    if ctx is None or ctx.group is None:
+        norm, matvec = torch.linalg.vector_norm, A.matvec
+    else:
+        norm, matvec = ctx.norm, functools.partial(ctx.matvec, A)
     with tracing.span("restarts"):
         tol_t = tracing.scalar_on(tol, b.dtype, b.device)
-        b_norm = torch.linalg.vector_norm(b)
+        b_norm = norm(b)
         x, iters = result.x, result.iterations
         for _ in range(restarts):
-            r = b - A.matvec(x)
-            r_norm = torch.linalg.vector_norm(r)
+            r = b - matvec(x)
+            r_norm = norm(r)
             # tol on the original system is tol * b_norm / r_norm on the defect
             inner_tol = torch.clamp(0.2 * tol_t * b_norm / torch.clamp(r_norm, min=1e-30), 2e-7, 0.5).to(b.dtype)
             with tracing.host_read():
                 again = bool(r_norm / b_norm >= tol_t)
             if again:
                 res2 = _run_base(A, r, None, inner_tol, method, maxiter, k, scalar_dtype, use_fused, basis_norm,
-                                 M, bounds)
+                                 M, bounds, ctx=ctx)
                 x, iters = x + res2.x, iters + res2.iterations
-        true_final = torch.linalg.vector_norm(b - A.matvec(x)) / b_norm
+        true_final = norm(b - matvec(x)) / b_norm
     return dataclasses.replace(result, x=x, iterations=iters, converged=true_final < tol_t,
                                true_residual=true_final)
 
@@ -426,10 +435,8 @@ def _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm):
     return A, b, x0, maxiter, use_fused, bool(basis_norm) and method in _KSKIP_METHODS
 
 
-def _check_mesh_options(restarts: int = 0, chunk_iters=None, fused=None) -> None:
+def _check_mesh_options(chunk_iters=None, fused=None) -> None:
     """The options ``mesh=`` does not take, with the JAX package's errors."""
-    if restarts:
-        raise ValueError("restarts= is single-device only (use refine= with mesh)")
     if chunk_iters is not None:
         raise ValueError("chunk_iters= is single-device only")
     if fused:
@@ -448,8 +455,9 @@ def solve_device(
     the host only where its loop reads convergence).
 
     ``restarts``: device-side defect-correction passes appended to the
-    solve (see :func:`_run_single`); the result then carries
-    ``true_residual`` and ``converged`` reflects it.  Single-device only.
+    solve (see :func:`_run_single`), under ``mesh=`` on the rank's rows;
+    the result then carries ``true_residual`` and ``converged`` reflects
+    it.
 
     With ``mesh=`` every rank calls it with the whole system; ``x`` is then
     this rank's rows of the solution (the JAX package returns one global
@@ -458,7 +466,7 @@ def solve_device(
     with tracing.span("plan"):
         _check_options(method, mesh, M, spectral_bounds)
         if mesh is not None:
-            _check_mesh_options(restarts=restarts, fused=fused)
+            _check_mesh_options(fused=fused)
             fused = False
         A, b, x0, maxiter, use_fused, basis_norm = _plan(A, b, x0, method, maxiter, M, scalar_dtype, fused,
                                                          basis_norm)
@@ -467,7 +475,7 @@ def solve_device(
 
         return solve_sharded(A, b, x0, tol=tol, method=method, maxiter=maxiter, k=k, M=M, mesh=mesh,
                              scalar_dtype=scalar_dtype, basis_norm=basis_norm, spectral_bounds=spectral_bounds,
-                             gather=False)
+                             gather=False, restarts=restarts)
     if _zero_rows(b)[0]:
         return _zero_result(b, method, k, scalar_dtype, use_fused, restarts)
     bounds = _resolve_bounds(A, method, spectral_bounds)
@@ -527,16 +535,16 @@ def solve(
     every reduction is one all-reduce, every SpMV one halo or all-gather
     exchange, a stencil's through K1 on the rank's slab.  ``x`` is then the
     whole solution on every rank, and ``info`` the same on every rank; its
-    ``time`` starts after a barrier of the ranks.  ``restarts=``,
-    ``chunk_iters=`` and ``fused=True`` raise ``ValueError`` with it;
-    ``refine=`` takes its host-float64 defect on the whole operator and
-    ``x``.
+    ``time`` starts after a barrier of the ranks.  ``restarts=`` corrects
+    on the rank's rows; ``chunk_iters=`` and ``fused=True`` raise
+    ``ValueError`` with it; ``refine=`` takes its host-float64 defect on the
+    whole operator and ``x``.
     """
     b_in = b
     with tracing.span("plan"):
         _check_options(method, mesh, M, spectral_bounds)
         if mesh is not None:
-            _check_mesh_options(restarts, chunk_iters, fused)
+            _check_mesh_options(chunk_iters, fused)
             fused = False
         A, b, x0, maxiter_eff, use_fused, basis_norm_eff = _plan(
             A, b, x0, method, maxiter, M, scalar_dtype, fused, basis_norm
@@ -571,7 +579,8 @@ def solve(
 
             result, elapsed = solve_sharded(
                 A, b, x0, tol=tol, method=method, maxiter=maxiter_eff, k=k, M=M, mesh=mesh,
-                scalar_dtype=scalar_dtype, basis_norm=basis_norm_eff, spectral_bounds=bounds, return_times=True)
+                scalar_dtype=scalar_dtype, basis_norm=basis_norm_eff, spectral_bounds=bounds, return_times=True,
+                restarts=restarts)
             info = build_info(result, elapsed)
         elif chunked:
             # the chunks run fused only where the caller forced it: the carry

@@ -30,17 +30,18 @@ import torch.distributed as dist
 from krylov_tpu_torch import tracing
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (one collective; ``t`` must be a
     contiguous tensor the caller owns).  ``all_reduce.calls`` counts the
-    collectives."""
+    collectives (``tracing.totals.collectives``; one captured in a CUDA
+    graph counts at each replay)."""
     with tracing.span("all_reduce"):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    all_reduce.calls += 1
+    tracing.count("collectives")
     return t
 
 
-all_reduce.calls = 0
+all_reduce = tracing.counted("collectives", _all_reduce)
 
 
 @dataclasses.dataclass(frozen=True)

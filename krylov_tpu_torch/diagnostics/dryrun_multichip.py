@@ -14,10 +14,13 @@ raises on a non-finite ``x`` and returns, per solve, the sharded and the
 single-rank iteration counts.  :func:`main_path` runs the main-path
 system at full size, ``laplace2d(nx, constant=True)`` in float64 (tol
 1e-5, ``b`` from ``default_rng(0)``), sharded over the world against the
-eager solve on the rank alone.  Run as a module, it starts a world of
+eager solve on the rank alone.  :func:`row5` runs BASELINE row 5 weak-scaled
+over the world (one ``216**3`` slab a rank) through ``solve_device(mesh=)``
+with the adaptive loop's steps replayed as CUDA graphs against the same
+solves with every step eager.  Run as a module, it starts a world of
 ``--ranks`` ranks (gloo on ``--device cpu``, NCCL with one card a rank on
-``cuda``) and rank 0 prints one JSON line of the dry run and, with
-``--nx``, one of the main path.
+``cuda``) and rank 0 prints one JSON line of the dry run, with ``--nx`` one
+of the main path, and on a world of four cards one of row 5.
 """
 
 from __future__ import annotations
@@ -119,6 +122,70 @@ def main_path(mesh, nx: int) -> dict:
     return out
 
 
+ROW5 = dict(method="adaptivekskipmrr", k=8, tol=1e-4, maxiter=4000, restarts=1)  # BASELINE row 5's solve
+
+
+def row5(mesh, requests: int = 3) -> dict:
+    """BASELINE row 5 weak-scaled over ``mesh``'s world of cards:
+    ``laplace3d(216, 216, 216 P, constant=True)`` in float64, one
+    ``216**3`` slab a rank, through ``solve_device(mesh=)`` with ROW5 on a
+    standard normal ``b`` drawn on the card from seed 0 (the same on every
+    rank).  Two routes, ``requests`` requests each after a warm-up request:
+    ``graph`` (the adaptive loop's steps replayed as CUDA graphs, their
+    all-reduces and halo exchanges captured) and ``eager`` (every step
+    launched from Python).  For each route: ms a request (host clock between
+    synchronisations of the card), host µs an outer iteration (the
+    ``eager_loop`` spans less their host reads, over the bodies they ran),
+    the outer iterations a request and those replayed, all-reduces a
+    request; and whether both routes gave the same ``x``, traces and true
+    residual bit for bit.  It raises where they differ or a request is not
+    converged."""
+    import time
+
+    from krylov_tpu_torch.solvers import _common
+
+    P = dist.get_world_size(mesh.get_group())
+    device = torch.device("cuda", torch.cuda.current_device())
+    A = fixtures.laplace3d(216, 216, 216 * P, constant=True, device=device)
+    b = torch.randn(A.shape[0], dtype=torch.float64, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    t = tracing.totals
+    out, results = {}, {}
+    for route in ("graph", "eager"):
+        route_of = _common.step_route
+        if route == "eager":
+            _common.step_route = lambda state: False
+        try:
+            krylov_tpu_torch.solve_device(A, b, mesh=mesh, **ROW5)  # warm-up: K1's cache, a graph's capture
+            before = (t.eager_loop.total_ns, t.eager_loop.read_ns, t.eager_bodies.calls, t.eager_graph.bodies,
+                      all_reduce.calls)
+            ms = []
+            for _ in range(requests):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                res = krylov_tpu_torch.solve_device(A, b, mesh=mesh, **ROW5)
+                torch.cuda.synchronize(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            loop_ns, read_ns, bodies, replayed, reduces = (
+                now - then for now, then in zip((t.eager_loop.total_ns, t.eager_loop.read_ns, t.eager_bodies.calls,
+                                                 t.eager_graph.bodies, all_reduce.calls), before))
+        finally:
+            _common.step_route = route_of
+        if not bool(res.converged):
+            raise AssertionError(f"row 5 over {P} ranks, {route}: not converged (true res {float(res.true_residual)})")
+        results[route] = res
+        out[route] = {"ms_a_request": ms, "host_us_an_outer_iteration": (loop_ns - read_ns) * 1e-3 / bodies,
+                      "outer_a_request": bodies / requests, "replayed_a_request": replayed / requests,
+                      "allreduces_a_request": reduces / requests, "iterations": int(res.iterations),
+                      "true_residual": float(res.true_residual)}
+    g, e = results["graph"], results["eager"]
+    out["bitwise"] = all(torch.equal(getattr(g, f), getattr(e, f)) for f in
+                         ("x", "residual_trace", "nosl_trace", "k_trace", "iterations", "true_residual"))
+    if not out["bitwise"]:
+        raise AssertionError("row 5: the graph route's x, traces or true residual differ from the eager route's")
+    return out
+
+
 def _print_dryrun(mesh, nx) -> None:
     out = dryrun_multichip(mesh)
     if dist.get_rank() == 0:
@@ -127,6 +194,10 @@ def _print_dryrun(mesh, nx) -> None:
         out = main_path(mesh, nx)
         if dist.get_rank() == 0:
             print(json.dumps({"main_path": out, "nx": nx, "ranks": dist.get_world_size()}), flush=True)
+    if mesh.device_type == "cuda" and dist.get_world_size() == 4:
+        out = row5(mesh)
+        if dist.get_rank() == 0:
+            print(json.dumps({"row5": out, "ranks": 4, "card": torch.cuda.get_device_name()}), flush=True)
 
 
 def main() -> None:

@@ -79,6 +79,9 @@ class ShardedOperator:
     aux: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     needs_ctx = True
+    # its matvec reads its fields, what ``aux`` derives from them and the
+    # context alone: a CUDA graph of the solvers may be keyed on it
+    graph_keyed = True
 
     def __post_init__(self):
         if self.kind == "stencil":
@@ -100,11 +103,13 @@ class ShardedOperator:
         return sharded_matvec(self, x_local, ctx)
 
 
-def sharded_matvec(op: ShardedOperator, x: torch.Tensor, ctx) -> torch.Tensor:
+def _sharded_matvec(op: ShardedOperator, x: torch.Tensor, ctx) -> torch.Tensor:
     """``op``'s row block of ``A x`` from this rank's block of ``x``.
     ``sharded_matvec.calls`` counts the calls; ``.halo_bytes`` and
-    ``.gather_bytes`` the bytes this rank received in them."""
-    sharded_matvec.calls += 1
+    ``.gather_bytes`` the bytes this rank received in them
+    (``tracing.totals.sharded_matvec``; a call captured in a CUDA graph
+    counts at each replay)."""
+    tracing.count("sharded_matvec")
     with tracing.span("halo"):
         if op.kind == "stencil":
             return _stencil_halo_matvec(op, x, ctx)
@@ -113,9 +118,7 @@ def sharded_matvec(op: ShardedOperator, x: torch.Tensor, ctx) -> torch.Tensor:
         return _allgather_matvec(op, x, ctx)
 
 
-sharded_matvec.calls = 0
-sharded_matvec.halo_bytes = 0
-sharded_matvec.gather_bytes = 0
+sharded_matvec = tracing.counted("sharded_matvec", _sharded_matvec)
 
 
 def _post_halo(x: torch.Tensor, lo: int, hi: int, width: int, op: ShardedOperator, ctx):
@@ -145,7 +148,7 @@ def _post_halo(x: torch.Tensor, lo: int, hi: int, width: int, op: ShardedOperato
     pending = (dist.batch_isend_irecv(ops), ops) if ops else None
     for t in (top, bottom):
         if t is not None:
-            sharded_matvec.halo_bytes += t.numel() * t.element_size()
+            tracing.count("sharded_matvec", "halo_bytes", n=t.numel() * t.element_size())
     return pending, top, bottom
 
 
@@ -289,7 +292,7 @@ def _allgather_matvec(op: ShardedOperator, x: torch.Tensor, ctx) -> torch.Tensor
     if buf is None:
         buf = op.aux[key] = x.new_empty(op.n_devices * x.numel())
     x_full = gather_rows(x, op.n_devices, ctx.group, buf)
-    sharded_matvec.gather_bytes += (op.n_devices - 1) * x.numel() * x.element_size()
+    tracing.count("sharded_matvec", "gather_bytes", n=(op.n_devices - 1) * x.numel() * x.element_size())
     if op.kind == "ell":
         data, indices = op.arrays
         return _gather_sum(data, indices, x_full)

@@ -18,7 +18,10 @@ operator that comes back; :func:`graph_route` and :func:`run_bodies` say
 when), so a block costs one graph launch and its one read in place of some
 thousands of launches made from Python; elsewhere it runs the bodies one by
 one.  Both routes launch the same kernels in the same order, so they give
-the same bits.
+the same bits.  :func:`replay_step` does the same for one step of a loop
+whose host reads each step's result (the adaptive k-skip loop's outer
+iteration and its guard), a row-partitioned loop's included: its
+all-reduces and halo exchanges are captured with the step.
 
 The helpers take a leading batch axis (vectors ``(batch, n)``, scalars and
 counters ``(batch,)``, traces ``(batch, L)``), so a loop written for one
@@ -75,6 +78,16 @@ def synced_done(step: int, conv: torch.Tensor) -> bool:
     return step % SYNC_EVERY == SYNC_EVERY - 1 and all_converged(conv)
 
 
+def step_route(state: tuple) -> bool:
+    """Whether :func:`replay_step` tries the graph route: every tensor of
+    the state on the card and a stream not already capturing.  A process
+    group's collectives are captured with the step (NCCL captures its
+    all-reduces and point-to-point exchanges on the rank's stream), so a
+    row-partitioned loop takes it too."""
+    return (all(t.is_cuda for t in state if isinstance(t, torch.Tensor))
+            and not torch.cuda.is_current_stream_capturing())
+
+
 def graph_route(ctx: Context, state: tuple, steps: int) -> bool:
     """Whether :func:`run_bodies` tries the graph route: every tensor of
     the state on the card (a capture would take a CPU scalar's value as a
@@ -127,15 +140,16 @@ def run_bodies(body, state: tuple, steps: int, ctx: Context) -> tuple:
 class _Block:
     """A key's entry: weak references to the operators the key names, the
     lock its request holds, whether a request has warmed it up, and once
-    captured its graph's replay, its static state and what its capture
+    captured its graph's replay, its static state, what its capture
     recorded of the counters (:class:`~krylov_tpu_torch.tracing.recording`),
-    which each replay runs."""
+    which each replay runs, and, for a step graph, the memory pool it was
+    captured into."""
 
-    __slots__ = ("held", "busy", "seen", "replay", "static", "counts")
+    __slots__ = ("held", "busy", "seen", "replay", "static", "counts", "pool")
 
     def __init__(self, held):
         self.held, self.busy, self.seen = held, threading.Lock(), False
-        self.replay, self.static, self.counts = None, None, ()
+        self.replay, self.static, self.counts, self.pool = None, None, (), None
 
 
 _BLOCKS: collections.OrderedDict = collections.OrderedDict()
@@ -154,17 +168,25 @@ def _fingerprint(obj):
     """What a key holds of an operator in a body's closure: its type and,
     field by field, a plain value, a tensor's identity and version (an
     operator changed in place is a new key, since K1 takes constant weights
-    as kernel arguments) or a nested operator's fingerprint.  None where the
-    object, or one it holds, is not one of the package's own frozen
-    containers and preconditioners: another object's ``matvec`` may read
-    state that changes between requests, or wait for the card."""
-    if not isinstance(obj, _OPERATORS):
+    as kernel arguments) or a nested operator's fingerprint; a field that
+    takes no part in the operator's equality is what it derives from the
+    others, and is left out.  None where the object, or one it holds, is
+    neither one of the package's own frozen containers and preconditioners
+    nor an operator that declares itself keyed (``graph_keyed = True``, as
+    :class:`~krylov_tpu_torch.dist.ShardedOperator` does): another object's
+    ``matvec`` may read state that changes between requests, or wait for
+    the card."""
+    if not (isinstance(obj, _OPERATORS) or getattr(obj, "graph_keyed", False)):
         return None
     parts = [type(obj)]
     for f in dataclasses.fields(obj):
+        if not f.compare:
+            continue
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
             parts.append((id(v), v._version))
+        elif isinstance(v, tuple) and v and all(isinstance(t, torch.Tensor) for t in v):
+            parts.append(tuple((id(t), t._version) for t in v))
         elif _plain(v):
             parts.append(v)
         else:
@@ -192,8 +214,8 @@ def _block_key(body, state: tuple):
         if isinstance(v, torch.Tensor):
             raise TypeError(f"{body.__qualname__} reads a tensor from its closure: a replay would read the "
                             "capture's tensor; pass it in the state")
-        if isinstance(v, Context):
-            parts.append((Context, v.axis, v.scalar_dtype))
+        if isinstance(v, Context):  # its process group: a replay runs the collectives captured on it
+            parts.append((Context, v.axis, v.scalar_dtype, v.group))
         elif _plain(v):
             parts.append(v)
         else:
@@ -214,15 +236,16 @@ def _side_stream(device) -> torch.cuda.Stream:
     return side
 
 
-def _record(fn, device):
+def _record(fn, device, pool=None):
     """``fn`` captured as a CUDA graph on the side stream of ``device``
-    (the one that ran the warm-up); returns the graph's replay.  The
-    capture is begun and ended directly, without the synchronisation,
-    ``gc.collect`` and emptied allocator cache of ``torch.cuda.graph``:
-    nothing runs while it records."""
+    (the one that ran the warm-up), into the memory pool ``pool`` (a
+    private one where None); returns the graph's replay.  The capture is
+    begun and ended directly, without the synchronisation, ``gc.collect``
+    and emptied allocator cache of ``torch.cuda.graph``: nothing runs while
+    it records."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(_side_stream(device)):
-        graph.capture_begin(capture_error_mode="thread_local")
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             fn()
         finally:
@@ -230,20 +253,20 @@ def _record(fn, device):
     return graph.replay
 
 
-def _capture(block: _Block, body, state: tuple) -> None:
-    """Capture :data:`SYNC_EVERY` bodies into ``block`` from static copies
-    of ``state``, ending with the copy of the last body's state back into
+def _capture(block: _Block, body, state: tuple, bodies: int = SYNC_EVERY, pool=None) -> None:
+    """Capture ``bodies`` bodies into ``block`` from static copies of
+    ``state``, ending with the copy of the last body's state back into
     them.  What the bodies count while the capture records, and the block's
-    own count of one replay of :data:`SYNC_EVERY` bodies, is the block's
-    ``counts``, which :func:`_replays` credits at each replay."""
+    own count of one replay of ``bodies`` bodies, is the block's
+    ``counts``, which each replay credits."""
     static = tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in state)
 
     def run():
         tracing.count("eager_graph", "replays")
-        tracing.count("eager_graph", "bodies", n=SYNC_EVERY)
-        tracing.count("eager_bodies", n=SYNC_EVERY)
+        tracing.count("eager_graph", "bodies", n=bodies)
+        tracing.count("eager_bodies", n=bodies)
         out = static
-        for _ in range(SYNC_EVERY):
+        for _ in range(bodies):
             out = body(out)
         for dst, src in zip(static, out):
             if isinstance(dst, torch.Tensor) and src is not dst:
@@ -252,7 +275,7 @@ def _capture(block: _Block, body, state: tuple) -> None:
                 dst.copy_(src)
 
     with tracing.recording() as recorded:
-        block.replay = _record(run, state[-1].device)
+        block.replay = _record(run, state[-1].device, pool)
     block.static, block.counts = static, recorded.counts
     tracing.totals.eager_graph.captures += 1
 
@@ -332,14 +355,105 @@ def _replays(block: _Block, step: int, steps: int):
     return step, tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in static), done
 
 
-def guard_read(flags: torch.Tensor):
-    """``flags`` on the host as numpy: the one read an outer iteration of
-    the guarded loops (adaptive k-skip MrR, the CA loops), counted as one
-    body in ``tracing.totals.eager_bodies`` and one
+def replay_step(body, state: tuple) -> tuple:
+    """One step ``state = body(state)`` of a loop whose host reads what
+    each step gives (the adaptive k-skip loop: an outer iteration and the
+    next guard's flags), counted as one body in
+    ``tracing.totals.eager_bodies``.  Returns the new state.
+
+    ``state``'s entries are tensors, or plain numbers the body reads; the
+    body reads every tensor of the request from the state, and nothing
+    from its closure but the package's own operators (a sharded one
+    included), the context and plain numbers, as :func:`run_bodies` asks.
+    On the card (:func:`step_route`) a key's first step (:func:`_block_key`)
+    runs eagerly on the side stream, torch's warm-up before a capture (it
+    fills K1's cache and starts a communicator's streams); its second is
+    captured as a CUDA graph, into one memory pool for every step graph
+    replayed on the stream (they never run at once), and each step of the
+    key from then on is one replay of it.  A replay returns a copy of the
+    graph's static state, as :func:`run_bodies` does: the key's next
+    replay, another thread's too, overwrites the static state.  A step
+    whose key another thread's request holds, or that would warm up or
+    capture while another thread does, runs eagerly.  Both routes launch
+    the same kernels in the same order, collectives included, so they give
+    the same bits."""
+    if step_route(state):
+        with torch.cuda.device(state[-1].device):
+            out = _replay_step(body, state)
+        if out is not None:
+            return out
+    tracing.count("eager_bodies")
+    return body(state)
+
+
+def _replay_step(body, state: tuple):
+    """The graph route of :func:`replay_step`: the new state, or None where
+    the step runs eagerly on the current stream."""
+    key, held = _block_key(body, state)
+    if key is None:
+        return None
+    with _LOCK:
+        block = _entry(key, held)
+        if not block.busy.acquire(blocking=False):
+            return None
+    try:
+        if block.replay is None:
+            if not _CAPTURE.acquire(blocking=False):
+                return None
+            try:
+                device = state[-1].device
+                if not block.seen:
+                    block.seen = True
+                    main, side = torch.cuda.current_stream(), _side_stream(device)
+                    side.wait_stream(main)
+                    with torch.cuda.stream(side):
+                        tracing.count("eager_bodies")
+                        state = body(state)
+                    main.wait_stream(side)
+                    return state
+                pool, owner = _shared_pool(key)
+                _capture(block, body, state, bodies=1, pool=pool)
+                del owner  # the new graph holds the pool now
+                graph = getattr(block.replay, "__self__", None)  # the CUDA graph whose replay it is
+                block.pool = pool if pool is not None or graph is None else graph.pool()
+            finally:
+                _CAPTURE.release()
+        for dst, src in zip(block.static, state):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        block.replay()
+        tracing.credit(block.counts)
+        return tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in block.static)
+    finally:
+        block.busy.release()
+
+
+def _shared_pool(key):
+    """``(pool, owner)``: the memory pool of a step graph in the cache
+    replayed on ``key``'s device and stream, for the next capture there to
+    share, and that graph's replay (``(None, None)``: a pool of its own).
+    A pool lives while a graph captured into it does, so it is taken from
+    a cached graph, never kept apart; the caller holds ``owner`` until its
+    capture has begun, or another thread's new key could push that graph
+    out of the cache and free the pool first."""
+    with _LOCK:
+        return next(((block.pool, block.replay) for other, block in _BLOCKS.items()
+                     if block.pool is not None and other[1:3] == key[1:3]), (None, None))
+
+
+def read_flags(flags: torch.Tensor):
+    """``flags`` on the host as numpy: one
     :func:`~krylov_tpu_torch.tracing.host_read`."""
-    tracing.totals.eager_bodies.calls += 1
     with tracing.host_read():
         return flags.cpu().numpy()
+
+
+def guard_read(flags: torch.Tensor):
+    """``flags`` on the host as numpy (:func:`read_flags`): the one read an
+    outer iteration of the CA loops, counted as one body in
+    ``tracing.totals.eager_bodies``."""
+    tracing.totals.eager_bodies.calls += 1
+    return read_flags(flags)
 
 
 def pow2_scale(s: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,14 @@ one read): an outer iteration is k+1 solution updates and its trip counts
 depend on k.  The counters, k and the nosl/k traces therefore live on the
 host, and go to the device once, with the result.
 
+An outer iteration at k and the residual and flags of the guard that
+follows it are one step (:func:`_step`), run through
+:func:`~krylov_tpu_torch.solvers._common.replay_step`: on the card a key's
+steps from its second on are replays of one CUDA graph a k (a
+row-partitioned step's all-reduces and halo exchanges captured with it),
+each followed by the guard's one read; a rollback's half-step runs
+eagerly.  Each step counts one body in ``tracing.totals.eager_bodies``.
+
 ``b`` and ``x0`` may carry a leading batch axis ``(batch, n)``.  The
 guard of the whole batch is then one ``(batch, 2)`` read; the rollback
 half-step runs on the members that rolled back, and the outer step on the
@@ -40,8 +48,32 @@ import torch
 
 from krylov_tpu_torch import tracing
 from krylov_tpu_torch.context import DEFAULT_CONTEXT, Context
-from krylov_tpu_torch.solvers._common import SolveResult, carried, guard_read, scalar_dtype_of
+from krylov_tpu_torch.solvers._common import SolveResult, carried, read_flags, replay_step, scalar_dtype_of
 from krylov_tpu_torch.solvers.kskip_mrr import kskipmrr_outer, mrr_half_step
+
+
+def _guard(ctx, r: torch.Tensor, b_norm: torch.Tensor, tol_t: torch.Tensor, pre_res: torch.Tensor):
+    """``(res, flags)``: the residual ``||r|| / ||b||`` and the guard's
+    ``(batch, 2)`` flags, whether it rose against the last accepted
+    residual ``pre_res`` and whether it is below ``tol``.  Non-finite
+    counts as rose: NaN compares false, and a blow-up inside an outer step
+    would otherwise be accepted for good."""
+    res = ctx.norm(r) / b_norm
+    return res, torch.stack([(res > pre_res) | ~torch.isfinite(res), res < tol_t], -1).reshape(-1, 2)
+
+
+def _step(ctx, A, k: int, basis_norm: bool):
+    """The loop's step at ``k`` on ``(x, r, y, z, Ar1, b_norm, tol_t,
+    pre_res, res, flags)``: an outer iteration, then the next guard's
+    ``res`` and ``flags`` (the last two entries; those it is given are not
+    read)."""
+
+    def step(loop):
+        *state, b_norm, tol_t, pre_res, _, _ = loop
+        _, new = kskipmrr_outer(ctx, A, k, basis_norm, state)
+        return (*new, b_norm, tol_t, pre_res, *_guard(ctx, new[1], b_norm, tol_t, pre_res))
+
+    return step
 
 
 def adaptivekskipmrr_kernel(
@@ -98,19 +130,17 @@ def adaptivekskipmrr_kernel(
     ktrace[:, :2] = kk[:, None]
     i, index = np.full(nb, i0, np.int64), np.full(nb, i0, np.int64)
     conv = np.zeros(nb, bool)
+    res, flags = _guard(ctx, state[1], b_norm, tol_t, pre_res)
 
     while True:
         live = np.flatnonzero(~conv & (i < maxiter))
         if live.size == 0:
             break
-        res = ctx.norm(state[1]) / b_norm
         record(live, take(res, live))
-        # non-finite counts as rose: NaN compares false, and a blow-up inside
-        # an outer step would otherwise be accepted for good
-        flags = guard_read(torch.stack([(res > pre_res) | ~torch.isfinite(res), res < tol_t], -1).reshape(nb, 2))
-        rose, accept = live[flags[live, 0]], live[~flags[live, 0]]
+        guard = read_flags(flags)
+        rose, accept = live[guard[live, 0]], live[~guard[live, 0]]
         if accept.size:
-            conv[accept] = flags[accept, 1]
+            conv[accept] = guard[accept, 1]
             pre_x, pre_res = put(pre_x, accept, take(state[0], accept)), put(pre_res, accept, take(res, accept))
         if rose.size:
             *sub, _ = mrr_half_step(ctx, A, take(b, rose), take(pre_x, rose))
@@ -127,8 +157,11 @@ def adaptivekskipmrr_kernel(
         stepping = live[~conv[live]]
         for kv in np.unique(kk[stepping]):
             g = stepping[kk[stepping] == kv]
-            _, new = kskipmrr_outer(ctx, A, int(kv), basis_norm, [take(t, g) for t in state])
+            loop = (*(take(t, g) for t in state), take(b_norm, g), tol_t, take(pre_res, g), take(res, g),
+                    take(flags, g))
+            *new, _, _, _, res_g, flags_g = replay_step(_step(ctx, A, int(kv), basis_norm), loop)
             state = [put(t, g, v) for t, v in zip(state, new)]
+            res, flags = put(res, g, res_g), put(flags, g, flags_g)
             i[g] += kv + 1
             index[g] += 1
             ntrace[g, index[g]] = i[g]
@@ -136,7 +169,7 @@ def adaptivekskipmrr_kernel(
 
     diverged = np.flatnonzero(~conv)
     if diverged.size:  # a diverged exit writes the final residual
-        record(diverged, take(ctx.norm(state[1]) / b_norm, diverged))
+        record(diverged, take(res, diverged))
 
     def member(a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(a, device=dev).to(dtype).reshape(batch + a.shape[1:])

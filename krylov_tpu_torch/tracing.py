@@ -58,6 +58,12 @@ The counters of the package are groups of plain integer fields in
   ``xr``, ``ru`` and ``p``;
 - ``stencil_matvec_2d.launches`` and ``chebyshev_apply.launches``: the
   launches of K1 and of the Chebyshev step;
+- ``collectives.calls``: the all-reduces of a row-partitioned solve
+  (:func:`krylov_tpu_torch.context.all_reduce`); ``sharded_matvec``: its
+  SpMVs, ``calls``, and the bytes a rank received in them, ``halo_bytes``
+  and ``gather_bytes`` (:func:`krylov_tpu_torch.dist.spmv.sharded_matvec`).
+  Both functions read and set them as their attributes (:class:`counted`):
+  ``all_reduce.calls``, ``sharded_matvec.halo_bytes``;
 - ``fused_cg_solve_2d``, ``fused_mrr_solve_2d``, ``fused_kskipcg_solve_2d``
   and ``fused_kskipmrr_solve_2d``: the launches of each whole-solve
   wrapper (``launches``), by route (``resident``, ``streaming``), and by
@@ -101,6 +107,8 @@ GROUPS = {
     "pcg_launches": ("alpha", "xr", "ru", "p"),
     "stencil_matvec_2d": ("launches",),
     "chebyshev_apply": ("launches",),
+    "collectives": ("calls",),
+    "sharded_matvec": ("calls", "halo_bytes", "gather_bytes"),
     **dict.fromkeys(("fused_cg_solve_2d", "fused_mrr_solve_2d", "fused_kskipcg_solve_2d",
                      "fused_kskipmrr_solve_2d"), _FUSED),
 }
@@ -158,6 +166,24 @@ def credit(counts: tuple) -> None:
     for group, field, n in counts:
         g = getattr(totals, group)
         setattr(g, field, getattr(g, field) + n)
+
+
+class counted:
+    """``fn`` with the fields of ``totals.<group>`` as its attributes
+    (``all_reduce.calls``, read and set as a function attribute), so that a
+    CUDA graph's replays credit them as they credit every group."""
+
+    def __init__(self, group: str, fn):
+        vars(self).update(_group=group, __wrapped__=fn, __name__=fn.__name__, __doc__=fn.__doc__)
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def __getattr__(self, field: str):
+        return getattr(getattr(totals, self._group), field)
+
+    def __setattr__(self, field: str, value) -> None:
+        setattr(getattr(totals, self._group), field, value)
 
 
 _ids = itertools.count(1)

@@ -1299,24 +1299,31 @@ def test_graph_replays_show_in_the_profilers_trace(graph_blocks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["pcg", "adaptivekskipmrr"])
 @pytest.mark.parametrize("streams", ["two streams", "one stream"])
-def test_graph_route_threads_on_one_key(graph_blocks, monkeypatch, streams):
+def test_graph_route_threads_on_one_key(graph_blocks, monkeypatch, streams, loop):
     """Two threads solve on one operator at once, each on a stream of its
     own or both on one: every result is bit for bit the eager route's for
-    its ``b``, so no request reads static state that another overwrites.
-    Each stream has its own key; on one stream a request whose block the
-    other thread holds runs eagerly."""
+    its ``b``, so no request reads static state that another overwrites
+    (pcg's blocks of bodies; the adaptive loop's steps, whose request
+    carries its state from one replayed step to the next).  Each stream
+    has its own keys; on one stream a request whose block the other thread
+    holds runs eagerly."""
     import threading
 
     from krylov_tpu_torch.solvers import _common
 
     A = fixtures.laplace2d(48, constant=True, device="cuda")
-    M = pc.chebyshev(A, 6)
+    if loop == "pcg":
+        run, route, same = krylov_tpu_torch.solvers.pcg_kernel, "graph_route", _same_bits
+        kw, eager = dict(M=pc.chebyshev(A, 6), tol=0.0, maxiter=160), lambda ctx, state, steps: False
+    else:
+        run, route, same = krylov_tpu_torch.solvers.adaptivekskipmrr_kernel, "step_route", _same_adaptive_bits
+        kw, eager = dict(k=4, tol=1e-10, maxiter=400), lambda state: False
     bs = [_graph_batch(A, seed, None) for seed in range(50, 58)]
-    kw = dict(M=M, tol=0.0, maxiter=160)
     with monkeypatch.context() as m:
-        m.setattr(_common, "graph_route", lambda ctx, state, steps: False)
-        want = [krylov_tpu_torch.solvers.pcg_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+        m.setattr(_common, route, eager)
+        want = [run(A, b, torch.zeros_like(b), **kw) for b in bs]
     side = [torch.cuda.Stream(), torch.cuda.Stream()]
     if streams == "one stream":
         side[1] = side[0]
@@ -1328,7 +1335,7 @@ def test_graph_route_threads_on_one_key(graph_blocks, monkeypatch, streams):
             with torch.cuda.stream(side[t]):
                 start.wait()
                 for j in range(t, len(bs), 2):
-                    got[j] = krylov_tpu_torch.solvers.pcg_kernel(A, bs[j], torch.zeros_like(bs[j]), **kw)
+                    got[j] = run(A, bs[j], torch.zeros_like(bs[j]), **kw)
                 torch.cuda.current_stream().synchronize()
         except BaseException as e:  # noqa: BLE001 - handed to the test's thread
             errors.append(e)
@@ -1341,8 +1348,11 @@ def test_graph_route_threads_on_one_key(graph_blocks, monkeypatch, streams):
     torch.cuda.synchronize()
     assert not errors, errors
     for j, w in enumerate(want):
-        _same_bits(got[j], w)
-    assert len(graph_blocks) == (2 if streams == "two streams" else 1)
+        same(got[j], w)
+    streams_used = {key[2] for key in graph_blocks}
+    assert len(streams_used) == (2 if streams == "two streams" else 1)
+    if loop == "pcg":  # one body, so one key a stream
+        assert len(graph_blocks) == len(streams_used)
 
 
 @pytest.mark.cuda
@@ -1741,3 +1751,89 @@ def test_pcg_body_records_match_its_counter(graph_blocks):
         calls, on_kernels = (a - c for a, c in zip(_pcg_counts(), counts))
         records = sum(e.count for e in prof.key_averages() if any(k in e.key for k in PCG_KERNELS))
         assert calls == on_kernels == 96 and records == 4 * on_kernels
+
+
+def _same_adaptive_bits(a, b):
+    _same_bits(a, b)
+    for u, v in ((a.nosl_trace, b.nosl_trace), (a.k_trace, b.k_trace), (a.final_k, b.final_k)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("system", ["laplace", "advection"])
+def test_adaptive_step_graphs_equal_the_eager_loop(graph_blocks, monkeypatch, system, dtype, batch):
+    """The adaptive loop's steps as CUDA graphs (a key's first step warms
+    up, its second is captured, the rest replay; on the advection stencil
+    the guard rolls back and the half-steps run eagerly between replays,
+    and a batch's members step at different k) against every step launched
+    eagerly: three requests on one operator, bit for bit, with the same
+    bodies and host reads, and every step after a key's first replayed.
+    The first result is untouched by the later requests."""
+    from krylov_tpu_torch import solvers
+    from krylov_tpu_torch.solvers import _common
+
+    A = (_advection("cuda") if system == "advection" else fixtures.laplace2d(24, constant=True, device="cuda"))
+    A = StencilMatrix(A.coef.to(dtype), A.stencil, A.grid)
+    k = 6 if system == "advection" else 4
+    tol = {torch.float64: 1e-10, torch.float32: 1e-5}[dtype]
+    bs = [_graph_batch(A, seed, batch) for seed in (41, 42, 46)]
+    A.matvec(bs[0])  # K1's weights are read once an operator, before the counts
+    kw = dict(k=k, tol=tol, maxiter=400)
+    before = _graph_counts()
+    graph = [solvers.adaptivekskipmrr_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+    on_graph = _since(before)
+    first_x = graph[0].x.clone()
+    with monkeypatch.context() as m:
+        m.setattr(_common, "step_route", lambda state: False)
+        before = _graph_counts()
+        eager = [solvers.adaptivekskipmrr_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+        on_eager = _since(before)
+    for g, e in zip(graph, eager):
+        _same_adaptive_bits(g, e)
+    assert torch.equal(graph[0].x, first_x)
+    assert on_graph[:3] == on_eager[:3] and on_eager[3:6] == (0, 0, 0)
+    captures, replays, bodies = on_graph[3:6]
+    assert captures >= 1 and replays == bodies and on_graph[0] - replays >= len(graph_blocks)
+    if system == "advection":
+        assert all(bool((e.final_k < k).all()) for e in eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restarts", [0, 1])
+@pytest.mark.parametrize("form", ["grid", "constant"])
+def test_mesh_adaptive_step_graphs_equal_the_eager_loop(nccl_mesh, graph_blocks, monkeypatch, form, restarts):
+    """solve_device(mesh=) of adaptive k-skip MrR in an NCCL world of one,
+    its steps replayed as CUDA graphs with their all-reduces captured,
+    against the eager single-device loop on the same card (every step
+    launched from Python): two requests on one operator (the second replays
+    from its first step), counts, traces, k and x bit for bit, with
+    ``restarts=1`` too (its first solve stops at maxiter 80, short of tol,
+    so the defect solve runs; the true residuals, all-reduced on the mesh,
+    within 1e-13).  The mesh's all-reduces are those of its eager route:
+    each replay adds what its capture recorded."""
+    from krylov_tpu_torch.context import all_reduce
+    from krylov_tpu_torch.solvers import _common
+
+    A = fixtures.laplace2d(32, constant=form == "constant", device="cuda")
+    bs = [_rhs(A.shape[0], seed, "cuda") for seed in (14, 15)]
+    kw = dict(method="adaptivekskipmrr", k=4, tol=1e-9, maxiter=80 if restarts else 2000, restarts=restarts)
+    reduces = {}
+    with monkeypatch.context() as m:
+        m.setattr(_common, "step_route", lambda state: False)
+        eager = [krylov_tpu_torch.solve_device(A, b, fused=False, **kw) for b in bs]
+        before = all_reduce.calls
+        for b in bs:
+            krylov_tpu_torch.solve_device(A, b, mesh=nccl_mesh, **kw)
+        reduces["eager"] = all_reduce.calls - before
+    before, calls = _graph_counts(), all_reduce.calls
+    mesh = [krylov_tpu_torch.solve_device(A, b, mesh=nccl_mesh, **kw) for b in bs]
+    on_mesh, reduces["graph"] = _since(before), all_reduce.calls - calls
+    for s, e in zip(mesh, eager):
+        _same_adaptive_bits(s, e)
+        if restarts:
+            assert int(s.iterations) > 80 and bool(s.converged)
+            torch.testing.assert_close(s.true_residual, e.true_residual, rtol=1e-13, atol=0)
+    assert on_mesh[4] >= 1 and on_mesh[4] == on_mesh[5]
+    assert reduces["graph"] == reduces["eager"] > 0

@@ -27,6 +27,11 @@ For each solve case:
 - all-reduces an (outer) iteration equal to the reductions of the JAX
   loop body (ALLREDUCES), read from two solves at tol 0 that differ only in
   maxiter.
+``restarts=`` under ``mesh=`` is held against the port's single-device
+``restarts=`` (RESTARTS); the sharded operator's cache against its
+promises; and the adaptive loop's steps through an emulation of their CUDA
+graph route (``_step_graphs``) against the eager mesh loop, bit for bit and
+count for count (STEP_CASES).
 The sharded matvec of each container is held against the dense product
 (rtol 1e-12), and each rank's shard_operator bitwise against the JAX
 package's, cut by from_jax_operator.  Each world also runs the port's dry
@@ -37,6 +42,8 @@ diagnostic runs as a user runs it, on worlds of 1 and 2 gloo ranks.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import pickle
@@ -135,13 +142,27 @@ PROBED = sorted(c for c in SOLVES if CASES[c]["refine"] == 0)
 MATVECS = [(s, P) for P in (2, 4) for s in ("lap2d", "lap2d-const", "lap3d", "lap3d-const", "dia012", "ell",
                                              "hyb", "dense")] + [("lap2d-16x18", 4)]
 ERRORS = {
-    "restarts": (ValueError, "restarts= is single-device only"),
     "chunk_iters": (ValueError, "chunk_iters= is single-device only"),
     "fused": (ValueError, "fused= and mesh= are mutually exclusive"),
     "batched-fused": (ValueError, "fused= and mesh= are mutually exclusive"),
-    "device-restarts": (ValueError, "restarts= is single-device only"),
     "not-divisible": (ValueError, "not divisible by n_devices"),
 }
+# restarts=1 under mesh= against the port's single-device restarts=1: the
+# first solve stops at maxiter, short of RESTARTS_TOL, so the defect solve
+# runs and brings the true residual below it
+RESTARTS = {
+    "adaptivekskipmrr2-lap2d-const": ("lap2d-const", "adaptivekskipmrr", 2, 40),
+    "adaptivekskipmrr2-lap3d-const": ("lap3d-const", "adaptivekskipmrr", 2, 24),
+}
+RESTARTS_TOL = 1e-8
+# the adaptive loop's steps through the emulated graph route: (system, k);
+# on the advection stencil the guard rolls back
+STEP_CASES = {"adaptivekskipmrr2-lap2d-const": ("lap2d-const", 2), "adaptivekskipmrr6-advection": ("advection", 6)}
+STEP_MAXITER = 40  # both cases stop there; the advection case has rolled back from k = 6 to 3 by then
+# the counters a step moves, read before and after each route
+STEP_COUNTERS = (("collectives", "calls"), ("sharded_matvec", "calls"), ("sharded_matvec", "halo_bytes"),
+                 ("eager_bodies", "calls"), ("host_read", "calls"), ("eager_graph", "captures"),
+                 ("eager_graph", "replays"), ("eager_graph", "bodies"))
 
 
 def _rhs(case, n):
@@ -241,11 +262,9 @@ def _errors(mesh, fx):
     A = fx.laplace2d(8)
     b = np.ones(64)
     calls = {
-        "restarts": lambda: krylov_tpu_torch.solve(A, b, mesh=mesh, restarts=1),
         "chunk_iters": lambda: krylov_tpu_torch.solve(A, b, mesh=mesh, chunk_iters=5),
         "fused": lambda: krylov_tpu_torch.solve(A, b, mesh=mesh, fused=True),
         "batched-fused": lambda: krylov_tpu_torch.solve_batched(A, np.ones((2, 64)), mesh=mesh, fused=True),
-        "device-restarts": lambda: krylov_tpu_torch.solve_device(A, b, mesh=mesh, restarts=1),
         "not-divisible": lambda: shard_operator(fx.poisson1d(101), mesh),
     }
     out = {}
@@ -290,6 +309,139 @@ def _degenerate(mesh, fx, cv):
     return out
 
 
+def _restarts(mesh, fx, cv):
+    """The RESTARTS cases as this rank saw them: solve_device with
+    ``restarts=1`` under the mesh (this rank's rows), the single-device
+    solve_device of the same system with and without the defect pass."""
+    out = {}
+    for name, (system, method, k, maxiter) in RESTARTS.items():
+        A = SYSTEMS[system](fx, cv)
+        b = torch.from_numpy(np.random.default_rng(12).standard_normal(A.shape[0]))
+        kw = dict(method=method, k=k, tol=RESTARTS_TOL, maxiter=maxiter, restarts=1, fused=False)
+        out[name] = dict(local=_result(krylov_tpu_torch.solve_device(A, b, mesh=mesh, **kw)),
+                         single=_result(krylov_tpu_torch.solve_device(A, b, **kw)),
+                         first=int(krylov_tpu_torch.solve_device(A, b, **dict(kw, restarts=0)).iterations))
+    return out
+
+
+def _operator_cache(mesh, fx):
+    """The sharded operator's cache: the same object for the same operator
+    (a solve between included), another for another operator, a new one
+    once the operator's coefficients change in place (and the solve
+    follows the change), and gone once its operator is."""
+    import gc
+    import weakref
+
+    from krylov_tpu_torch.dist.solve import sharded_operator
+
+    A, B = fx.laplace2d(8), fx.laplace2d(8, constant=True)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    kw = dict(method="cg", tol=1e-12)
+    op, _ = sharded_operator(A, mesh, b)
+    before = krylov_tpu_torch.solve_device(A, b, mesh=mesh, **kw).x
+    out = dict(same=sharded_operator(A, mesh, b)[0] is op, other=sharded_operator(B, mesh, b)[0] is not op)
+    A.coef[2].mul_(1.5)  # the diagonal, in place: a new system
+    after = krylov_tpu_torch.solve_device(A, b, mesh=mesh, **kw).x
+    rows = slice(mesh.get_local_rank() * after.shape[0], (mesh.get_local_rank() + 1) * after.shape[0])
+    want = krylov_tpu_torch.solve_device(A, b, **kw).x[rows]  # a mesh solve returns the rank's rows
+    new = sharded_operator(A, mesh, b)[0]
+    out["changed"] = new is not op and sharded_operator(A, mesh, b)[0] is new
+    out["follows"] = bool(torch.linalg.norm(after - want) <= 1e-9 * torch.linalg.norm(want)
+                          and torch.linalg.norm(after - before) > 0.1 * torch.linalg.norm(before))
+    gone = weakref.ref(new)
+    del A, op, new
+    gc.collect()
+    out["dropped"] = gone() is None
+    return out
+
+
+class _Stream:
+    cuda_stream = 0
+
+    def wait_stream(self, other):
+        pass
+
+
+@contextlib.contextmanager
+def _step_graphs():
+    """``replay_step``'s graph route on CPU tensors, counted as on the card
+    (tests/test_torch_graph.py emulates the block runner's the same way):
+    the rule engaged, streams and devices no-ops, an empty cache of keys.
+    A "capture" runs the step once with the stream taken as capturing, so
+    its counts land in ``tracing.recorded``; a replay runs it again the
+    same way, so that its counts reach ``tracing.totals`` only through
+    ``tracing.credit`` of what the capture recorded, as a CUDA graph's
+    replay counts nothing itself."""
+    from krylov_tpu_torch import tracing
+    from krylov_tpu_torch.solvers import _common
+
+    capturing = [False]
+
+    def as_captured(fn):
+        capturing[0] = True
+        try:
+            fn()
+        finally:
+            capturing[0] = False
+
+    def record(fn, device, pool=None):
+        as_captured(fn)
+        return lambda: as_captured(fn)
+
+    patches = {
+        (_common, "step_route"): lambda state: True, (_common, "_record"): record,
+        (_common, "_side_stream"): lambda device: _Stream(), (_common, "_BLOCKS"): collections.OrderedDict(),
+        (tracing, "_capturing"): lambda: capturing[0], (torch.cuda, "current_stream"): lambda *a: _Stream(),
+        (torch.cuda, "stream"): lambda s: contextlib.nullcontext(),
+        (torch.cuda, "device"): lambda d: contextlib.nullcontext(),
+    }
+    saved = {key: getattr(*key) for key in patches}
+    for (mod, attr), value in patches.items():
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for (mod, attr), value in saved.items():
+            setattr(mod, attr, value)
+
+
+def _advection():
+    """The non-normal 16x16 advection-like stencil of tests/test_kernels.py
+    (grid-coefficient form): the adaptive guard rolls back on it."""
+    from krylov_tpu_torch.sparse import StencilMatrix
+
+    g, eps = (16, 16), 0.5
+    iy, ix = np.arange(g[0])[:, None], np.arange(g[1])[None, :]
+    coef = np.stack([-(1 + eps) * np.broadcast_to(iy > 0, g), -(1 + eps) * np.broadcast_to(ix > 0, g),
+                     np.full(g, 4.5), -(1 - eps) * np.broadcast_to(ix < g[1] - 1, g),
+                     -(1 - eps) * np.broadcast_to(iy < g[0] - 1, g)]).astype(np.float64)
+    return StencilMatrix(torch.from_numpy(coef), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), g)
+
+
+def _emulated_steps(mesh, fx, cv):
+    """Each STEP_CASE's solve_device under the mesh on two right-hand
+    sides (one operator: the second request replays the first's graphs),
+    eagerly and through ``_step_graphs``: the results and what the
+    counters of STEP_COUNTERS moved, by route."""
+    from krylov_tpu_torch import tracing
+
+    def reading():
+        return [getattr(getattr(tracing.totals, group), field) for group, field in STEP_COUNTERS]
+
+    out = {}
+    for name, (system, k) in STEP_CASES.items():
+        A = _advection() if system == "advection" else SYSTEMS[system](fx, cv)
+        bs = [torch.from_numpy(np.random.default_rng(seed).standard_normal(A.shape[0])) for seed in (1, 2)]
+        kw = dict(method="adaptivekskipmrr", k=k, tol=1e-10, maxiter=STEP_MAXITER, mesh=mesh)
+        out[name] = {}
+        for route in ("eager", "graph"):
+            with _step_graphs() if route == "graph" else contextlib.nullcontext():
+                before = reading()
+                results = [_result(krylov_tpu_torch.solve_device(A, b, **kw)) for b in bs]
+                out[name][route] = dict(results=results, counts=[a - c for a, c in zip(reading(), before)])
+    return out
+
+
 def _rank_main(world: int, rank: int, store: str, out_dir: str) -> None:
     import torch.distributed as dist
 
@@ -310,6 +462,9 @@ def _rank_main(world: int, rank: int, store: str, out_dir: str) -> None:
             if P == world:
                 record["matvecs"][system] = _run_matvec(system, mesh, fixtures, convert)
         record["degenerate"] = _degenerate(mesh, fixtures, convert)
+        record["restarts"] = _restarts(mesh, fixtures, convert)
+        record["cache"] = _operator_cache(mesh, fixtures)
+        record["steps"] = _emulated_steps(mesh, fixtures, convert)
         record["dryrun"] = dryrun_multichip(mesh)
     finally:
         dist.destroy_process_group()
@@ -607,6 +762,60 @@ def test_mesh_errors(worlds, name, P):
     for r in worlds.ranks(P):
         got = r["errors"][name]
         assert got is not None and got[0] == kind.__name__ and match in got[1], got
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("name", sorted(RESTARTS))
+def test_mesh_restarts_equal_single_device(worlds, name, P):
+    """``restarts=1`` under the mesh: the defect solve runs (the first
+    solve stops short of tol at maxiter), and solve_device gives the
+    single-device solve's count and a true residual below tol on every
+    rank, the same traces on every rank, and its rows, put together, are
+    x within 1e-10 of its largest entry."""
+    ranks = [r["restarts"][name] for r in worlds.ranks(P)]
+    for got in ranks:
+        one, local = got["single"], got["local"]
+        assert got["first"] < one["iterations"] == local["iterations"]
+        assert local["true_residual"] < RESTARTS_TOL and local["converged"] and one["converged"]
+        for field in ("iterations", "residual_trace", "nosl_trace", "k_trace", "true_residual"):
+            np.testing.assert_array_equal(local[field], ranks[0]["local"][field], err_msg=field)
+    x, one = np.concatenate([got["local"]["x"] for got in ranks]), ranks[0]["single"]["x"]
+    assert np.abs(x - one).max() <= 1e-10 * np.abs(one).max()
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_sharded_operator_cache(worlds, P):
+    """One sharded operator for each (A, mesh) while A lives and is not
+    changed: a request that comes back finds it, another A gets its own,
+    an A changed in place is sharded anew and solved as changed, and
+    dropping A drops it."""
+    for r in worlds.ranks(P):
+        assert r["cache"] == dict(same=True, other=True, changed=True, follows=True, dropped=True)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_emulated_step_graphs_equal_the_eager_mesh_loop(worlds, name, P):
+    """The adaptive loop under the mesh, two requests on one operator,
+    through the emulated graph route of its steps against the eager route:
+    every field of each result bitwise, and the same all-reduces, sharded
+    SpMVs, halo bytes, bodies and host reads, the replayed steps' counted
+    through what their capture recorded; the graph route captures and
+    replays, one body a replay.  On the advection stencil the guard rolls
+    back (k falls), and the rollbacks run eagerly between replays."""
+    for r in worlds.ranks(P):
+        runs = r["steps"][name]
+        eager, graph = runs["eager"], runs["graph"]
+        for g, e in zip(graph["results"], eager["results"]):
+            assert set(g) == set(e)
+            for field in e:
+                np.testing.assert_array_equal(g[field], e[field], err_msg=field)
+        assert graph["counts"][:5] == eager["counts"][:5] and eager["counts"][5:] == [0, 0, 0]
+        captures, replays, bodies = graph["counts"][5:]
+        assert captures >= 1 and replays >= 1 and bodies == replays
+        if name.endswith("advection"):
+            k = STEP_CASES[name][1]
+            assert all(e["final_k"] < k for e in eager["results"])
 
 
 @pytest.mark.parametrize("P", [2, 4])

@@ -192,19 +192,32 @@ def test_solve_restarts_info_f32():
     assert info["converged"] == (info["true_residual"] < 1e-5)
 
 
-def test_restarts_with_mesh_still_raise(tmp_path):
-    """mesh= is ported, restarts= stays single-device, with the JAX
-    package's error (a gloo world of one in this process, destroyed after)."""
+def test_restarts_with_mesh_in_a_world_of_one(tmp_path):
+    """restarts= under mesh= corrects on the rank's rows: in a gloo world of
+    one (in this process, destroyed after) solve and solve_device give the
+    single-device restarts=1's count and x, and a true residual below tol;
+    the first solve stops at maxiter short of tol, so the defect solve
+    runs.  chunk_iters= with it still raises."""
     import torch.distributed as dist
 
     from krylov_tpu_torch.dist import make_mesh
 
-    A = fixtures.laplace2d(6)
+    A = fixtures.laplace2d(12)
+    b = np.random.default_rng(3).standard_normal(144)
+    kw = dict(method="mrr", tol=1e-9, maxiter=30, restarts=1)
+    want = krylov_tpu_torch.solve_device(A, b, fused=False, **kw)
+    first = krylov_tpu_torch.solve_device(A, b, fused=False, **dict(kw, restarts=0))
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
     try:
         mesh = make_mesh("cpu")
-        for fn in (krylov_tpu_torch.solve, krylov_tpu_torch.solve_device):
-            with pytest.raises(ValueError, match="restarts= is single-device only"):
-                fn(A, np.ones(36), mesh=mesh, restarts=1)
+        got = krylov_tpu_torch.solve_device(A, b, mesh=mesh, **kw)
+        x, info = krylov_tpu_torch.solve(A, b, mesh=mesh, **kw)
+        with pytest.raises(ValueError, match="chunk_iters= is single-device only"):
+            krylov_tpu_torch.solve(A, b, mesh=mesh, chunk_iters=5, **kw)
     finally:
         dist.destroy_process_group()
+    assert int(first.iterations) < int(want.iterations) == int(got.iterations) == info["iterations"]
+    assert bool(got.converged) and info["converged"] and float(got.true_residual) < 1e-9
+    assert info["true_residual"] < 1e-9
+    torch.testing.assert_close(got.x, want.x, rtol=1e-12, atol=1e-15)
+    torch.testing.assert_close(x, want.x, rtol=1e-12, atol=1e-15)

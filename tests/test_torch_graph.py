@@ -10,8 +10,10 @@ Here that route is emulated: its
 streams are no-ops and a "capture" keeps the block's Python function, which
 each replay calls on the static state, so the schedule, the copies in and
 out of the static state, the cache's keys and the counters are held on the
-CPU against the eager route, bit for bit.  tests/test_torch_cuda.py holds
-the captured graphs on the card.
+CPU against the eager route, bit for bit.  The adaptive k-skip loop's
+steps (``replay_step``: an outer iteration and its guard's flags, a graph
+a k) are emulated the same way.  tests/test_torch_cuda.py holds the
+captured graphs on the card.
 """
 
 import collections
@@ -54,7 +56,8 @@ def emulated(monkeypatch):
     the block's function (a capture launches nothing; each replay runs the
     block).  Returns the block cache, empty at the start."""
     monkeypatch.setattr(_common, "graph_route", lambda ctx, state, steps: steps >= SYNC and ctx.group is None)
-    monkeypatch.setattr(_common, "_record", lambda fn, device: fn)
+    monkeypatch.setattr(_common, "step_route", lambda state: True)
+    monkeypatch.setattr(_common, "_record", lambda fn, device, pool=None: fn)
     monkeypatch.setattr(_common, "_side_stream", lambda device: _Stream())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
@@ -250,7 +253,7 @@ def test_emulated_replays_add_what_the_capture_recorded(emulated, monkeypatch):
             tracing.count(group, *fields, n=k)
         return n + 1, n + 1 >= 10**9
 
-    def record(fn, device):
+    def record(fn, device, pool=None):
         capturing[0] = True
         try:
             fn()
@@ -340,7 +343,7 @@ def test_emulated_freed_operator_drops_its_block(emulated, monkeypatch):
     """A block holds its operators weakly: freeing the operator drops it.
     (The captured replay here holds nothing, as a CUDA graph holds no
     Python object; the emulated one holds the body and its operator.)"""
-    monkeypatch.setattr(_common, "_record", lambda fn, device: lambda: None)
+    monkeypatch.setattr(_common, "_record", lambda fn, device, pool=None: lambda: None)
     A = _system()
     b = _rhs(A, 1)
     solvers.cg_kernel(A, b, torch.zeros_like(b), tol=0.0, maxiter=96)
@@ -386,6 +389,123 @@ def test_emulated_chunked_solve_equals_eager(emulated, monkeypatch, method):
     assert info["chunks"] == info_e["chunks"] >= 2
     assert info["iterations"] == info_e["iterations"]
     np.testing.assert_array_equal(info["residual"], info_e["residual"])
+
+
+def _advection():
+    """The non-normal 16x16 advection-like stencil of tests/test_kernels.py
+    (grid-coefficient form): the adaptive guard rolls back on it."""
+    from krylov_tpu_torch.sparse import StencilMatrix
+
+    g, eps = (16, 16), 0.5
+    iy, ix = np.arange(g[0])[:, None], np.arange(g[1])[None, :]
+    coef = np.stack([-(1 + eps) * np.broadcast_to(iy > 0, g), -(1 + eps) * np.broadcast_to(ix > 0, g),
+                     np.full(g, 4.5), -(1 - eps) * np.broadcast_to(ix < g[1] - 1, g),
+                     -(1 - eps) * np.broadcast_to(iy < g[0] - 1, g)]).astype(np.float64)
+    return StencilMatrix(torch.from_numpy(coef), ((-1, 0), (0, -1), (0, 0), (0, 1), (1, 0)), g)
+
+
+# the adaptive loop's cases: (system, k, batch); on the advection stencil
+# the guard rolls back, and a batch's members then step at different k
+ADAPTIVE = {
+    "laplace k=2": (lambda: _system(), 2, None),
+    "laplace k=2 batch": (lambda: _system(), 2, 3),
+    "advection k=6": (_advection, 6, None),
+    "advection k=6 batch": (_advection, 6, 3),
+}
+
+
+def _same_adaptive(a, b):
+    _same(a, b)
+    assert torch.equal(a.nosl_trace, b.nosl_trace) and torch.equal(a.k_trace, b.k_trace)
+    assert torch.equal(a.final_k, b.final_k)
+
+
+@pytest.mark.parametrize("case", sorted(ADAPTIVE))
+def test_emulated_adaptive_steps_equal_eager(emulated, monkeypatch, case):
+    """The adaptive loop's steps through the emulated graph route, three
+    requests on one operator (a key's first step warms up, its second is
+    captured, the rest replay; a rollback's half-step runs eagerly between
+    them) against the eager route, bit for bit, with the same bodies (one
+    an outer iteration) and reads; every step after a key's first is a
+    replay, and no result aliases the graphs' static buffers."""
+    make, k, batch = ADAPTIVE[case]
+    A = make()
+    bs = [_rhs(A, seed) if batch is None else torch.stack([_rhs(A, seed + j) for j in range(batch)])
+          for seed in (1, 2, 5)]
+    kw = dict(k=k, tol=1e-10, maxiter=400)
+    before = _counts()
+    graph = [solvers.adaptivekskipmrr_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+    on_graph = _delta(before)
+    first_x = graph[0].x.clone()
+    with monkeypatch.context() as m:
+        m.setattr(_common, "step_route", lambda state: False)
+        before = _counts()
+        eager = [solvers.adaptivekskipmrr_kernel(A, b, torch.zeros_like(b), **kw) for b in bs]
+        on_eager = _delta(before)
+    for g, e in zip(graph, eager):
+        _same_adaptive(g, e)
+    assert torch.equal(graph[0].x, first_x)
+    captured = [block for block in emulated.values() if block.replay is not None]
+    assert all(g.x is not t for g in graph for block in captured for t in block.static)
+    assert on_graph[:2] == on_eager[:2] and on_eager[2:] == (0, 0, 0)
+    captures, replays, bodies = on_graph[2:]
+    assert len(captured) >= 1 and replays == bodies
+    # the eager steps of the graph route are each key's first, and each
+    # key is captured once, unless a full cache dropped it and it came back
+    warm_ups = on_graph[0] - replays
+    if len(emulated) < _common.GRAPHS_KEPT:
+        assert (warm_ups, captures) == (len(emulated), len(captured))
+    else:
+        assert warm_ups >= len(emulated) and captures >= len(captured)
+    if case.startswith("advection"):
+        assert all(bool((e.final_k < k).all()) for e in eager)
+
+
+def test_emulated_step_replays_add_what_the_capture_recorded(emulated, monkeypatch):
+    """A step's counts (here K1's launches and the all-reduces): its
+    capture moves only ``tracing.recorded``, and each replay adds what it
+    recorded to ``tracing.totals``, with one body and one replay."""
+    capturing = [False]
+    monkeypatch.setattr(tracing, "_capturing", lambda: capturing[0])
+
+    def body(state):  # no closure: the step takes a key
+        tracing.count("stencil_matvec_2d", "launches", n=3)
+        tracing.count("collectives", n=2)
+        return (state[0] + 1,)
+
+    def record(fn, device, pool=None):
+        capturing[0] = True
+        try:
+            fn()
+        finally:
+            capturing[0] = False
+        return lambda: None
+
+    monkeypatch.setattr(_common, "_record", record)
+    totals = tracing.totals
+    before = (totals.stencil_matvec_2d.launches, totals.collectives.calls, _counts())
+    state = (torch.zeros(()),)
+    for _ in range(5):  # a warm-up, then a capture and four replays
+        state = _common.replay_step(body, state)
+    assert (totals.stencil_matvec_2d.launches - before[0], totals.collectives.calls - before[1]) == (15, 10)
+    assert _delta(before[2]) == (5, 0, 1, 4, 4)
+
+
+def test_emulated_step_state_outlives_the_next_replay(emulated):
+    """What a replayed step returns is the caller's own: the key's next
+    replay, another request's between two of this one's steps, leaves it
+    as it was, and the request carries on from its own state."""
+
+    def body(state):  # no closure: the step takes a key
+        return (state[0] * 2 + 1,)
+
+    mine = (torch.zeros(3),)
+    for _ in range(3):  # a warm-up, the capture and a replay
+        mine = _common.replay_step(body, mine)
+    kept = mine[0].clone()
+    theirs = _common.replay_step(body, (torch.full((3,), 100.0),))
+    assert torch.equal(mine[0], kept) and torch.equal(theirs[0], torch.full((3,), 201.0))
+    assert torch.equal(_common.replay_step(body, mine)[0], kept * 2 + 1)
 
 
 class _OnCard(torch.Tensor):

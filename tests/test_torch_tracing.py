@@ -316,7 +316,7 @@ def test_a_group_the_runner_never_names_is_credited_once_a_replay(monkeypatch):
     stream = type("Stream", (), {"cuda_stream": 0, "wait_stream": lambda self, other: None})()
     capturing = [False]
 
-    def record(fn, device):
+    def record(fn, device, pool=None):
         capturing[0] = True
         try:
             fn()
